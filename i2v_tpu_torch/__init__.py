@@ -1,0 +1,15 @@
+"""i2v_tpu_torch — the PyTorch and CUDA port of i2v_tpu, for NVIDIA Hopper.
+
+The JAX package ``i2v_tpu`` is the reference each part of the port is held
+against; this package imports neither it nor JAX. Layers:
+  - ``i2v_tpu_torch.ops``      — pixel and loss tensor functions, and the
+                                 hand-written CUDA kernels (``csrc/``) with
+                                 their wrappers
+  - ``i2v_tpu_torch.models``   — image backbones (NCHW) with explicit taps
+  - ``i2v_tpu_torch.attacks``  — the image-guided I2V / ENS-I2V attacks
+  - ``i2v_tpu_torch.data``     — synthetic clips and the batcher
+  - ``i2v_tpu_torch.utils``    — paths, artifact protocol, throughput meter
+  - ``i2v_tpu_torch.cli``      — ``image_main``
+"""
+
+__version__ = "0.1.0"

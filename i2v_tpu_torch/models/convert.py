@@ -1,0 +1,98 @@
+"""Weight converters into the port's modules.
+
+``from_jax_params`` loads the JAX package's Flax parameter tree
+(``{"params": {...}}`` of numpy arrays) into a port module: the module names
+its submodules as the Flax tree names them, so a parameter ``a.b.weight``
+comes from ``params["a"]["b"]["kernel"]`` and ``a.b.bias`` from
+``params["a"]["b"]["bias"]``. Layouts change on the way:
+
+  conv kernel  (kH, kW, I, O) → (O, I, kH, kW)
+  dense kernel (I, O)         → (O, I)
+  dense kernel fed by a flatten: the input index runs over H·W·C in the JAX
+  package and over C·H·W here (the inverse of
+  ``i2v_tpu.models.convert.dense_kernel_from_flatten``).
+
+``fold_bn`` folds a BatchNorm into the preceding conv, as the JAX package's
+converter does, so that a torchvision state_dict can feed the port later.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+BN_EPS = 1e-5
+
+
+def fold_bn(conv_w: np.ndarray, conv_b: Optional[np.ndarray], bn: Mapping,
+            prefix: str) -> tuple[np.ndarray, np.ndarray]:
+    """Fold a BN layer (torch names ``{prefix}.weight/bias/running_mean/
+    running_var``) into the preceding conv's (O, ...) weight + bias:
+    W' = W·γ/√(σ²+ε) per out-channel, b' = β − μ·γ/√(σ²+ε) + b·γ/√(σ²+ε)."""
+    def arr(t):
+        return t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
+
+    gamma = arr(bn[f"{prefix}.weight"])
+    beta = arr(bn[f"{prefix}.bias"])
+    mean = arr(bn[f"{prefix}.running_mean"])
+    var = arr(bn[f"{prefix}.running_var"])
+    scale = gamma / np.sqrt(var + BN_EPS)
+    shape = (-1,) + (1,) * (conv_w.ndim - 1)
+    w = conv_w * scale.reshape(shape)
+    b = beta - mean * scale
+    if conv_b is not None:
+        b = b + conv_b * scale
+    return w, b
+
+
+def _flatten_leaves(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten_leaves(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _to_port_layout(name: str, w: np.ndarray, flatten_fed: Mapping[str, tuple]) -> np.ndarray:
+    if w.ndim == 4:
+        return np.transpose(w, (3, 2, 0, 1))
+    if w.ndim == 2:
+        owner = name.rsplit(".", 1)[0]
+        if owner in flatten_fed:
+            c, h, ww = flatten_fed[owner]
+            o = w.shape[1]
+            return w.T.reshape(o, h, ww, c).transpose(0, 3, 1, 2).reshape(o, c * h * ww)
+        return w.T
+    return w
+
+
+def from_jax_params(module: nn.Module, flax_params: Mapping) -> nn.Module:
+    """Copy a Flax parameter tree into ``module`` in place and return it.
+    Raises unless every port parameter gets a value of its shape and every
+    Flax leaf is used."""
+    tree = flax_params["params"] if "params" in flax_params else flax_params
+    leaves = _flatten_leaves(tree)
+    flatten_fed = getattr(module, "flatten_fed", {})
+    used = set()
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            owner, kind = name.rsplit(".", 1)
+            key = f"{owner}.{'kernel' if kind == 'weight' else kind}"
+            if key not in leaves:
+                raise KeyError(f"no Flax parameter {key!r} for port parameter {name!r}")
+            w = _to_port_layout(name, leaves[key], flatten_fed)
+            if tuple(w.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: Flax {key} gives shape {w.shape}, "
+                                 f"the port expects {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(w, dtype=np.float32)))
+            used.add(key)
+    unused = sorted(set(leaves) - used)
+    if unused:
+        raise KeyError(f"Flax parameters with no port counterpart: {unused}")
+    return module

@@ -1,0 +1,109 @@
+"""Image-model registry: names, depth→tap tables, construction, weights.
+
+PyTorch counterpart of :mod:`i2v_tpu.models.registry` for the four ENS
+surrogates. Depth indices map onto explicit tap keys:
+
+  resnet      depth d → stage d output            (layer{d}[-1])
+  alexnet     {1:1, 2:4, 3:7, 4:11}               (features[i] ReLU)
+  vgg         {1:1, 2:11, 3:20, 4:29}             (features[i] ReLU)
+  squeezenet  {1:3, 2:6, 3:9, 4:12}               (Fire expand3x3 ReLU)
+
+Weights: the port loads no pretrained checkpoints yet (the JAX package's
+are Flax msgpack files; :func:`.convert.fold_bn` is the start of a
+torchvision route). Weights are random, drawn on the CPU from a seeded
+``torch.Generator`` (so the same seed gives the same weights on every
+device); for full-width models a warning says so.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from typing import Mapping, Sequence
+
+import torch
+import torch.nn as nn
+
+from . import resnet as _resnet
+from . import vgg as _vgg
+from .api import ImageModel
+
+IMAGE_MODEL_NAMES = ("resnet", "vgg", "alexnet", "squeezenet", "densenet", "vit")
+
+DEPTH_TO_TAP: Mapping[str, Mapping[int, int]] = {
+    "resnet": {1: 1, 2: 2, 3: 3, 4: 4},
+    "alexnet": {1: 1, 2: 4, 3: 7, 4: 11},
+    "vgg": {1: 1, 2: 11, 3: 20, 4: 29},
+    "squeezenet": {1: 3, 2: 6, 3: 9, 4: 12},
+    "densenet": {1: 1, 2: 2, 3: 3, 4: 4},
+    "vit": {1: 2, 2: 5, 3: 8, 4: 11},
+}
+
+# Flax's default conv/dense init (lecun_normal): a normal truncated at ±2σ,
+# rescaled so that the variance is 1/fan_in.
+_TRUNC_STD_CORRECTION = 0.87962566103423978
+
+
+def build_image_model(name: str, depths: int | Sequence[int], *, truncate: bool = True,
+                      tiny: bool = False, input_hw: int = 224):
+    """Construct the module + ordered tap keys for reference-style (model
+    name, depth(s)). ``tiny=True`` builds a width-reduced variant for
+    checkpoint-free tests."""
+    list_depths = not isinstance(depths, int)
+    if isinstance(depths, int):
+        depths = [depths]
+    if name in ("densenet", "vit"):
+        raise NotImplementedError(
+            f"{name!r} is not ported yet (ROADMAP Queue 1, 'Rest')")
+    if name not in DEPTH_TO_TAP:
+        raise ValueError(f"unknown image model {name!r}; have {IMAGE_MODEL_NAMES}")
+    tap_keys = tuple(sorted(DEPTH_TO_TAP[name][d] for d in depths))
+    kw = dict(taps=tap_keys, truncate=truncate)
+    if name == "resnet":
+        module = _resnet.resnet_tiny(**kw) if tiny else _resnet.resnet101(**kw)
+    elif name == "vgg":
+        module = _vgg.VGG16(width_mult=0.125 if tiny else 1.0, input_hw=input_hw, **kw)
+    elif name == "alexnet":
+        module = _vgg.AlexNet(width_mult=0.125 if tiny else 1.0, input_hw=input_hw, **kw)
+    else:
+        # list depths (AENS) hook the whole Fire module — concat(e1,e3) —
+        # where scalar depths hook the expand3x3 ReLU (TPAMI_attack.py:197-200
+        # vs image_attacks.py:268-271)
+        module = _vgg.SqueezeNet11(width_mult=0.25 if tiny else 1.0,
+                                   fire_taps=list_depths, **kw)
+    return module, tap_keys
+
+
+def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every conv/linear weight from a truncated normal of variance
+    1/fan_in, in registration order, from ``generator``; zero the biases."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD_CORRECTION
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                nn.init.zeros_(m.bias)
+    return module
+
+
+def get_image_models(names: Sequence[str], depths: Mapping[str, int | Sequence[int]] | int,
+                     *, device: torch.device | str, truncate: bool = True,
+                     tiny: bool = False, input_hw: int = 224,
+                     seed: int = 0) -> list[ImageModel]:
+    """Build bundles for the reference's ``get_models(model_name_lists)`` call
+    sites (image_attacks.py:110-115), with depth selection attached, in eval
+    mode with frozen weights, on ``device``."""
+    bundles = []
+    for i, name in enumerate(names):
+        d = depths if isinstance(depths, int) else depths[name]
+        module, tap_keys = build_image_model(name, d, truncate=truncate, tiny=tiny,
+                                             input_hw=input_hw)
+        if not tiny:
+            warnings.warn(f"no pretrained checkpoint for {name!r}: the port loads none "
+                          "yet; using random init")
+        random_init_(module, torch.Generator().manual_seed(seed + i))
+        module = module.to(device).eval().requires_grad_(False)
+        bundles.append(ImageModel(name=name, module=module, tap_keys=tap_keys))
+    return bundles

@@ -1,0 +1,169 @@
+"""The port's I2V / ENS-I2V slice against the JAX package, end to end.
+
+The same weights (JAX → port through ``from_jax_params``) and the same numpy
+clips go through both attacks. The cosine objective starts at its flat
+maximum, where Adam's first quasi-sign steps amplify float32 noise into
+different pixel patterns, so what is compared is the cost trajectory
+(rtol 2e-4, as tests/test_i2v_parity.py holds the JAX package to its torch
+oracle), the ε-ball and [0,1] invariants, and the cost gradient at a generic
+modifier away from the clamp ties (atol 5e-4·max|g|).
+"""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import i2v_tpu.attacks as jattacks  # noqa: E402
+from i2v_tpu.models import get_image_models as jget_image_models  # noqa: E402
+from i2v_tpu.ops import losses as jlosses  # noqa: E402
+from i2v_tpu.ops import pallas_kernels as pk  # noqa: E402
+from i2v_tpu.ops import pixel as jpixel  # noqa: E402
+from i2v_tpu.utils import artifacts as jartifacts  # noqa: E402
+from i2v_tpu_torch import attacks  # noqa: E402
+from i2v_tpu_torch.models import ImageModel, build_image_model  # noqa: E402
+from i2v_tpu_torch.models.convert import from_jax_params  # noqa: E402
+from i2v_tpu_torch.ops import kernels, losses, pixel  # noqa: E402
+
+EPS = 16 / 255
+STEPS = 5
+HW = 64
+ENS_DEPTHS = {"resnet": 2, "vgg": 3, "squeezenet": 2, "alexnet": 3}
+ENS_NAMES = ["resnet", "vgg", "squeezenet", "alexnet"]
+
+
+def _both(names, depths):
+    """Tiny JAX bundles and their port twins, sharing weights."""
+    jbundles = jget_image_models(names, depths, tiny=True, input_hw=HW)
+    ported = []
+    for b in jbundles:
+        d = depths if isinstance(depths, int) else depths[b.name]
+        module, taps = build_image_model(b.name, d, tiny=True, input_hw=HW)
+        from_jax_params(module, jax.tree_util.tree_map(np.asarray, b.params))
+        ported.append(ImageModel(b.name, module.eval().requires_grad_(False), taps))
+    return jbundles, ported
+
+
+def _clips(seed):
+    clips01 = np.random.RandomState(seed).rand(1, 3, 4, HW, HW).astype(np.float32)
+    return clips01, np.asarray(jpixel.normalize(jnp.asarray(clips01), channel_axis=1))
+
+
+def _costs(atk, name="v"):
+    return [float(atk.loss_info[name][i]["cost"]) for i in range(STEPS)]
+
+
+def _check_invariants(adv_norm, clips01, costs):
+    adv01 = pixel.unnormalize(adv_norm, channel_axis=1).numpy()
+    assert adv01.shape == clips01.shape
+    assert adv01.min() >= -1e-5 and adv01.max() <= 1 + 1e-5
+    assert np.abs(adv01 - clips01).max() <= EPS + 1e-5
+    assert costs[-1] < costs[0]
+
+
+@pytest.mark.parametrize("method", ["i2v", "ens"])
+def test_attack_matches_jax(method):
+    if method == "i2v":
+        jb, pb = _both(["resnet"], 2)
+        jatk = jattacks.ImageGuidedFMDirection_Adam(jb, step_size=0.01, epsilon=EPS,
+                                                    steps=STEPS)
+        patk = attacks.ImageGuidedFMDirection_Adam(pb, step_size=0.01, epsilon=EPS,
+                                                   steps=STEPS)
+    else:
+        jb, pb = _both(ENS_NAMES, ENS_DEPTHS)
+        jatk = jattacks.ImageGuidedFML2_Adam_MultiModels(jb, epsilon=EPS, steps=STEPS)
+        patk = attacks.ImageGuidedFML2_Adam_MultiModels(pb, epsilon=EPS, steps=STEPS)
+    clips01, videos = _clips(7)
+    jatk(jnp.asarray(videos), jnp.asarray([0]), video_names=["v"])
+    kernels.reset_launches()
+    adv = patk(videos, np.asarray([0]), video_names=["v"])
+    assert kernels.launches == {"rebuild_fwd": 0, "rebuild_bwd": 0}  # CPU: plain path
+    np.testing.assert_allclose(_costs(patk), _costs(jatk), rtol=2e-4)
+    _check_invariants(adv, clips01, _costs(patk))
+    assert str(patk).startswith(jatk.attack)
+
+
+def test_ens_cost_gradient_matches_jax_at_generic_point():
+    jb, pb = _both(ENS_NAMES, ENS_DEPTHS)
+    rng = np.random.RandomState(3)
+    frames01 = rng.rand(4, HW, HW, 3).astype(np.float32)
+    modifier = (0.03 * np.sign(rng.randn(4, HW, HW, 3))).astype(np.float32)
+
+    clean_j = [jax.lax.stop_gradient(t) for b in jb for t in b.apply01_taps(jnp.asarray(frames01))[1]]
+
+    def cost_fn(mod):
+        adv01 = pk.rebuild_adv(jnp.asarray(frames01), mod, EPS)
+        return jlosses.i2v_cost([t for b in jb for t in b.apply01_taps(adv01)[1]], clean_j)
+
+    g_jax = np.asarray(jax.grad(cost_fn)(jnp.asarray(modifier)))
+
+    f = torch.from_numpy(frames01).permute(0, 3, 1, 2).contiguous()
+    m = torch.from_numpy(modifier).permute(0, 3, 1, 2).contiguous().requires_grad_(True)
+    with torch.no_grad():
+        clean_t = [t for b in pb for t in b.apply01_taps(f)[1]]
+    adv01 = kernels.rebuild_adv(f, m, EPS)
+    losses.i2v_cost([t for b in pb for t in b.apply01_taps(adv01)[1]], clean_t).backward()
+    g_port = m.grad.permute(0, 2, 3, 1).numpy()
+
+    scale = np.abs(g_jax).max()
+    assert scale > 0
+    np.testing.assert_allclose(g_port, g_jax, atol=5e-4 * scale)
+
+
+def test_cli_end_to_end_matches_jax_run_dir(tmp_path, monkeypatch):
+    from i2v_tpu.cli import image_main as jimage_main
+    from i2v_tpu_torch.cli import image_main
+
+    monkeypatch.setenv("I2V_TPU_OPT_PATH", str(tmp_path))
+    argv = ["--attack_method", "ImageGuidedFML2_Adam_MultiModels", "--step", "2", "--tiny",
+            "--data", "synthetic", "--n_synthetic", "2", "--batch_size", "1"]
+    run_dir = image_main.main(argv + ["--device", "cpu"])
+    assert run_dir == jimage_main.arg_parse(argv).adv_path
+    assert os.path.basename(run_dir) == "Image-ImageGuidedFML2_Adam_MultiModels-2-synthetic"
+    files = jartifacts.list_adv_files(run_dir)
+    assert files == ["0-adv.npy", "1-adv.npy"]
+    clips, labels = jartifacts.load_adv_batch(run_dir, files)
+    assert clips.shape == (2, 3, 8, 32, 32) and clips.dtype == np.float32
+    assert np.isfinite(clips).all() and labels.tolist() == [0, 1]
+    with open(os.path.join(run_dir, "loss_info_1.json")) as f:
+        info = json.load(f)
+    assert sorted(info) == ["synthetic_0", "synthetic_1"]
+    assert all(len(v) == 2 for v in info.values())
+
+
+def test_cli_profile_writes_a_trace_and_times_each_call(tmp_path, monkeypatch):
+    from i2v_tpu_torch.cli import image_main
+
+    monkeypatch.setenv("I2V_TPU_OPT_PATH", str(tmp_path))
+    args = image_main.arg_parse(["--tiny", "--step", "1", "--n_synthetic", "2", "--device", "cpu",
+                                 "--profile", str(tmp_path / "prof")])
+    image_main.run(args)
+    with open(tmp_path / "prof" / "trace.json") as f:
+        assert json.load(f)["traceEvents"]
+    tp = args.throughput
+    assert tp["calls"] == 2 and 0 < tp["last_call_s"] <= tp["elapsed_s"]
+
+
+def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
+    from i2v_tpu_torch.cli import image_main
+
+    monkeypatch.setenv("I2V_TPU_OPT_PATH", str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        image_main.main(["--tiny", "--step", "1", "--n_synthetic", "1", "--device", "cuda"])
+    assert not jartifacts.list_adv_files(
+        os.path.join(tmp_path, "Image-ImageGuidedFMDirection_Adam-1-synthetic"))
+
+
+def test_cli_rejects_methods_not_ported_yet(tmp_path, monkeypatch):
+    from i2v_tpu_torch.cli import image_main
+
+    monkeypatch.setenv("I2V_TPU_OPT_PATH", str(tmp_path))
+    for method in ("AENS_I2V_MF", "ImageGuidedStd_Adam"):
+        with pytest.raises(SystemExit):
+            image_main.arg_parse(["--attack_method", method])
