@@ -6,17 +6,25 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. Phases, each printing one line of facts; any failure
 raises and the script exits non-zero:
 
-  1. device  — a CUDA card is present; its name and power limit
-  2. build   — the hand-written kernels compile from i2v_tpu_torch/csrc/
-  3. kernels — each kernel is bit-identical to its plain PyTorch version at
-               the main path's shape, at ragged sizes and misaligned views,
-               with planted ties and NaNs; kernel and plain version timed
-               with CUDA events
-  4. slice   — 20-step full-width ENS-I2V through the port's CLI over two
-               synthetic clips; artifacts checked, and the launch counters
-               show that every Adam step went through both kernels
-  5. parity  — a tiny ENS-I2V run on the card and on the CPU from the same
-               seeds gives the same cost trajectory (rtol 1e-4)
+  1. device    — a CUDA card is present; its name and power limit
+  2. build     — the hand-written kernels compile from i2v_tpu_torch/csrc/,
+                 one nvcc for each source, all at once
+  3. kernels   — each kernel is bit-identical to its plain PyTorch version at
+                 the main paths' shapes, at ragged sizes and misaligned
+                 views, with planted ties and NaNs; kernel and plain version
+                 timed with CUDA events
+  4. slice     — 20-step full-width ENS-I2V through the port's image CLI over
+                 two synthetic clips; artifacts checked, and the launch
+                 counters show that every Adam step went through K1 and K2
+  5. parity    — a tiny ENS-I2V run on the card and on the CPU from the same
+                 seeds gives the same cost trajectory (rtol 1e-4)
+  6. whitebox  — 10-step BIM over two clips and 10-step MIFGSM over one,
+                 on full-width I3D-R50 (32x224^2, 400 classes) through the
+                 port's attack CLI; artifacts checked, the CE cost rose, and
+                 the counters show that every step went through K3
+  7. wb parity — a tiny I3D BIM run on the card and on the CPU from the same
+                 seed and weights: step-0 cost and input gradient, the cost
+                 trajectory and the share of pixels that differ
 
 The line before the last is a JSON object with each kernel's launches, error
 and times; the last line is {"ok": true, "device": {...}}.
@@ -39,6 +47,9 @@ MAIN_SHAPE = (32, 3, 224, 224)  # one clip's B·T frames, NCHW
 RAGGED_SIZES = (1, 127, 4097, 1_000_003)
 SLICE_STEPS = 20
 SLICE_CLIPS = 2
+CLIP_SHAPE = (1, 3, 32, 224, 224)  # one clip, (B, C, T, H, W): K3's main shape
+WB_RUNS = (("BIM", 2), ("MIFGSM", 1))  # (method, clips) at B=1
+WB_STEPS = 10
 TIMING_ITERS = 50
 SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's clock: longer than the enqueue
 
@@ -59,10 +70,13 @@ def phase_device() -> str:
 
 def phase_build(kernels) -> None:
     t0 = time.time()
-    lib = kernels.library()
-    regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
-    print(f"[build] {os.path.relpath(lib.path)} in {time.time() - t0:.2f} s "
-          f"(nvcc {lib.seconds:.2f} s); ptxas: {' | '.join(regs) or 'no report'}")
+    libs = kernels.build_all()
+    wall = time.time() - t0
+    for name, lib in libs.items():
+        regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
+        print(f"[build] {os.path.relpath(lib.path)} (nvcc {lib.seconds:.2f} s); "
+              f"ptxas: {' | '.join(regs) or 'no report'}")
+    print(f"[build] {len(libs)} sources in {wall:.2f} s wall, built in parallel")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -75,18 +89,20 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
+def _view(make, n: int, offset: int) -> torch.Tensor:
+    """``make(n + offset)[offset:]``: n elements, a view that starts
+    ``offset`` elements into a larger buffer (misaligned) when ``offset``
+    is not 0."""
+    return make(n + offset)[offset:]
+
+
 def _inputs(n: int, gen: torch.Generator, offset: int = 0):
     """clean in [0,1], modifier in [−2ε, 2ε], upstream gradient ~ N(0,1),
-    as flat float32 tensors of n elements; with ``offset`` each is a view
-    that starts ``offset`` elements into a larger buffer (misaligned)."""
-    def make(fn):
-        buf = fn(n + offset)
-        return buf[offset:]
-
+    as flat float32 tensors of n elements."""
     dev = "cuda"
-    clean = make(lambda k: torch.rand(k, generator=gen, device=dev))
-    mod = make(lambda k: (torch.rand(k, generator=gen, device=dev) * 4 - 2) * EPS)
-    g = make(lambda k: torch.randn(k, generator=gen, device=dev))
+    clean = _view(lambda k: torch.rand(k, generator=gen, device=dev), n, offset)
+    mod = _view(lambda k: (torch.rand(k, generator=gen, device=dev) * 4 - 2) * EPS, n, offset)
+    g = _view(lambda k: torch.randn(k, generator=gen, device=dev), n, offset)
     return clean, mod, g
 
 
@@ -121,6 +137,43 @@ def _compare(kernels, pixel, clean, mod, g, eps32: float) -> tuple[float, float]
     fwd = max(max_abs_err(out_k, out_p), max_abs_err(out_f, out_p))
     bwd = max(max_abs_err(dm_k, dm_p), max_abs_err(m2.grad, dm_p))
     return fwd, bwd
+
+
+def _sign_inputs(n: int, gen: torch.Generator, offset: int = 0):
+    """clean in [0,1], adv within ±ε of it, gradient ~ N(0,1), as flat
+    float32 tensors of n elements (clean and g misaligned views when
+    ``offset`` is not 0)."""
+    dev = "cuda"
+    clean = _view(lambda k: torch.rand(k, generator=gen, device=dev), n, offset)
+    adv = (clean + (torch.rand(n, generator=gen, device=dev) * 2 - 1) * EPS).clamp(0, 1)
+    g = _view(lambda k: torch.randn(k, generator=gen, device=dev), n, offset)
+    return adv, g, clean
+
+
+def _sign_plants(alpha32: float, eps32: float) -> list:
+    """(adv, g, clean) triples: ties where adv + α·s − clean = ±ε exactly and
+    where the result is exactly 0 or 1, ±0 and NaN gradients, NaN pixels."""
+    a = np.float32(eps32 - alpha32)
+    for _ in range(8):  # the f32 adv that steps onto +ε exactly
+        if np.float32(a + np.float32(alpha32)) == np.float32(eps32):
+            break
+        a = np.nextafter(a, np.float32(1) if a + np.float32(alpha32) < eps32 else np.float32(0))
+    nan = float("nan")
+    return [(eps32, 0.0, 0.0),          # delta = +ε exactly
+            (float(a), 1.0, 0.0),       # adv + α = +ε exactly
+            (-eps32, 0.0, 0.0),         # delta = −ε exactly, result 0
+            (0.0, -1.0, 0.0),           # result clamps to 0
+            (1.0, 1.0, 1.0),            # result clamps to 1
+            (1.0, 0.0, 1.0),            # result exactly 1
+            (0.5, -0.0, 0.5), (0.5, 0.0, 0.5),
+            (0.5, nan, 0.5), (nan, 1.0, 0.5), (0.5, 1.0, nan)]
+
+
+def _compare_sign(kernels, pixel, adv, g, clean, alpha32: float, eps32: float) -> float:
+    out_k = kernels.launch_sign_step(adv, g, clean, alpha32, eps32)
+    out_w = kernels.sign_step_project(adv, g, clean, alpha32, eps32)
+    out_p = pixel.sign_step_project(adv, g, clean, alpha32, eps32)
+    return max(max_abs_err(out_k, out_p), max_abs_err(out_w, out_p))
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -160,6 +213,25 @@ def phase_kernels(kernels, pixel) -> dict:
                                f"forward {fwd}, backward {bwd}")
     torch.cuda.synchronize()
 
+    # K3 at the white-box path's α (BIM: ε/10) and ε
+    alpha32 = float(np.float32(EPS / WB_STEPS))
+    err["sign_step"] = 0.0
+    n_clip = int(np.prod(CLIP_SHAPE))
+    for label, n, offset in [("main", n_clip, 0)] + [(f"n={k}", k, 0) for k in RAGGED_SIZES] \
+            + [("offset view", 1_000_003, 1)]:
+        adv, g, clean = _sign_inputs(n, gen, offset)
+        for k, (a_val, g_val, c_val) in enumerate(_sign_plants(alpha32, eps32)):
+            i = (k * 7919) % n
+            adv[i], g[i], clean[i] = a_val, g_val, c_val
+        if label == "main":
+            adv, g, clean = (t.view(CLIP_SHAPE) for t in (adv, g, clean))
+        e = _compare_sign(kernels, pixel, adv, g, clean, alpha32, eps32)
+        err["sign_step"] = max(err["sign_step"], e)
+        if e != 0.0:
+            raise RuntimeError(f"sign_step differs from its plain version ({label}): {e}")
+    torch.cuda.synchronize()
+
+    adv_s, g_s, clean_s = (t.view(CLIP_SHAPE) for t in _sign_inputs(n_clip, gen))
     clean, mod, g = (t.view(MAIN_SHAPE) for t in _inputs(int(np.prod(MAIN_SHAPE)), gen))
     m = mod.clone().requires_grad_(True)
     out_p = pixel.rebuild_adv(clean, m, eps32)
@@ -168,6 +240,8 @@ def phase_kernels(kernels, pixel) -> dict:
                         lambda: pixel.rebuild_adv(clean, mod, eps32)),
         "rebuild_bwd": (lambda: kernels.launch_rebuild_bwd(clean, mod, g, eps32),
                         lambda: torch.autograd.grad(out_p, m, g, retain_graph=True)),
+        "sign_step": (lambda: kernels.launch_sign_step(adv_s, g_s, clean_s, alpha32, eps32),
+                      lambda: pixel.sign_step_project(adv_s, g_s, clean_s, alpha32, eps32)),
     }
     times = {}
     for name, (kern, plain) in timed.items():
@@ -176,8 +250,9 @@ def phase_kernels(kernels, pixel) -> dict:
         k2 = _time_ms(kern, TIMING_ITERS)
         p2 = _time_ms(plain, TIMING_ITERS)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-    print(f"[kernels] bit-identical to the plain version at {MAIN_SHAPE}, sizes "
-          f"{RAGGED_SIZES} and a misaligned view, ties and NaNs planted; "
+    print(f"[kernels] bit-identical to the plain version at {MAIN_SHAPE} (K1, K2) and "
+          f"{CLIP_SHAPE} (K3), sizes {RAGGED_SIZES} and a misaligned view, ties and NaNs "
+          "planted; "
           + "; ".join(f"{k}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms"
                       for k, t in times.items()))
     return {"err": err, "times": times}
@@ -190,6 +265,23 @@ def _costs(run_dir: str) -> dict:
             for v, c in info.items()}
 
 
+def _check_clip(run_dir: str, label: int, kind: str, ds, pixel_mean_std) -> None:
+    """``{label}-{kind}.npy`` is a finite float32 (3,32,224,224) clip in the
+    ε-ball around the clean clip and in [0,1] (an ori is the clean clip)."""
+    arr = np.load(os.path.join(run_dir, f"{label}-{kind}.npy"))
+    if arr.dtype != np.float32 or arr.shape != (3, 32, 224, 224):
+        raise RuntimeError(f"{label}-{kind}.npy: {arr.dtype} {arr.shape}")
+    if not np.isfinite(arr).all():
+        raise RuntimeError(f"{label}-{kind}.npy holds non-finite values")
+    mean, std = pixel_mean_std
+    x01 = arr * std + mean
+    dist = float(np.abs(x01 - ds.clip01(label)).max())
+    limit = 1e-5 if kind == "ori" else EPS + 1e-5
+    if dist > limit or x01.min() < -1e-5 or x01.max() > 1 + 1e-5:
+        raise RuntimeError(f"{label}-{kind}.npy leaves the ε-ball or [0,1]: "
+                           f"|x−clean|∞={dist}, range [{x01.min()}, {x01.max()}]")
+
+
 def phase_slice(kernels, image_main, synthetic, pixel_mean_std) -> dict:
     argv = ["--attack_method", "ImageGuidedFML2_Adam_MultiModels", "--data", "synthetic",
             "--n_synthetic", str(SLICE_CLIPS), "--batch_size", "1",
@@ -199,23 +291,13 @@ def phase_slice(kernels, image_main, synthetic, pixel_mean_std) -> dict:
     image_main.run(args)
     counts = dict(kernels.launches)
     want = {"rebuild_fwd": SLICE_CLIPS * (SLICE_STEPS + 1),
-            "rebuild_bwd": SLICE_CLIPS * SLICE_STEPS}
+            "rebuild_bwd": SLICE_CLIPS * SLICE_STEPS, "sign_step": 0}
     if counts != want:
         raise RuntimeError(f"launch counts {counts}, expected {want}")
 
-    mean, std = pixel_mean_std
     ds = synthetic.SyntheticAttackDataset(n_samples=SLICE_CLIPS)
     for label in range(SLICE_CLIPS):
-        adv = np.load(os.path.join(args.adv_path, f"{label}-adv.npy"))
-        if adv.dtype != np.float32 or adv.shape != (3, 32, 224, 224):
-            raise RuntimeError(f"{label}-adv.npy: {adv.dtype} {adv.shape}")
-        if not np.isfinite(adv).all():
-            raise RuntimeError(f"{label}-adv.npy holds non-finite values")
-        adv01 = adv * std + mean
-        dist = float(np.abs(adv01 - ds.clip01(label)).max())
-        if dist > EPS + 1e-5 or adv01.min() < -1e-5 or adv01.max() > 1 + 1e-5:
-            raise RuntimeError(f"{label}-adv.npy leaves the ε-ball or [0,1]: "
-                               f"|adv−clean|∞={dist}, range [{adv01.min()}, {adv01.max()}]")
+        _check_clip(args.adv_path, label, "adv", ds, pixel_mean_std)
     costs = _costs(args.adv_path)
     if len(costs) != SLICE_CLIPS:
         raise RuntimeError(f"loss_info_1.json has {len(costs)} clips")
@@ -247,9 +329,97 @@ def phase_parity(image_main) -> None:
           f"{runs['cpu'].tolist()}; max relative difference {diff:.3g} (limit 1e-4)")
 
 
+def phase_whitebox(kernels, attack_cli, synthetic, pixel_mean_std) -> int:
+    """Full-width I3D-R50 BIM and MIFGSM through the attack CLI; returns the
+    K3 launches counted over the runs."""
+    k3 = 0
+    for method, clips in WB_RUNS:
+        argv = ["--model", "i3d_resnet50", "--attack_method", method, "--step", str(WB_STEPS),
+                "--data", "synthetic", "--n_synthetic", str(clips), "--batch_size", "1",
+                "--device", "cuda", "--matmul_precision", "float32"]
+        args = attack_cli.arg_parse(argv)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        attack_cli.run(args)
+        counts = dict(kernels.launches)
+        want = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": clips * WB_STEPS}
+        if counts != want:
+            raise RuntimeError(f"{method}: launch counts {counts}, expected {want}")
+        k3 += counts["sign_step"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        ds = synthetic.SyntheticAttackDataset(n_samples=clips)
+        for label in range(clips):
+            for kind in ("adv", "ori"):
+                _check_clip(args.adv_path, label, kind, ds, pixel_mean_std)
+        costs = {v: np.asarray([float(c[i]["cost"]) for i in range(len(c))])
+                 for v, c in args.loss_info.items()}
+        if len(costs) != clips:
+            raise RuntimeError(f"{method}: costs recorded for {len(costs)} clips")
+        for v, c in costs.items():
+            if len(c) != WB_STEPS or not np.isfinite(c).all() or not c[-1] > c[0]:
+                raise RuntimeError(f"{method} {v}: the CE cost did not rise: {c}")
+        tp = args.throughput
+        print(f"[whitebox] {method} on I3D-R50 (random weights), {clips} clip(s) of "
+              f"32x224^2 at B=1, {WB_STEPS} steps, TF32 off: "
+              f"{tp['attack_steps_per_sec_per_chip']:.3f} attack steps/s and "
+              f"{tp['adv_clips_per_sec']:.4f} clips/s over {tp['elapsed_s']:.2f} s; last clip "
+              f"alone {WB_STEPS / tp['last_call_s']:.3f} steps/s ({tp['last_call_s']:.3f} s); "
+              f"peak memory {peak:.2f} GiB; launches {counts}; CE "
+              + "; ".join(f"{v}: {c[0]:.4f} -> {c[-1]:.4f}" for v, c in costs.items()))
+    return k3
+
+
+# card vs CPU, tiny I3D BIM: float32 on both (TF32 off), so the two differ
+# only in the order of their sums (cuDNN's algorithms against the CPU's);
+# relative errors of ~1e-6 a layer, through ~20 layers forward and back
+WB_PARITY_STEPS = 5
+WB_COST_RTOL = 1e-5       # step-0 CE
+WB_GRAD_ATOL = 1e-4       # step-0 input gradient, times max|g|
+WB_TRAJ_RTOL = 1e-4       # CE before each step
+WB_PIXEL_SHARE = 0.01     # share of output pixels that may differ: a sign
+                          # flips where |g| is within the error of 0
+
+
+def phase_whitebox_parity(attack_cli, synthetic) -> None:
+    from i2v_tpu_torch import attacks
+    from i2v_tpu_torch.models import get_video_model
+    from i2v_tpu_torch.ops import pixel
+
+    ds = synthetic.SyntheticAttackDataset(n_samples=2, clip_len=8, size=32)
+    clips = np.stack([ds[i][0] for i in range(2)])
+    labels = np.arange(2)
+    attack_cli.common.apply_matmul_precision(
+        attack_cli.arg_parse(["--matmul_precision", "float32"]))
+    out = {}
+    for device in ("cuda", "cpu"):
+        bundle = get_video_model("i3d_resnet50", device=device, tiny=True, seed=0)
+        clean01 = pixel.unnormalize(torch.from_numpy(clips).to(device), channel_axis=1)
+        grad_fn = attacks.make_ce_grad_fn(bundle.apply_norm)
+        cost0, g0 = grad_fn(clean01, torch.from_numpy(labels).to(device), None)
+        atk = attacks.BIM(bundle, steps=WB_PARITY_STEPS)
+        adv = atk(clips, labels, ["a"])
+        traj = [float(atk.loss_info["a"][i]["cost"]) for i in range(WB_PARITY_STEPS)]
+        out[device] = (float(cost0), g0.cpu().numpy(), np.asarray(traj), adv.cpu().numpy())
+    (c_k, g_k, t_k, a_k), (c_c, g_c, t_c, a_c) = out["cuda"], out["cpu"]
+    cost_rel = abs(c_k / c_c - 1)
+    grad_err = float(np.abs(g_k - g_c).max() / np.abs(g_c).max())
+    traj_rel = float(np.max(np.abs(t_k / t_c - 1)))
+    share = float(np.mean(a_k != a_c))
+    print(f"[wb parity] tiny I3D BIM 2x8x32^2, {WB_PARITY_STEPS} steps: step-0 CE card {c_k:.7f} "
+          f"vs CPU {c_c:.7f} (relative {cost_rel:.3g}, limit {WB_COST_RTOL}); step-0 gradient "
+          f"max|diff|/max|g| {grad_err:.3g} (limit {WB_GRAD_ATOL}); CE trajectory max relative "
+          f"{traj_rel:.3g} (limit {WB_TRAJ_RTOL}); output pixels that differ {share:.3g} "
+          f"(limit {WB_PIXEL_SHARE})")
+    if (cost_rel > WB_COST_RTOL or grad_err > WB_GRAD_ATOL or traj_rel > WB_TRAJ_RTOL
+            or share > WB_PIXEL_SHARE):
+        raise RuntimeError("card and CPU disagree on the tiny white-box run")
+
+
 def main() -> None:
     name = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from i2v_tpu_torch.cli import attack as attack_cli
     from i2v_tpu_torch.cli import image_main
     from i2v_tpu_torch.data import synthetic
     from i2v_tpu_torch.ops import kernels, pixel
@@ -262,14 +432,20 @@ def main() -> None:
         measured = phase_kernels(kernels, pixel)
         counts = phase_slice(kernels, image_main, synthetic, (mean, std))
         phase_parity(image_main)
+        counts["sign_step"] = phase_whitebox(kernels, attack_cli, synthetic, (mean, std))
+        phase_whitebox_parity(attack_cli, synthetic)
 
-    replaces = {"rebuild_fwd": "i2v_tpu/ops/pallas_kernels.py:142",
-                "rebuild_bwd": "i2v_tpu/ops/pallas_kernels.py:149"}
+    where = {"rebuild_fwd": ("i2v_tpu_torch/csrc/rebuild_adv.cu",
+                             "i2v_tpu/ops/pallas_kernels.py:142"),
+             "rebuild_bwd": ("i2v_tpu_torch/csrc/rebuild_adv.cu",
+                             "i2v_tpu/ops/pallas_kernels.py:149"),
+             "sign_step": ("i2v_tpu_torch/csrc/sign_step.cu",
+                           "i2v_tpu/ops/pallas_kernels.py:94")}
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": "i2v_tpu_torch/csrc/rebuild_adv.cu",
-         "replaces": replaces[k], "launches": counts[k], "max_abs_err": measured["err"][k],
-         "ms": measured["times"][k][0], "plain_ms": measured["times"][k][1]}
-        for k in ("rebuild_fwd", "rebuild_bwd")]}))
+        {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": counts[k],
+         "max_abs_err": measured["err"][k], "ms": measured["times"][k][0],
+         "plain_ms": measured["times"][k][1]}
+        for k, (src, rep) in where.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
 

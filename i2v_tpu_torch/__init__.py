@@ -2,14 +2,17 @@
 
 The JAX package ``i2v_tpu`` is the reference each part of the port is held
 against; this package imports neither it nor JAX. Layers:
-  - ``i2v_tpu_torch.ops``      — pixel and loss tensor functions, and the
+  - ``i2v_tpu_torch.ops``      — pixel, loss and gradient functions, and the
                                  hand-written CUDA kernels (``csrc/``) with
                                  their wrappers
-  - ``i2v_tpu_torch.models``   — image backbones (NCHW) with explicit taps
-  - ``i2v_tpu_torch.attacks``  — the image-guided I2V / ENS-I2V attacks
+  - ``i2v_tpu_torch.models``   — image backbones (NCHW) and the I3D video
+                                 backbones (NCDHW), with explicit taps
+  - ``i2v_tpu_torch.attacks``  — the image-guided I2V / ENS-I2V attacks and
+                                 the white-box sign attacks (FGSM, BIM,
+                                 MIFGSM, SGM, SIM)
   - ``i2v_tpu_torch.data``     — synthetic clips and the batcher
   - ``i2v_tpu_torch.utils``    — paths, artifact protocol, throughput meter
-  - ``i2v_tpu_torch.cli``      — ``image_main``
+  - ``i2v_tpu_torch.cli``      — ``image_main`` and ``attack``
 """
 
 __version__ = "0.1.0"

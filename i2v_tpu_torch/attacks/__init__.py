@@ -1,9 +1,10 @@
 """Attack engines. Class names mirror the reference so CLI dispatch via
-``getattr`` works unchanged (image_main.py:66-80)."""
+``getattr`` works unchanged (image_main.py:66-80, attack.py:76-83)."""
 
-from .core import Attack  # noqa: F401
+from .core import Attack, SignAttackConfig, make_ce_grad_fn, run_sign_attack  # noqa: F401
 from .i2v import (  # noqa: F401
     ImageGuidedFMDirection_Adam,
     ImageGuidedFML2_Adam_MultiModels,
     run_adam_modifier_attack,
 )
+from .whitebox import BIM, FGSM, MIFGSM, SGM, SIM  # noqa: F401

@@ -1,7 +1,8 @@
-"""Shared CLI plumbing for the image-guided attacks: data, device and
-precision, model and attack construction, artifacts.
+"""Shared CLI plumbing for the image-guided and white-box attacks: data,
+device and precision, model and attack construction, resume, artifacts.
 
-PyTorch counterpart of the image-guided half of :mod:`i2v_tpu.cli.common`.
+PyTorch counterpart of :mod:`i2v_tpu.cli.common` for the methods ported so
+far.
 ``--data synthetic`` is the only source ported so far; ``--tiny`` swaps in
 width-reduced backbones. ``--device`` (default ``cuda``) names the device the
 attack runs on; a CUDA run on a machine without a card stops, it never
@@ -11,6 +12,7 @@ continues on the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -25,6 +27,19 @@ IMAGE_GUIDED_METHODS = (
     "ImageGuidedFMDirection_Adam",
     "ImageGuidedFML2_Adam_MultiModels",
 )
+WHITEBOX_METHODS = ("FGSM", "BIM", "MIFGSM", "SGM", "SIM")
+# the JAX package's other white-box methods, refused with the work item named
+UNPORTED_WHITEBOX_METHODS = ("DIFGSM", "TIFGSM", "TIFGSM3D", "TAP", "TemporalTranslation")
+
+
+def whitebox_method(name: str) -> str:
+    """argparse ``type`` of --attack_method: names the ROADMAP item of a
+    method that is not ported yet (``choices`` then rejects unknown names)."""
+    if name in UNPORTED_WHITEBOX_METHODS:
+        raise argparse.ArgumentTypeError(
+            f"{name} is not ported yet (ROADMAP Queue 1: DIFGSM, TIFGSM/TIFGSM3D/TAP, "
+            "TemporalTranslation); ported: " + ", ".join(WHITEBOX_METHODS))
+    return name
 
 
 def add_data_args(p: argparse.ArgumentParser) -> None:
@@ -103,6 +118,20 @@ def build_image_guided_attack(args, device: torch.device):
     raise ValueError(f"unknown image-guided method {method!r}")
 
 
+def build_whitebox_attack(args, bundle):
+    """Dispatch a white-box method name to an attack instance (the
+    reference's getattr dispatch, attack.py:76-83)."""
+    name = args.attack_method
+    if name == "SIM" and getattr(args, "sim_batch_scales", False):
+        atk = attacks.SIM(bundle, steps=args.step, batch_scales=True)
+    else:
+        atk = getattr(attacks, name)(bundle, steps=args.step)
+    chunk = getattr(args, "batch_chunk", None)
+    if chunk:
+        atk.cfg = dataclasses.replace(atk.cfg, batch_chunk=chunk)
+    return atk
+
+
 def shard_bounds(args, n_samples: int) -> tuple[int, int]:
     """[left, right) of this shard under the reference's 1-based
     --batch_nums/--batch_index contract (image_main.py:61-63)."""
@@ -125,5 +154,41 @@ def effective_file_prefix(args) -> str:
     return prefix
 
 
-def save_attack_outputs(run_dir, batch, adv: torch.Tensor, dtype=np.float32) -> None:
-    artifacts.save_batch(run_dir, batch["labels"], adv.detach().cpu().numpy(), dtype=dtype)
+class _ResumeSubsetView:
+    """Dataset view over the not-yet-attacked manifest indices."""
+
+    def __init__(self, inner, idxs):
+        self._inner = inner
+        self._idxs = list(idxs)
+        if not hasattr(inner, "load_batch"):
+            self.load_batch = None  # falsy: the batcher falls back to items
+
+    def __len__(self):
+        return len(self._idxs)
+
+    def __getitem__(self, i):
+        return self._inner[self._idxs[i]]
+
+    def load_batch(self, idxs):
+        return self._inner.load_batch([self._idxs[i] for i in idxs])
+
+
+def resume_subset(dataset, done: set):
+    """Drop the manifest entries whose label already has artifacts before
+    anything is decoded. Returns None when nothing can be (or needs to be)
+    dropped: a dataset without cheap label metadata (``samples[i].label``),
+    such as the synthetic one, relies on the in-loop skip instead."""
+    samples = getattr(dataset, "samples", None)
+    if not done or not samples or not hasattr(samples[0], "label"):
+        return None
+    keep = [i for i, s in enumerate(samples) if int(s.label) not in done]
+    return None if len(keep) == len(samples) else _ResumeSubsetView(dataset, keep)
+
+
+def save_attack_outputs(run_dir, batch, adv: torch.Tensor, save_ori: bool = False,
+                        dtype=np.float32) -> None:
+    """``{label}-adv.npy`` for each clip of the batch and, with ``save_ori``,
+    the clean clip as ``{label}-ori.npy`` (the white-box protocol)."""
+    ori = np.asarray(batch["clips"]) if save_ori else None
+    artifacts.save_batch(run_dir, batch["labels"], adv.detach().cpu().numpy(),
+                         ori_batch=ori, dtype=dtype)

@@ -7,6 +7,7 @@ comes from ``params["a"]["b"]["kernel"]`` and ``a.b.bias`` from
 ``params["a"]["b"]["bias"]``. Layouts change on the way:
 
   conv kernel  (kH, kW, I, O) → (O, I, kH, kW)
+  3-D conv kernel (kT, kH, kW, I, O) → (O, I, kT, kH, kW)
   dense kernel (I, O)         → (O, I)
   dense kernel fed by a flatten: the input index runs over H·W·C in the JAX
   package and over C·H·W here (the inverse of
@@ -60,6 +61,8 @@ def _flatten_leaves(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
 
 
 def _to_port_layout(name: str, w: np.ndarray, flatten_fed: Mapping[str, tuple]) -> np.ndarray:
+    if w.ndim == 5:
+        return np.transpose(w, (4, 3, 0, 1, 2))
     if w.ndim == 4:
         return np.transpose(w, (3, 2, 0, 1))
     if w.ndim == 2:

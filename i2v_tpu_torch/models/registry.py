@@ -76,10 +76,11 @@ def build_image_model(name: str, depths: int | Sequence[int], *, truncate: bool 
 
 def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every conv/linear weight from a truncated normal of variance
-    1/fan_in, in registration order, from ``generator``; zero the biases."""
+    1/fan_in (fan_in = I·kH·kW, or I·kT·kH·kW for a 3-D conv), in
+    registration order, from ``generator``; zero the biases."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 std = math.sqrt(1.0 / fan_in) / _TRUNC_STD_CORRECTION
                 nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,

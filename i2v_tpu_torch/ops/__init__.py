@@ -1,3 +1,4 @@
-"""Tensor functions (pixel sandwich, losses) and the hand-written kernels."""
+"""Tensor functions (pixel sandwich, losses, gradient normalization,
+gradient-scaled ReLU) and the hand-written kernels."""
 
-from . import kernels, losses, pixel  # noqa: F401
+from . import activations, grads, kernels, losses, pixel  # noqa: F401

@@ -2,15 +2,22 @@
 
 ``rebuild_adv(clean01, modifier, epsilon)`` — the differentiable modifier
 rebuild ``clamp(clean + clamp(modifier, ±ε), 0, 1)`` that every Adam step of
-the image-guided attacks runs twice over (forward, then backward).
-
-Replaces the Pallas custom-VJP pair of ``i2v_tpu/ops/pallas_kernels.py``
+the image-guided attacks runs twice over (forward, then backward). Replaces
+the Pallas custom-VJP pair of ``i2v_tpu/ops/pallas_kernels.py``
 (``_rebuild_fwd_kernel`` and ``_rebuild_bwd_kernel``, reached through
-``rebuild_adv``) with two CUDA kernels in ``csrc/rebuild_adv.cu``, built with
-``nvcc`` for sm_90a at first use (:mod:`._build`). Both are elementwise and
-bound by device-memory bytes: 12 bytes an element forward, 16 backward. The
-kernels make one grid-stride pass with 16-byte vector accesses and a scalar
-tail; the source says more.
+``rebuild_adv``) with two CUDA kernels in ``csrc/rebuild_adv.cu``.
+
+``sign_step_project(adv01, grad, clean01, step_size, epsilon)`` — the pixel
+update ``clamp(clean + clamp(adv + α·sign(g) − clean, ±ε), 0, 1)`` that ends
+every step of the white-box sign attacks. Replaces the Pallas
+``_sign_step_kernel`` (reached through ``sign_step_project``) with the CUDA
+kernel in ``csrc/sign_step.cu``. No gradient flows through it: the attack
+engine does not differentiate through its pixel update.
+
+Each source is built with ``nvcc`` for sm_90a at first use (:mod:`._build`).
+All three kernels are elementwise and bound by device-memory bytes (12, 16
+and 16 bytes an element); each makes one grid-stride pass with 16-byte
+vector accesses and a scalar tail; the sources say more.
 
 Dispatch: a tensor on the CPU takes the plain version in
 :mod:`i2v_tpu_torch.ops.pixel`; a CUDA tensor launches the kernel or raises.
@@ -20,6 +27,7 @@ kernel launches, so that a run can show it went through the kernels.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 
@@ -28,7 +36,7 @@ import torch
 
 from . import _build, pixel
 
-launches = {"rebuild_fwd": 0, "rebuild_bwd": 0}
+launches = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
 
 
 def reset_launches() -> None:
@@ -36,17 +44,35 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+_PTR, _N, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+# the C entry points of each csrc/{name}.cu and their argument types; every
+# pointer and the stream go as c_void_p, so that ctypes never cuts them
+SOURCES = {
+    "rebuild_adv": {
+        "rebuild_adv_fwd": [_PTR, _PTR, _PTR, _N, _F32, _PTR],
+        "rebuild_adv_bwd": [_PTR, _PTR, _PTR, _PTR, _N, _F32, _PTR],
+    },
+    "sign_step": {
+        "sign_step_project": [_PTR, _PTR, _PTR, _PTR, _N, _F32, _F32, _PTR],
+    },
+}
+
+
 @functools.lru_cache(maxsize=None)
-def library() -> _build.BuiltLibrary:
-    """Build (once per process) and load the rebuild kernels."""
-    lib = _build.build("rebuild_adv")
-    ptr = ctypes.c_void_p
-    lib.cdll.rebuild_adv_fwd.argtypes = [ptr, ptr, ptr, ctypes.c_int64, ctypes.c_float, ptr]
-    lib.cdll.rebuild_adv_fwd.restype = ctypes.c_int
-    lib.cdll.rebuild_adv_bwd.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_int64, ctypes.c_float,
-                                         ptr]
-    lib.cdll.rebuild_adv_bwd.restype = ctypes.c_int
+def library(name: str) -> _build.BuiltLibrary:
+    """Build (once per process) and load ``csrc/{name}.cu``."""
+    lib = _build.build(name)
+    for fn, argtypes in SOURCES[name].items():
+        getattr(lib.cdll, fn).argtypes = argtypes
+        getattr(lib.cdll, fn).restype = ctypes.c_int
     return lib
+
+
+def build_all() -> dict[str, _build.BuiltLibrary]:
+    """Build every kernel source at once, one ``nvcc`` each, in parallel."""
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        futures = {name: pool.submit(library, name) for name in SOURCES}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def _check(name: str, *tensors: torch.Tensor) -> None:
@@ -79,7 +105,7 @@ def launch_rebuild_fwd(clean01: torch.Tensor, modifier: torch.Tensor,
     _check("rebuild_fwd", clean01, modifier)
     out = torch.empty_like(modifier)
     with torch.cuda.device(modifier.device):
-        err = library().cdll.rebuild_adv_fwd(
+        err = library("rebuild_adv").cdll.rebuild_adv_fwd(
             clean01.data_ptr(), modifier.data_ptr(), out.data_ptr(), modifier.numel(),
             eps32, _stream(modifier))
     _raise_on(err, "rebuild_fwd")
@@ -93,7 +119,7 @@ def launch_rebuild_bwd(clean01: torch.Tensor, modifier: torch.Tensor, grad: torc
     _check("rebuild_bwd", clean01, modifier, grad)
     dmod = torch.empty_like(modifier)
     with torch.cuda.device(modifier.device):
-        err = library().cdll.rebuild_adv_bwd(
+        err = library("rebuild_adv").cdll.rebuild_adv_bwd(
             clean01.data_ptr(), modifier.data_ptr(), grad.data_ptr(), dmod.data_ptr(),
             modifier.numel(), eps32, _stream(modifier))
     _raise_on(err, "rebuild_bwd")
@@ -128,3 +154,33 @@ def rebuild_adv(clean01: torch.Tensor, modifier: torch.Tensor, epsilon: float) -
     if clean01.is_cuda or modifier.is_cuda:
         return RebuildAdv.apply(clean01.detach(), modifier, eps32)
     return pixel.rebuild_adv(clean01.detach(), modifier, eps32)
+
+
+def launch_sign_step(adv01: torch.Tensor, grad: torch.Tensor, clean01: torch.Tensor,
+                     alpha32: float, eps32: float) -> torch.Tensor:
+    """K3: ``out = clamp(clean + clamp(adv + α·sign(g) − clean, ±ε), 0, 1)``
+    on the card."""
+    _check("sign_step", adv01, grad, clean01)
+    out = torch.empty_like(adv01)
+    with torch.cuda.device(adv01.device):
+        err = library("sign_step").cdll.sign_step_project(
+            adv01.data_ptr(), grad.data_ptr(), clean01.data_ptr(), out.data_ptr(),
+            adv01.numel(), alpha32, eps32, _stream(adv01))
+    _raise_on(err, "sign_step")
+    launches["sign_step"] += 1
+    return out
+
+
+def sign_step_project(adv01: torch.Tensor, grad: torch.Tensor, clean01: torch.Tensor,
+                      step_size: float, epsilon: float) -> torch.Tensor:
+    """``clamp(clean + clamp(adv + α·sign(g) − clean, ±ε), 0, 1)``, with no
+    gradient.
+
+    α and ε are rounded to float32 once, here, so that the kernel and the
+    plain version step and compare with the same values."""
+    alpha32 = float(np.float32(step_size))
+    eps32 = float(np.float32(epsilon))
+    if adv01.is_cuda or grad.is_cuda or clean01.is_cuda:
+        return launch_sign_step(adv01.detach(), grad.detach(), clean01.detach(), alpha32, eps32)
+    return pixel.sign_step_project(adv01.detach(), grad.detach(), clean01.detach(),
+                                   alpha32, eps32)

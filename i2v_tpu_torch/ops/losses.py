@@ -1,8 +1,10 @@
-"""Attack loss functions: the per-frame cosine objective of I2V / ENS-I2V.
+"""Attack loss functions: the per-frame cosine objective of I2V / ENS-I2V,
+and the cross-entropy of the white-box attacks.
 
-PyTorch counterpart of the cosine part of :mod:`i2v_tpu.ops.losses`
-(reference: image_attacks.py:336-347, TPAMI_attack.py:271-287). Taps arrive
-as explicit model outputs, first axis = frames.
+PyTorch counterpart of the cosine and cross-entropy parts of
+:mod:`i2v_tpu.ops.losses` (reference: image_attacks.py:336-347,
+TPAMI_attack.py:271-287). Taps arrive as explicit model outputs, first
+axis = frames.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 # torch.nn.functional.cosine_similarity clamps each norm at eps=1e-8; written
 # out here so the clamp is visible and matches the JAX package's.
@@ -40,6 +43,12 @@ def i2v_cost(taps_adv: Sequence[torch.Tensor], taps_clean: Sequence[torch.Tensor
             cos = cos * frame_weights
         total = total + torch.sum(cos)
     return total
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy, ``nn.CrossEntropyLoss()`` (the white-box
+    attacks' objective)."""
+    return F.cross_entropy(logits.float(), labels.long())
 
 
 def per_tap_frame_cosines(taps_adv: Sequence[torch.Tensor],

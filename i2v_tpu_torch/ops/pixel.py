@@ -57,8 +57,11 @@ def rebuild_adv(clean01: torch.Tensor, modifier: torch.Tensor, epsilon: float) -
 def sign_step_project(adv01: torch.Tensor, grad: torch.Tensor, clean01: torch.Tensor,
                       step_size: float, epsilon: float) -> torch.Tensor:
     """One full sign-attack pixel update: ``adv + α·sign(g)`` then ε-ball and
-    [0,1] projection."""
-    stepped = adv01 + step_size * torch.sign(grad)
+    [0,1] projection. A NaN gradient gives a NaN pixel, as ``jnp.sign`` and
+    the Pallas kernel do (``torch.sign(nan)`` is 0, which would skip the
+    pixel without a trace)."""
+    sign = torch.where(torch.isnan(grad), grad, torch.sign(grad))
+    stepped = adv01 + step_size * sign
     return project_linf(stepped, clean01, epsilon)
 
 

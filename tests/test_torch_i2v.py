@@ -82,7 +82,8 @@ def test_attack_matches_jax(method):
     jatk(jnp.asarray(videos), jnp.asarray([0]), video_names=["v"])
     kernels.reset_launches()
     adv = patk(videos, np.asarray([0]), video_names=["v"])
-    assert kernels.launches == {"rebuild_fwd": 0, "rebuild_bwd": 0}  # CPU: plain path
+    # CPU: the plain path
+    assert kernels.launches == {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
     np.testing.assert_allclose(_costs(patk), _costs(jatk), rtol=2e-4)
     _check_invariants(adv, clips01, _costs(patk))
     assert str(patk).startswith(jatk.attack)

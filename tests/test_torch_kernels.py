@@ -1,13 +1,14 @@
-"""The rebuild_adv kernel pair of the PyTorch port against the JAX package.
+"""The port's kernels (the rebuild_adv pair and the sign step) against the
+JAX package.
 
-The port's plain version (the CPU path, and the oracle of the CUDA kernels)
-is held against the JAX package's Pallas kernel bodies, run in interpret
-mode on the CPU exactly as ``i2v_tpu/ops/pallas_kernels.py`` builds the call
-(atol 0, ties and NaNs included), and against ``i2v_tpu.ops.pixel``'s plain
-rebuild (forward atol 0; gradient atol 0 away from ties, where ``jnp.clip``
-splits the gradient and torch.clamp and the Pallas VJP pass it whole). The
-CUDA kernels themselves run only on a card: those tests carry the ``gpu``
-marker and skip elsewhere.
+The port's plain versions (the CPU path, and the oracles of the CUDA
+kernels) are held against the JAX package's Pallas kernel bodies, run in
+interpret mode on the CPU exactly as ``i2v_tpu/ops/pallas_kernels.py`` builds
+the calls (atol 0, ties and NaNs included), and against ``i2v_tpu.ops.pixel``'s
+plain versions (rebuild forward and sign step atol 0; rebuild gradient atol 0
+away from ties, where ``jnp.clip`` splits the gradient and torch.clamp and
+the Pallas VJP pass it whole). The CUDA kernels themselves run only on a
+card: those tests carry the ``gpu`` marker and skip elsewhere.
 """
 
 import jax
@@ -29,9 +30,9 @@ EPS32 = float(np.float32(EPS))
 ROWS, BLOCK_ROWS = 64, 16
 
 
-def _pallas(kernel, arrs):
-    """The Pallas kernel, called as ``_rebuild_call`` calls it, in interpret
-    mode."""
+def _pallas(kernel, arrs, scalars=(EPS32,)):
+    """The Pallas kernel, called as ``_rebuild_call`` and
+    ``_sign_step_pallas`` call it, in interpret mode."""
     spec = pl.BlockSpec((BLOCK_ROWS, 128), lambda i, s: (i, 0), memory_space=pltpu.VMEM)
     call = pl.pallas_call(
         kernel,
@@ -40,7 +41,7 @@ def _pallas(kernel, arrs):
             num_scalar_prefetch=1, grid=(ROWS // BLOCK_ROWS,),
             in_specs=[spec] * len(arrs), out_specs=spec),
         interpret=True)
-    return np.asarray(call(jnp.asarray([EPS32], jnp.float32), *map(jnp.asarray, arrs)))
+    return np.asarray(call(jnp.asarray(scalars, jnp.float32), *map(jnp.asarray, arrs)))
 
 
 def _inputs(seed, ties=True):
@@ -86,7 +87,7 @@ def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
     # an unrounded ε lands on the same ties: the wrapper rounds it to f32
     out = kernels.rebuild_adv(torch.from_numpy(clean), torch.from_numpy(mod), EPS)
     np.testing.assert_array_equal(out.numpy(), _port(clean, mod, g)[0])
-    assert kernels.launches == {"rebuild_fwd": 0, "rebuild_bwd": 0}
+    assert kernels.launches == {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
 
 
 def test_forward_matches_jax_pixel_with_ties():
@@ -145,7 +146,7 @@ def test_kernel_matches_plain_on_card(cuda, n):
     m = mod.clone().requires_grad_(True)
     out = kernels.rebuild_adv(clean, m, EPS)
     out.backward(g)
-    assert kernels.launches == {"rebuild_fwd": 1, "rebuild_bwd": 1}
+    assert kernels.launches == {"rebuild_fwd": 1, "rebuild_bwd": 1, "sign_step": 0}
     m_ref = mod.clone().requires_grad_(True)
     ref = pixel.rebuild_adv(clean, m_ref, EPS32)
     ref.backward(g)
@@ -164,3 +165,107 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         kernels.rebuild_adv(clean.cpu(), mod, EPS)
     with pytest.raises(ValueError):
         kernels.rebuild_adv(clean[1:], mod[:-1].view(-1, 1), EPS)
+
+
+# -- K3: the sign step ------------------------------------------------------
+
+ALPHA32 = float(np.float32(EPS / 10))  # BIM's step at 10 steps
+
+
+def _sign_inputs(seed, plants=True):
+    """(adv, g, clean) as (ROWS, 128) float32: adv within ±ε of clean, with
+    ties at ±ε and at 0 and 1 exactly, ±0 and NaN gradients and NaN pixels
+    planted."""
+    rng = np.random.RandomState(seed)
+    clean = rng.rand(ROWS, 128).astype(np.float32)
+    adv = np.clip(clean + (rng.rand(ROWS, 128) * 2 - 1) * EPS, 0, 1).astype(np.float32)
+    g = rng.randn(ROWS, 128).astype(np.float32)
+    if plants:
+        a, gg, c = adv.reshape(-1), g.reshape(-1), clean.reshape(-1)
+        step_to_eps = np.float32(EPS32 - ALPHA32)
+        while np.float32(step_to_eps + np.float32(ALPHA32)) != np.float32(EPS32):
+            step_to_eps = np.nextafter(step_to_eps, np.float32(1))
+        plants = [(EPS32, 0.0, 0.0), (step_to_eps, 1.0, 0.0), (-EPS32, 0.0, 0.0),
+                  (0.0, -1.0, 0.0), (1.0, 1.0, 1.0), (1.0, 0.0, 1.0), (0.5, -0.0, 0.5),
+                  (0.5, 0.0, 0.5), (0.5, np.nan, 0.5), (np.nan, 1.0, 0.5), (0.5, 1.0, np.nan)]
+        for k, (av, gv, cv) in enumerate(plants):
+            i = 89 * k + 3
+            a[i], gg[i], c[i] = av, gv, cv
+    return adv, g, clean
+
+
+def _sign_plain(adv, g, clean, alpha=ALPHA32, eps=EPS32, fn=pixel.sign_step_project):
+    return fn(torch.from_numpy(adv), torch.from_numpy(g), torch.from_numpy(clean),
+              alpha, eps).numpy()
+
+
+def test_sign_step_nan_gradient_gives_nan_in_all_three_versions():
+    """The plain version carries a NaN gradient to a NaN pixel, as
+    ``jnp.sign`` and the Pallas kernel do; ±0 gradients leave the pixel."""
+    adv, g, clean = _sign_inputs(9, plants=False)
+    adv.reshape(-1)[:5] = clean.reshape(-1)[:5] = 0.5
+    g.reshape(-1)[:5] = [np.nan, -0.0, 0.0, 1.0, -1.0]
+    alpha = float(np.float32(0.01))
+    got = _sign_plain(adv, g, clean, alpha)
+    want_jnp = np.asarray(jpixel.sign_step_project(
+        jnp.asarray(adv), jnp.asarray(g), jnp.asarray(clean), alpha, EPS32))
+    want_pallas = _pallas(pk._sign_step_kernel, (adv, g, clean), (alpha, EPS32))
+    np.testing.assert_array_equal(got.reshape(-1)[:5],
+                                  np.float32([np.nan, 0.5, 0.5, 0.5 + alpha, 0.5 - alpha]))
+    np.testing.assert_array_equal(got, want_jnp)
+    np.testing.assert_array_equal(got, want_pallas)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sign_step_plain_matches_interpret_pallas_with_ties_and_nans(seed):
+    adv, g, clean = _sign_inputs(seed)
+    got = _sign_plain(adv, g, clean)
+    np.testing.assert_array_equal(
+        got, _pallas(pk._sign_step_kernel, (adv, g, clean), (ALPHA32, EPS32)))
+    # the planted ties really are ties, and the NaNs surface
+    delta = (adv + ALPHA32 * np.sign(g)).astype(np.float32) - clean
+    assert (delta == EPS32).sum() >= 2 and (delta == -EPS32).any()
+    assert (got == 0).any() and (got == 1).any() and np.isnan(got).sum() == 3
+
+
+def test_sign_step_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
+    kernels.reset_launches()
+    adv, g, clean = _sign_inputs(2)
+    # unrounded α and ε land on the same ties: the wrapper rounds both to f32
+    got = _sign_plain(adv, g, clean, EPS / 10, EPS, fn=kernels.sign_step_project)
+    np.testing.assert_array_equal(got, _sign_plain(adv, g, clean))
+    np.testing.assert_array_equal(got, np.asarray(pk.sign_step_project(
+        jnp.asarray(adv), jnp.asarray(g), jnp.asarray(clean), EPS / 10, EPS)))
+    assert kernels.launches == {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
+
+
+def test_sign_step_wrapper_passes_no_gradient():
+    adv, g, clean = (torch.from_numpy(a) for a in _sign_inputs(3, plants=False))
+    out = kernels.sign_step_project(adv.requires_grad_(True), g, clean, ALPHA32, EPS32)
+    assert not out.requires_grad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 127, 4097, ROWS * 128])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_sign_step_kernel_matches_plain_on_card(cuda, n, offset):
+    adv, g, clean = (torch.from_numpy(a.reshape(-1)).to(cuda)[offset:offset + n]
+                     for a in _sign_inputs(10))
+    kernels.reset_launches()
+    out = kernels.sign_step_project(adv, g, clean, EPS / 10, EPS)
+    assert kernels.launches["sign_step"] == 1
+    ref = pixel.sign_step_project(adv, g, clean, ALPHA32, EPS32)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_sign_step_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    adv, g, clean = (torch.from_numpy(a).to(cuda) for a in _sign_inputs(11))
+    with pytest.raises(TypeError):
+        kernels.sign_step_project(adv.double(), g.double(), clean.double(), ALPHA32, EPS32)
+    with pytest.raises(ValueError):
+        kernels.sign_step_project(adv.t(), g.t(), clean.t(), ALPHA32, EPS32)
+    with pytest.raises(ValueError):
+        kernels.sign_step_project(adv, g.cpu(), clean, ALPHA32, EPS32)
+    with pytest.raises(ValueError):
+        kernels.sign_step_project(adv, g[1:], clean, ALPHA32, EPS32)

@@ -1,7 +1,8 @@
-"""The port's pixel and loss functions against the JAX package's, on the same
-numpy inputs. Elementwise pixel math must agree exactly (after the layout
-transpose: NCHW frames in the port, NHWC in the JAX package); reductions
-agree to rtol 1e-6, since the two sum in different orders."""
+"""The port's pixel, loss and gradient-normalization functions against the
+JAX package's, on the same numpy inputs. Elementwise pixel math must agree
+exactly (after the layout transpose: NCHW frames in the port, NHWC in the
+JAX package); reductions agree to rtol 1e-6, since the two sum in different
+orders."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,9 +10,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from i2v_tpu.ops import grads as jgrads  # noqa: E402
 from i2v_tpu.ops import losses as jlosses  # noqa: E402
 from i2v_tpu.ops import pixel as jpixel  # noqa: E402
-from i2v_tpu_torch.ops import losses, pixel  # noqa: E402
+from i2v_tpu_torch.ops import grads, losses, pixel  # noqa: E402
 
 EPS = float(np.float32(16 / 255))
 
@@ -91,4 +93,47 @@ def test_per_tap_frame_cosines_match_jax():
     got = losses.per_tap_frame_cosines([torch.from_numpy(t) for t in adv],
                                        [torch.from_numpy(t) for t in clean]).numpy()
     assert got.shape == (2, 6)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def _grad_with_zero_slices_and_nan(nan: bool):
+    g = (_clip(11, (3, 3, 4, 8, 8)) - 0.5) * 1e-3
+    g[0, :, 1] = 0.0      # one all-zero frame of clip 0
+    g[1] = 0.0            # all of clip 1
+    if nan:
+        g[2, 1, 2, 3, 4] = np.nan
+    return g
+
+
+@pytest.mark.parametrize("frame_level", [True, False])
+@pytest.mark.parametrize("nan", [False, True])
+def test_norm_grads_matches_jax_with_zero_slices_and_nan(frame_level, nan):
+    g = _grad_with_zero_slices_and_nan(nan)
+    want = np.asarray(jgrads.norm_grads(jnp.asarray(g), frame_level=frame_level))
+    got = grads.norm_grads(torch.from_numpy(g), frame_level=frame_level).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6)  # NaN must meet NaN
+    assert (got[1] == 0).all() and np.isfinite(got[:2]).all()
+    if frame_level:
+        assert (got[0, :, 1] == 0).all()
+    assert np.isnan(got[2]).any() == nan
+    with pytest.raises(ValueError):
+        grads.norm_grads(torch.from_numpy(g[0]))
+
+
+@pytest.mark.parametrize("nan", [False, True])
+def test_l1_normalize_matches_jax(nan):
+    g = _grad_with_zero_slices_and_nan(nan)
+    want = np.asarray(jgrads.l1_normalize(jnp.asarray(g)))
+    got = grads.l1_normalize(torch.from_numpy(g)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert np.isnan(got).all() == nan
+    assert (grads.l1_normalize(torch.zeros(2, 3)) == 0).all()
+
+
+def test_cross_entropy_matches_jax():
+    rng = np.random.RandomState(12)
+    logits = (rng.randn(5, 400) * 8).astype(np.float32)
+    labels = rng.randint(0, 400, size=5)
+    want = float(jlosses.cross_entropy(jnp.asarray(logits), jnp.asarray(labels)))
+    got = float(losses.cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels)))
     np.testing.assert_allclose(got, want, rtol=1e-6)
