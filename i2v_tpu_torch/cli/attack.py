@@ -22,8 +22,9 @@ from . import common
 def arg_parse(argv=None):
     p = argparse.ArgumentParser(description="white-box video attack (Kinetics-400)")
     p.add_argument("--model", default="i3d_resnet50",
-                   help="i3d_resnet50 or i3d_resnet101 (SlowFast and TPN are not "
-                        "ported yet)")
+                   help="one of the six video models: i3d_resnet50, i3d_resnet101, "
+                        "slowfast_resnet50, slowfast_resnet101, tpn_resnet50, "
+                        "tpn_resnet101")
     p.add_argument("--attack_type", default="image", choices=["image", "video"],
                    help="reference-CLI compatibility flag (attack.py:76-83); "
                         "dispatch here is by method name")

@@ -1,1 +1,2 @@
-"""Clip sources and the batcher (synthetic clips only, so far)."""
+"""Clip sources (synthetic clips only, so far), the batcher and the prefetch
+thread."""

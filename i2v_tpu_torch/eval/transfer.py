@@ -1,0 +1,258 @@
+"""Transfer evaluation: run adversarial artifacts through the video-model zoo
+and write the reference's reports (reference C27/C28: reference.py,
+reference_ucf101.py).
+
+PyTorch counterpart of :mod:`i2v_tpu.eval.transfer`. Reports, with the JAX
+package's schemas byte for byte:
+  - ``results_all_models_prediction.csv``: ``gt_label`` and one
+    ``{model}-pre`` column per model, one row per label, ``-1`` where the run
+    holds no artifact of that label (reference: reference.py:106-127); the
+    bytes ``pandas.DataFrame.to_csv(index=False)`` writes, from the ``csv``
+    module
+  - ``top1_acc_all_models.json``: ``{model: top-1 accuracy (%)}`` (attack
+    success rate = 100 − top-1)
+
+Each batch is read from disk by a prefetch thread into pinned host memory
+and uploaded with ``non_blocking=True``; forwards run under
+``torch.inference_mode()`` and top-1 is computed on the device, so only the
+predictions and the accuracy come back. The serial mode swaps models as the
+reference does (reference.py:124-125: ``del`` and ``empty_cache``); the
+single-pass mode keeps every model resident and runs each uploaded batch
+through all of them.
+"""
+
+from __future__ import annotations
+
+import csv
+import json
+import os
+import time
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..data.pipeline import threaded_prefetch
+from ..models.video_zoo import VIDEO_BUILDERS, get_video_model
+from ..utils import AverageMeter, artifacts
+
+MULTI_DEVICE_ITEM = "ROADMAP Queue 1, item 9 (multi-device)"
+
+
+def accuracy_and_preds(logits: torch.Tensor, labels: torch.Tensor):
+    """Top-1 accuracy (%) and predictions, on the logits' device (reference:
+    reference.py:28-36): the float32 mean of the hits, times 100."""
+    preds = torch.argmax(logits, dim=-1)
+    acc = 100.0 * (preds == labels).to(torch.float32).mean()
+    return acc, preds
+
+
+def order_predictions_by_label(labels, preds, n_classes: int) -> np.ndarray:
+    """Reorder predictions into label order for the report CSV (reference:
+    reference.py:116-119; the label doubles as the sample id).
+
+    A malformed artifact directory fails loudly rather than giving a quietly
+    wrong CSV: an out-of-range label (a file from another dataset) or a
+    duplicate label (two artifacts claiming one sample id) raises. Labels
+    absent from the run (partial or sharded generation) stay ``-1``."""
+    ordered = np.zeros(n_classes, dtype=np.int64) - 1
+    seen: set[int] = set()
+    for lab, pred in zip(labels, preds):
+        lab = int(lab)
+        if not 0 <= lab < n_classes:
+            raise ValueError(
+                f"artifact label {lab} outside [0, {n_classes}) — the run "
+                "directory mixes artifacts from a different dataset")
+        if lab in seen:
+            raise ValueError(
+                f"duplicate artifact label {lab} — two artifacts claim the "
+                "same sample id; the run directory is malformed")
+        seen.add(lab)
+        ordered[lab] = pred
+    return ordered
+
+
+def _prefetched_uploads(files_batches: Sequence[Sequence[str]], run_dir: str,
+                        device: torch.device):
+    """Iterator of (device clips, device labels, host labels). The worker
+    thread reads each batch, pins it (on a CUDA device) and starts its
+    upload, so that disk reads and the copy overlap the consumer's forwards.
+    At most three batches are on the device (in use, queued, in the worker's
+    hands): a B=16 batch is 308 MB."""
+    pin = device.type == "cuda"
+
+    def uploaded():
+        for files in files_batches:
+            clips, labels = artifacts.load_adv_batch(run_dir, files)
+            clips_t = torch.from_numpy(clips)
+            labels_t = torch.from_numpy(labels.astype(np.int64))
+            if pin:
+                clips_t, labels_t = clips_t.pin_memory(), labels_t.pin_memory()
+            yield (clips_t.to(device, non_blocking=True),
+                   labels_t.to(device, non_blocking=True), labels)
+
+    return threaded_prefetch(uploaded)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _log_progress(log, step: int, n: int, data_time, batch_time, top1: dict, title: str):
+    log(f"----{title}----")
+    log(f"Process: [{step + 1}/{n}]")
+    log(f"data_time: {data_time.val:.3f}, batch time: {batch_time.val:.3f}")
+    for name, meter in top1.items():
+        log(f"top-1 accuracy{f' [{name}]' if name else ''}: {meter.avg:.2f}%")
+
+
+def reference_eval(bundle, files_batches: Sequence[Sequence[str]], run_dir: str, *, log=print):
+    """Evaluate one model over artifact batches → (preds, labels, top1_avg).
+
+    Artifacts are normalized-domain clips (the protocol); the bundle's
+    ``apply_norm`` takes them as they are."""
+    data_time, batch_time, top1 = AverageMeter(), AverageMeter(), AverageMeter()
+    predictions: list[int] = []
+    labels_all: list[int] = []
+    end = time.time()
+    with torch.inference_mode():
+        for step, (clips, dlabels, labels) in enumerate(
+                _prefetched_uploads(files_batches, run_dir, bundle.device)):
+            data_time.update(time.time() - end)
+            acc, preds = accuracy_and_preds(bundle.apply_norm(clips), dlabels)
+            predictions += preds.cpu().tolist()
+            labels_all += labels.tolist()
+            top1.update(float(acc), len(labels))
+            batch_time.update(time.time() - end)
+            end = time.time()
+            if step % 5 == 0:
+                _log_progress(log, step, len(files_batches), data_time, batch_time,
+                              {"": top1}, "validation")
+    return predictions, labels_all, top1.avg
+
+
+def single_pass_eval(bundles: dict, files_batches: Sequence[Sequence[str]], run_dir: str, *,
+                     log=print):
+    """Evaluate every model over each uploaded batch → ({model: preds},
+    labels, {model: top1_avg}).
+
+    The reference reads and uploads every artifact once per model
+    (reference.py:108-125); here each batch is read and uploaded once, and
+    every model's forward is issued before any result is fetched, so the
+    card runs them back to back. The reports are the serial mode's."""
+    device = next(iter(bundles.values())).device
+    data_time, batch_time = AverageMeter(), AverageMeter()
+    top1 = {name: AverageMeter() for name in bundles}
+    predictions: dict = {name: [] for name in bundles}
+    labels_all: list[int] = []
+    end = time.time()
+    with torch.inference_mode():
+        for step, (clips, dlabels, labels) in enumerate(
+                _prefetched_uploads(files_batches, run_dir, device)):
+            data_time.update(time.time() - end)
+            pending = {name: accuracy_and_preds(b.apply_norm(clips), dlabels)
+                       for name, b in bundles.items()}
+            labels_all += labels.tolist()
+            for name, (acc, preds) in pending.items():
+                predictions[name] += preds.cpu().tolist()
+                top1[name].update(float(acc), len(labels))
+            batch_time.update(time.time() - end)
+            end = time.time()
+            if step % 5 == 0:
+                _log_progress(log, step, len(files_batches), data_time, batch_time, top1,
+                              "validation (single pass, all models)")
+    return predictions, labels_all, {n: m.avg for n, m in top1.items()}
+
+
+def write_reports(run_dir: str, columns: dict, n_classes: int, model_val_acc: dict) -> None:
+    """The CSV as ``pandas.DataFrame.to_csv(index=False)`` writes it
+    (QUOTE_MINIMAL, ``\\n`` line ends, integer cells) and the JSON as
+    ``json.dump`` writes it."""
+    with open(os.path.join(run_dir, "results_all_models_prediction.csv"), "w",
+              newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["gt_label"] + [f"{name}-pre" for name in columns])
+        for label in range(n_classes):
+            w.writerow([label] + [int(col[label]) for col in columns.values()])
+    with open(os.path.join(run_dir, "top1_acc_all_models.json"), "w") as f:
+        json.dump(model_val_acc, f)
+
+
+def evaluate_run(
+    run_dir: str,
+    *,
+    model_names: Optional[Sequence[str]] = None,
+    batch_size: int = 16,
+    n_classes: int = 400,
+    ucf101: bool = False,
+    tiny: bool = False,
+    get_bundle: Optional[Callable] = None,
+    device: torch.device | str = "cuda",
+    mesh=None,
+    data_parallel: bool = False,
+    single_pass: bool = False,
+    throughput: Optional[dict] = None,
+    log=print,
+) -> dict:
+    """Evaluate a run directory against the video models (default: all six)
+    and write the two reports into it. Returns ``{model: top1}``.
+
+    ``get_bundle(name)`` supplies a model in place of
+    ``get_video_model(name, device=device, ...)``. ``single_pass=True`` keeps
+    all models resident and reads and uploads each batch once. A
+    ``throughput`` dict is filled with the clips/s of each model's
+    evaluation (serial) or of the whole pass (``"single_pass"``), each timed
+    on the host's clock around work that ends in a device synchronize."""
+    if mesh is not None or data_parallel:
+        raise NotImplementedError(
+            f"data-parallel evaluation is not ported yet ({MULTI_DEVICE_ITEM})")
+    device = torch.device(device)
+    files = artifacts.list_adv_files(run_dir)
+    if not files:
+        raise FileNotFoundError(f"no adv artifacts under {run_dir!r}")
+    batches = artifacts.batch_files(files, batch_size)
+    if model_names is None:
+        model_names = list(VIDEO_BUILDERS)
+    throughput = {} if throughput is None else throughput
+
+    def build(name):
+        if get_bundle is not None:
+            return get_bundle(name)
+        return get_video_model(name, device=device, tiny=tiny, ucf101=ucf101)
+
+    def timed(key: str, dev: torch.device, fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        elapsed = time.perf_counter() - t0
+        throughput[key] = {"clips": len(files), "elapsed_s": elapsed,
+                           "clips_per_sec": len(files) / elapsed}
+        return out
+
+    columns: dict = {}
+    model_val_acc: dict = {}
+    if single_pass:
+        bundles = {name: build(name) for name in model_names}
+        log(f"Models (single pass): {', '.join(model_names)}")
+        dev = next(iter(bundles.values())).device
+        preds_by_model, labels, model_val_acc = timed(
+            "single_pass", dev, lambda: single_pass_eval(bundles, batches, run_dir, log=log))
+        for name in model_names:
+            columns[name] = order_predictions_by_label(labels, preds_by_model[name], n_classes)
+    else:
+        for name in model_names:
+            log(f"Model-{name}:")
+            bundle = build(name)
+            dev = bundle.device
+            preds, labels, top1 = timed(
+                name, dev, lambda: reference_eval(bundle, batches, run_dir, log=log))
+            columns[name] = order_predictions_by_label(labels, preds, n_classes)
+            model_val_acc[name] = top1
+            # the reference's model swap (reference.py:124-125)
+            del bundle
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    write_reports(run_dir, columns, n_classes, model_val_acc)
+    return model_val_acc

@@ -1,4 +1,4 @@
-"""Shared blocks for the 3-D video backbones (I3D so far).
+"""Shared blocks for the 3-D video backbones (I3D, SlowFast, TPN).
 
 PyTorch counterpart of :mod:`i2v_tpu.models.video_common`:
   - clips enter as ``(B, C, T, H, W)`` in [0,1], which is PyTorch's NCDHW
@@ -24,13 +24,13 @@ from ..ops.activations import grad_scaled_relu
 
 
 def conv3d(in_ch: int, out_ch: int, kernel: Sequence[int], stride: Sequence[int] = (1, 1, 1),
-           padding: Sequence[int] | None = None) -> nn.Conv3d:
+           padding: Sequence[int] | None = None, *, groups: int = 1) -> nn.Conv3d:
     """3-D conv with torch-style symmetric integer padding ((k-1)//2 by
-    default) and bias."""
+    default) and bias; ``groups`` is Flax's ``feature_group_count``."""
     if padding is None:
         padding = tuple((k - 1) // 2 for k in kernel)
     return nn.Conv3d(in_ch, out_ch, tuple(kernel), stride=tuple(stride),
-                     padding=tuple(padding), bias=True)
+                     padding=tuple(padding), groups=groups, bias=True)
 
 
 def max_pool3d(x: torch.Tensor, kernel: Sequence[int], stride: Sequence[int],

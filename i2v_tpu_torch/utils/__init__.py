@@ -1,4 +1,4 @@
-"""Paths, the artifact protocol, the throughput meter."""
+"""Paths, the artifact protocol, meters."""
 
 from .artifacts import (  # noqa: F401
     adv_filename,
@@ -8,4 +8,5 @@ from .artifacts import (  # noqa: F401
     save_adv_clip,
     save_loss_info,
 )
+from .meters import AverageMeter  # noqa: F401
 from .paths import VIDEO_MODEL_NAMES, get_paths  # noqa: F401

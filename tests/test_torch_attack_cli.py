@@ -99,8 +99,26 @@ def test_unported_methods_are_refused_with_the_roadmap_item(method, capsys):
 
 
 def test_unported_models_are_refused(opt_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        attack.main(["--model", "slowfast_resnet50", "--step", "1"] + TINY)
+    """All six reference models are ported; any other name is refused before
+    an artifact is written."""
+    with pytest.raises(ValueError, match="unknown video model"):
+        attack.main(["--model", "c3d_resnet50", "--step", "1"] + TINY)
+    assert not any(f.endswith(".npy") for _, _, fs in os.walk(opt_path) for f in fs)
+
+
+@pytest.mark.parametrize("model", ["slowfast_resnet50", "tpn_resnet50"])
+def test_bim_runs_on_slowfast_and_tpn(opt_path, model):
+    args = attack.arg_parse(["--model", model, "--attack_method", "BIM", "--step", "3"] + TINY)
+    run_dir = attack.run(args)
+    assert os.path.basename(run_dir) == f"{model}-BIM-3-synthetic"
+    ds = SyntheticAttackDataset(n_samples=2, clip_len=8, size=32)
+    for label in (0, 1):
+        adv = np.load(os.path.join(run_dir, f"{label}-adv.npy"))
+        d = pixel.unnormalize(torch.from_numpy(adv), 0) - torch.from_numpy(ds.clip01(label))
+        assert adv.shape == (3, 8, 32, 32) and 0 < float(d.abs().max()) <= EPS + 1e-5
+    costs = {k: [float(c["cost"]) for c in v.values()] for k, v in args.loss_info.items()}
+    assert sorted(costs) == ["synthetic_0", "synthetic_1"]
+    assert all(len(c) == 3 and c[-1] > c[0] for c in costs.values())
 
 
 def test_cuda_device_without_a_card_stops(opt_path):

@@ -153,10 +153,18 @@ def test_full_width_parameter_sets_match_jax(name):
         sum(int(np.prod(s)) for s in flat.values())
 
 
-def test_registry_refuses_unported_and_unknown_models():
-    for name in video_zoo.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            get_video_model(name, device="cpu", tiny=True)
+@pytest.mark.parametrize("name", ["i3d_resnet50", "i3d_resnet101", "slowfast_resnet50",
+                                  "slowfast_resnet101", "tpn_resnet50", "tpn_resnet101"])
+def test_registry_builds_every_reference_model_and_refuses_unknown_ones(name):
+    from i2v_tpu_torch.utils import VIDEO_MODEL_NAMES
+
+    assert sorted(video_zoo.VIDEO_BUILDERS) == sorted(video_zoo.TINY_BUILDERS) == \
+        sorted(VIDEO_MODEL_NAMES)
+    bundle = get_video_model(name, device="cpu", tiny=True)
+    with torch.no_grad():
+        assert bundle.apply01(torch.from_numpy(_clip(11))).shape == (CLIP[0], 10)
+    # the 101-class head of the UCF-101 models is a full-width option only
+    assert get_video_model(name, device="cpu", tiny=True, ucf101=True).module.fc.out_features == 10
     with pytest.raises(ValueError, match="unknown video model"):
         get_video_model("c3d_resnet50", device="cpu")
 

@@ -1,0 +1,211 @@
+"""Profile the port's serial transfer evaluation on one CUDA card.
+
+    python tools/torch_eval_profile.py [--out outputs/eval_profile.json]
+
+For each precision mode (TF32 off: ``--matmul_precision float32``; torch's
+default: TF32 convolutions) and each of the six video models at full width
+(random weights, 32x224^2 clips, 400 classes), the script evaluates one batch
+of 16 synthetic artifacts (the reference's evaluation batch) through
+``reference_eval``, the serial evaluation of ``i2v_tpu_torch.eval.transfer``:
+
+  1. a warm-up evaluation (cuDNN's set-up for the model's shapes);
+  2. an untraced evaluation, timed on the host's clock around work that ends
+     in ``torch.cuda.synchronize``: clips/s and peak device memory;
+  3. a ``torch.profiler`` trace of one more evaluation: device time summed
+     over its kernels, the idle share of the span from the first kernel to
+     the last, and the kernels that take the most time.
+
+Then, in each mode, the six models evaluate the same batch in one pass
+(``single_pass_eval``, all six resident, the batch read and uploaded once):
+a warm-up and a timed pass, for clips/s and peak memory.
+
+It prints one line a (mode, model) and writes every number, with the card's
+name and power limit, into ``--out``. Floating-point operations a clip come
+from the shapes (``torch.utils.flop_counter`` on the meta device). It needs a
+card and exits without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from i2v_tpu_torch.cli import common  # noqa: E402
+from i2v_tpu_torch.data.synthetic import SyntheticAttackDataset  # noqa: E402
+from i2v_tpu_torch.eval.transfer import reference_eval, single_pass_eval  # noqa: E402
+from i2v_tpu_torch.models import get_video_model, video_zoo  # noqa: E402
+from i2v_tpu_torch.utils import artifacts  # noqa: E402
+
+MODES = ("float32", "default")
+BATCH = 16
+TOP_KERNELS = 6
+# kernel-name patterns of each share the script reports, first match wins
+CATEGORIES = (
+    ("conv", ("fprop", "implicit_gemm", "conv")),
+    # cuBLAS/CUTLASS products: the non-local blocks' attention (float32), and
+    # with TF32 on the 1x1x1 convs that cuDNN hands to a GEMM
+    ("gemm", ("gemm",)),
+    ("layout", ("nchwToNhwc", "nhwcToNchw", "Transpose")),
+    # the conv bias add: a (C,1,1,1) broadcast, which takes the unvectorized path
+    ("broadcast add", ("elementwise_kernel<128, 2, at::native::gpu_kernel_impl_nocast"
+                       "<at::native::CUDAFunctor_add",)),
+    ("elementwise", ("elementwise_kernel",)),           # ReLU, residual adds
+    ("pool", ("pool",)),
+)
+
+
+def forward_flops_per_clip(name: str) -> float:
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.device("meta"):
+        module = video_zoo.VIDEO_BUILDERS[name]()
+        clip = torch.empty(1, 3, 32, 224, 224)
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        module(clip)
+    return float(counter.get_total_flops())
+
+
+def kernel_summary(trace_path: str) -> dict:
+    """Device time by kernel name, the busy time (union of the kernels'
+    intervals) and the span from the first kernel's start to the last's end."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel" and "dur" in e]
+    by_name: dict = {}
+    for e in events:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    intervals = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in intervals:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    span = intervals[-1][1] - intervals[0][0] if intervals else 0.0
+    return {"kernel_us": sum(by_name.values()), "busy_us": busy, "span_us": span,
+            "launches": len(events), "by_name": by_name}
+
+
+def category_shares(by_name: dict) -> dict:
+    total = sum(by_name.values())
+    shares: dict = {}
+    for name, us in by_name.items():
+        cat = next((c for c, pats in CATEGORIES if any(p in name for p in pats)), "other")
+        shares[cat] = shares.get(cat, 0.0) + us / total
+    return shares
+
+
+def timed(fn) -> tuple[float, object]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def timed_eval(bundle, batches, run_dir) -> tuple[float, list]:
+    wall, (preds, _, _) = timed(
+        lambda: reference_eval(bundle, batches, run_dir, log=lambda *_: None))
+    return wall, preds
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--out", default="outputs/eval_profile.json")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("torch_eval_profile: no CUDA device is available")
+    from torch.profiler import ProfilerActivity, profile
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    result = {"card": card, "torch": torch.__version__, "batch": BATCH, "rows": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = SyntheticAttackDataset(n_samples=BATCH)
+        for label in range(BATCH):
+            artifacts.save_adv_clip(tmp, label, ds[label][0])
+        batches = artifacts.batch_files(artifacts.list_adv_files(tmp), BATCH)
+        for mode in MODES:
+            prec = common.apply_matmul_precision(argparse.Namespace(matmul_precision=mode))
+            print(f"[precision] {prec}")
+            for name in video_zoo.VIDEO_BUILDERS:
+                bundle = get_video_model(name, device="cuda")
+                warm_s, preds = timed_eval(bundle, batches, tmp)
+                torch.cuda.reset_peak_memory_stats()
+                wall_s, _ = timed_eval(bundle, batches, tmp)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                trace_path = os.path.join(tmp, "trace.json")
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    timed_eval(bundle, batches, tmp)
+                prof.export_chrome_trace(trace_path)
+                k = kernel_summary(trace_path)
+                os.remove(trace_path)
+                flops = forward_flops_per_clip(name)
+                top = sorted(k["by_name"].items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
+                row = {
+                    "mode": mode, "model": name, "warmup_s": warm_s, "wall_s": wall_s,
+                    "clips_per_sec": BATCH / wall_s, "peak_gib": peak,
+                    "device_ms_per_clip": k["kernel_us"] / 1e3 / BATCH,
+                    "idle_share": 1 - k["busy_us"] / k["span_us"] if k["span_us"] else None,
+                    "kernel_launches": k["launches"], "gflop_per_clip": flops / 1e9,
+                    "tflops_on_device": flops * BATCH / (k["kernel_us"] * 1e-6) / 1e12,
+                    "top_kernels": [(n[:120], us / k["kernel_us"]) for n, us in top],
+                    "shares": category_shares(k["by_name"]),
+                    "kernels": {n[:160]: us / k["kernel_us"] for n, us in k["by_name"].items()
+                                if us >= 0.002 * k["kernel_us"]},
+                    "preds": preds[:4],
+                }
+                result["rows"].append(row)
+                print(f"[{mode}] {name}: {row['clips_per_sec']:.3f} clips/s "
+                      f"({wall_s:.4f} s for {BATCH}; warm-up {warm_s:.3f} s), device "
+                      f"{row['device_ms_per_clip']:.3f} ms/clip, idle {row['idle_share']:.4f}, "
+                      f"{row['gflop_per_clip']:.1f} GFLOP/clip at {row['tflops_on_device']:.2f} "
+                      f"TFLOP/s, peak {peak:.2f} GiB; "
+                      + ", ".join(f"{c} {v:.1%}" for c, v in sorted(
+                          row["shares"].items(), key=lambda kv: -kv[1]))
+                      + "; top: "
+                      + "; ".join(f"{n[:60]} {s:.1%}" for n, s in row["top_kernels"][:3]))
+                del bundle
+                torch.cuda.empty_cache()
+            bundles = {name: get_video_model(name, device="cuda")
+                       for name in video_zoo.VIDEO_BUILDERS}
+
+            def one_pass():
+                return single_pass_eval(bundles, batches, tmp, log=lambda *_: None)
+
+            timed(one_pass)
+            torch.cuda.reset_peak_memory_stats()
+            wall_s, _ = timed(one_pass)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            result["single_pass"] = result.get("single_pass", []) + [
+                {"mode": mode, "wall_s": wall_s, "clips_per_sec": BATCH / wall_s,
+                 "peak_gib": peak}]
+            serial_s = sum(r["wall_s"] for r in result["rows"] if r["mode"] == mode)
+            print(f"[{mode}] single pass, six models: {BATCH / wall_s:.3f} clips/s "
+                  f"({wall_s:.4f} s for {BATCH}; the six serial evaluations above "
+                  f"{serial_s:.4f} s), peak {peak:.2f} GiB")
+            del bundles
+            torch.cuda.empty_cache()
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
+if __name__ == "__main__":
+    main()
