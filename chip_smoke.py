@@ -36,11 +36,24 @@ raises and the script exits non-zero:
                  trajectory and the share of pixels that differ
  10. eval parity — tiny SlowFast and TPN logits on the card and on the CPU
                  from the same seed, and the predictions they give
+ 11. aens      — 10-step full-width AENS-I2V-MF over two clips at B=1 through
+                 the image CLI: K1/K2 every step, the cost descended, and the
+                 coefficients carried over from clip 1 into clip 2
+ 12. dr        — 5-step full-width DR (ResNet-101, depth 2) over one clip
+ 13. fused     — 5-step ENS-I2V with --fused_eval all: the six full-width
+                 video models evaluate each clip in the same process; its
+                 CSV is cli.evaluate's over its artifacts; a float16 write
+                 through the artifact writer; a --no_artifacts float16 shard
+ 14. ilaf      — 10-step cli.fine_tune on full-width I3D-R50 over the BIM
+                 run's adv/ori pairs: K1/K2 every step, outputs in the ε-ball
+ 15. aens/ilaf parity — tiny AENS and ILAF on the card and on the CPU: cost,
+                 gradient at a generic modifier, AENS's next coefficients
 
-Each path (slice, eval, whitebox, sf whitebox) is driven with the launch
-counters set to 0 just before it and read just after. The line before the
-last is a JSON object with each kernel's launches over those paths, its
-error, times and bound; the last line is {"ok": true, "device": {...}}.
+Each path (slice, eval, whitebox, sf whitebox, aens, dr, fused, ilaf) is
+driven with the launch counters set to 0 just before it and read just after.
+The line before the last is a JSON object with each kernel's launches over
+those paths, its error, times and bound; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -77,6 +90,12 @@ KERNEL_WORK = {            # (bytes, float32 operations) an element
     "sign_step": (16, 9),     # read adv, g, clean; write out; sign, 1 mul, 3 adds, 2 clamps
 }
 SF_FAST_STRIDE = 2         # SlowFast-R50's fast pathway samples every 2nd frame
+AENS_CLIPS, AENS_STEPS = 2, 10
+AENS_MOMENTUM = 0.8        # > 0, so that carried-over coefficients show in clip 2
+DR_STEPS = 5
+FUSED_CLIPS, FUSED_STEPS = 2, 5
+ILAF_CLIPS, ILAF_STEPS = WB_RUNS[0][1], 10   # over the BIM run's pairs
+REPORT_CSV, REPORT_JSON = "results_all_models_prediction.csv", "top1_acc_all_models.json"
 
 
 def phase_device() -> str:
@@ -378,7 +397,7 @@ def phase_parity(image_main) -> None:
         with torch.no_grad():
             loss_fn = atk._make_loss(i2v._collect_taps(atk.models, frames))
         m = torch.from_numpy(mod).to(device).requires_grad_(True)
-        cost = loss_fn(kernels.rebuild_adv(frames, m, EPS))
+        cost, _ = loss_fn(kernels.rebuild_adv(frames, m, EPS), atk._state0())
         (g,) = torch.autograd.grad(cost, m)
         step0[device] = (float(cost.detach()), g.cpu().numpy())
     (c_k, g_k), (c_c, g_c) = step0["cuda"], step0["cpu"]
@@ -400,18 +419,11 @@ def phase_parity(image_main) -> None:
         raise RuntimeError("card and CPU disagree on the tiny ENS-I2V cost or gradient")
 
 
-def phase_eval(evaluate_cli, get_video_model, kernels, run_dir: str) -> dict:
+def phase_eval(evaluate_cli, get_bundle, kernels, run_dir: str) -> dict:
     """The six full-width video models over the slice's adversarial clips,
-    serially and in one pass, through the evaluation CLI; each model is built
-    once. Returns the launch counts of the two runs."""
+    serially and in one pass, through the evaluation CLI; ``get_bundle``
+    builds each model once. Returns the launch counts of the two runs."""
     t0 = time.time()
-    cache = {}
-
-    def get_bundle(name):
-        if name not in cache:
-            cache[name] = get_video_model(name, device="cuda")
-        return cache[name]
-
     reports, throughput = {}, {}
     kernels.reset_launches()
     for mode in ("serial", "single pass"):
@@ -433,7 +445,7 @@ def phase_eval(evaluate_cli, get_video_model, kernels, run_dir: str) -> dict:
         raise RuntimeError(f"serial and single-pass reports differ: {reports}")
     csv_bytes, top1 = reports["serial"]
     rows = csv_bytes.decode().split("\n")
-    names = list(cache)
+    names = list(top1)
     if (len(names) != 6 or rows[0] != "gt_label," + ",".join(f"{n}-pre" for n in names)
             or len(rows) != 402 or rows[-1] != "" or list(top1) != names):
         raise RuntimeError(f"reports off the schema: {rows[:3]}…, {len(rows)} lines, {top1}")
@@ -621,12 +633,267 @@ def phase_eval_parity(evaluate_cli, get_video_model, pixel) -> None:
           "max|logit|: " + "; ".join(facts))
 
 
+def _want(clips: int, steps: int) -> dict:
+    """Launch counts of an Adam or ILAF path: K1 in each step and in the final
+    rebuild, K2 in each step's backward, no K3."""
+    return {"rebuild_fwd": clips * (steps + 1), "rebuild_bwd": clips * steps, "sign_step": 0}
+
+
+def _run_counted(kernels, label: str, want: dict, fn):
+    """``fn()`` with the counters set to 0 just before it; fails unless the
+    counts read just after are ``want``. Returns (fn's result, counts, peak GiB)."""
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out = fn()
+    counts = dict(kernels.launches)
+    if counts != want:
+        raise RuntimeError(f"{label}: launch counts {counts}, expected {want}")
+    return out, counts, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _descends(label: str, costs: dict, n: int, steps: int) -> None:
+    if len(costs) != n:
+        raise RuntimeError(f"{label}: costs recorded for {len(costs)} clips, expected {n}")
+    for v, c in costs.items():
+        if len(c) != steps or not np.isfinite(c).all() or not c[-1] < c[0]:
+            raise RuntimeError(f"{label} {v}: the cost did not descend: {c}")
+
+
+def phase_aens(kernels, image_main, synthetic, pixel_mean_std) -> dict:
+    """Full-width AENS-I2V-MF (the four surrogates with two taps each) over two
+    clips at B=1; the coefficients carry over from clip to clip."""
+    argv = ["--attack_method", "AENS_I2V_MF", "--data", "synthetic", "--n_synthetic",
+            str(AENS_CLIPS), "--batch_size", "1", "--step", str(AENS_STEPS), "--step_size",
+            "0.005", "--aens_momentum", str(AENS_MOMENTUM), "--device", "cuda",
+            "--matmul_precision", "float32"]
+    args = image_main.arg_parse(argv)
+    build, seen = image_main.common.build_image_guided_attack, {}
+
+    def capture(*a, **k):  # the attack the CLI builds, to read its coefficients
+        atk = seen["attack"] = build(*a, **k)
+        run = atk._run
+
+        def recorded(clean01):
+            out = run(clean01)
+            seen.setdefault("coeffs", []).append(out[2][0].cpu().numpy())
+            return out
+
+        atk._run = recorded
+        return atk
+
+    image_main.common.build_image_guided_attack = capture
+    try:
+        _, counts, peak = _run_counted(kernels, "AENS", _want(AENS_CLIPS, AENS_STEPS),
+                                       lambda: image_main.run(args))
+    finally:
+        image_main.common.build_image_guided_attack = build
+    ds = synthetic.SyntheticAttackDataset(n_samples=AENS_CLIPS)
+    for label in range(AENS_CLIPS):
+        _check_clip(args.adv_path, label, "adv", ds, pixel_mean_std)
+    costs = _costs(args.adv_path)
+    _descends("AENS", costs, AENS_CLIPS, AENS_STEPS)
+    atk, after = seen["attack"], seen["coeffs"]
+    first_of_clip2 = atk.weights[0]
+    # a fresh start's first coefficients are uniform: softmax(softmax(1) + m·1)
+    spread = float(first_of_clip2.max() - first_of_clip2.min())
+    if len(after) != AENS_CLIPS or any(np.allclose(c, 1.0) for c in after) or not spread > 0:
+        raise RuntimeError(f"AENS coefficients did not carry over: after each clip {after}, "
+                           f"clip 2's first {first_of_clip2}")
+    tp = args.throughput
+    print(f"[aens] AENS-I2V-MF, four full-width surrogates with {atk.n_taps} taps, "
+          f"{AENS_CLIPS} clips of 32x224^2 at B=1, {AENS_STEPS} steps, momentum "
+          f"{AENS_MOMENTUM}, TF32 off: last clip alone {AENS_STEPS / tp['last_call_s']:.3f} "
+          f"steps/s ({tp['last_call_s']:.3f} s), {tp['attack_steps_per_sec_per_chip']:.3f} "
+          f"steps/s with the first clip's warm-up; peak memory {peak:.2f} GiB; launches "
+          f"{counts}; costs " + "; ".join(f"{v}: {c[0]:.4f} -> {c[-1]:.4f}"
+                                         for v, c in costs.items())
+          + f"; coefficients after clip 1 [{', '.join(f'{x:.5f}' for x in after[0])}], "
+          f"clip 2's first step [{', '.join(f'{x:.5f}' for x in first_of_clip2)}] (spread "
+          f"{spread:.3g}; uniform on a fresh start)")
+    return counts
+
+
+def phase_dr(kernels, image_main, synthetic, pixel_mean_std) -> dict:
+    """Full-width DR (ResNet-101 at depth 2) over one clip."""
+    argv = ["--attack_method", "ImageGuidedStd_Adam", "--depth", "2", "--data", "synthetic",
+            "--n_synthetic", "1", "--batch_size", "1", "--step", str(DR_STEPS), "--device",
+            "cuda", "--matmul_precision", "float32"]
+    args = image_main.arg_parse(argv)
+    _, counts, peak = _run_counted(kernels, "DR", _want(1, DR_STEPS),
+                                   lambda: image_main.run(args))
+    _check_clip(args.adv_path, 0, "adv", synthetic.SyntheticAttackDataset(n_samples=1),
+                pixel_mean_std)
+    costs = _costs(args.adv_path)
+    _descends("DR", costs, 1, DR_STEPS)
+    tp = args.throughput
+    print(f"[dr] DR on ResNet-101 (depth 2), 1 clip of 32x224^2, {DR_STEPS} steps, TF32 off: "
+          f"{DR_STEPS / tp['last_call_s']:.3f} steps/s with warm-up; peak memory {peak:.2f} "
+          f"GiB; launches {counts}; cost " + "; ".join(
+              f"{v}: {np.round(c, 4).tolist()}" for v, c in costs.items()))
+    return counts
+
+
+def phase_fused(kernels, image_main, evaluate_cli, get_bundle, pixel_mean_std) -> dict:
+    """ENS-I2V with ``--fused_eval all`` at full width over two clips, float32
+    artifacts; then the same artifacts through ``cli.evaluate``; then a shard
+    of the run with float16 and no artifacts."""
+    from i2v_tpu_torch.data import synthetic
+    from i2v_tpu_torch.eval.fused import AsyncArtifactWriter
+
+    base = ["--attack_method", "ImageGuidedFML2_Adam_MultiModels", "--data", "synthetic",
+            "--n_synthetic", str(FUSED_CLIPS), "--batch_size", "1", "--step", str(FUSED_STEPS),
+            "--fused_eval", "all", "--device", "cuda", "--matmul_precision", "float32"]
+    args = image_main.arg_parse(base + ["--file_prefix", "fused"])
+    _, counts, peak = _run_counted(kernels, "fused", _want(FUSED_CLIPS, FUSED_STEPS),
+                                   lambda: image_main.run(args, get_bundle=get_bundle))
+    run_dir, tp = args.adv_path, args.throughput
+    files = sorted(os.listdir(run_dir))
+    want_files = sorted([f"{i}-adv.npy" for i in range(FUSED_CLIPS)]
+                        + ["loss_info_1.json", REPORT_CSV, REPORT_JSON])
+    if files != want_files:
+        raise RuntimeError(f"fused run directory holds {files}, expected {want_files}")
+    ds = synthetic.SyntheticAttackDataset(n_samples=FUSED_CLIPS)
+    for label in range(FUSED_CLIPS):
+        _check_clip(run_dir, label, "adv", ds, pixel_mean_std)
+    with open(os.path.join(run_dir, REPORT_CSV), "rb") as f:
+        fused_csv = f.read()
+    with open(os.path.join(run_dir, REPORT_JSON)) as f:
+        fused_top1 = json.load(f)
+
+    # the same artifacts offline, at the fused path's batch of 1
+    eargs = evaluate_cli.arg_parse(["--adv_path", run_dir, "--batch_size", "1", "--device",
+                                    "cuda", "--matmul_precision", "float32"])
+    _, _, _ = _run_counted(kernels, "evaluate", _want(0, 0),
+                           lambda: evaluate_cli.run(eargs, get_bundle=get_bundle))
+    with open(os.path.join(run_dir, REPORT_CSV), "rb") as f:
+        eval_csv = f.read()
+    with open(os.path.join(run_dir, REPORT_JSON)) as f:
+        eval_top1 = json.load(f)
+    top1_diff = max(abs(fused_top1[k] - eval_top1[k]) for k in eval_top1)
+    if fused_csv != eval_csv or list(fused_top1) != list(eval_top1) or top1_diff > 1e-4:
+        raise RuntimeError(f"fused reports differ from cli.evaluate's: top-1 {fused_top1} vs "
+                           f"{eval_top1}; CSV equal: {fused_csv == eval_csv}")
+
+    # float16 through the writer on the card: cast on the device, side-stream copy
+    clip = torch.from_numpy(np.load(os.path.join(run_dir, "0-adv.npy"))[None]).cuda()
+    f16_dir = os.path.join(os.path.dirname(run_dir), "fused-f16-writer")
+    writer = AsyncArtifactWriter(f16_dir, dtype=np.float16)
+    writer.submit([0], clip.to(torch.float16))
+    writer.close()
+    f16 = np.load(os.path.join(f16_dir, "0-adv.npy"))
+    if f16.dtype != np.float16 or not np.array_equal(f16, clip[0].cpu().numpy().astype(np.float16)):
+        raise RuntimeError("the float16 artifact is not the clip's float16 cast")
+
+    sargs = image_main.arg_parse(base + ["--file_prefix", "fused-shard", "--no_artifacts",
+                                         "--artifact_dtype", "float16", "--batch_nums", "2",
+                                         "--batch_index", "1"])
+    _, shard_counts, _ = _run_counted(kernels, "fused shard", _want(FUSED_CLIPS // 2, FUSED_STEPS),
+                                      lambda: image_main.run(sargs, get_bundle=get_bundle))
+    shard_files = sorted(os.listdir(sargs.adv_path))
+    want_shard = ["loss_info_1.json", "results_all_models_prediction_1.csv",
+                  "top1_acc_all_models_1.json"]
+    if shard_files != want_shard:
+        raise RuntimeError(f"the --no_artifacts shard wrote {shard_files}, expected {want_shard}")
+    print(f"[fused] ENS-I2V {FUSED_STEPS} steps + the six full-width video models in one "
+          f"process, {FUSED_CLIPS} clips of 32x224^2 at B=1, TF32 off, float32 artifacts from "
+          f"the writer thread: {tp['clips_per_sec']:.4f} clips/s ({tp['elapsed_s']:.3f} s); "
+          f"peak memory {peak:.2f} GiB; launches {counts} (none beyond the attack's); CSV "
+          f"identical to cli.evaluate's over its artifacts, top-1 within {top1_diff:.3g} "
+          f"(limit 1e-4): {fused_top1}; the float16 writer on the card gives the clip's "
+          f"float16 cast; the --no_artifacts float16 shard 1 of 2 wrote {shard_files} with "
+          f"launches {shard_counts}")
+    return {k: counts[k] + shard_counts[k] for k in counts}
+
+
+def phase_ilaf(kernels, fine_tune, synthetic, pixel_mean_std) -> dict:
+    """``cli.fine_tune`` on full-width I3D-R50 over the white-box phase's BIM
+    run directory (adv and ori pairs of two clips)."""
+    argv = ["--used_adv", f"i3d_resnet50-BIM-{WB_STEPS}-synthetic", "--model", "i3d_resnet50",
+            "--step", str(ILAF_STEPS), "--device", "cuda", "--matmul_precision", "float32"]
+    args = fine_tune.arg_parse(argv)
+    _, counts, peak = _run_counted(kernels, "ILAF", _want(ILAF_CLIPS, ILAF_STEPS),
+                                   lambda: fine_tune.run(args))
+    ds = synthetic.SyntheticAttackDataset(n_samples=ILAF_CLIPS)
+    for label in range(ILAF_CLIPS):
+        _check_clip(args.adv_path, label, "adv", ds, pixel_mean_std)
+    costs = _costs(args.adv_path)
+    _descends("ILAF", costs, ILAF_CLIPS, ILAF_STEPS)
+    tp = args.throughput
+    print(f"[ilaf] ILAF on I3D-R50 (random weights, res_layer2 tap) over the BIM run's "
+          f"{ILAF_CLIPS} pairs, {ILAF_STEPS} steps, TF32 off: last clip alone "
+          f"{ILAF_STEPS / tp['last_call_s']:.3f} steps/s ({tp['last_call_s']:.3f} s); peak "
+          f"memory {peak:.2f} GiB; launches {counts}; outputs within ε of the ori and in "
+          "[0,1]; cost trajectories " + "; ".join(
+              f"{v}: {np.round(c, 4).tolist()}" for v, c in costs.items()))
+    return counts
+
+
+# card vs CPU, tiny AENS and ILAF: float32 on both (TF32 off), at a generic
+# modifier, as the ENS parity phase
+AENS_COEFF_ATOL = 1e-6    # the next step's coefficients
+
+
+def phase_aens_ilaf_parity(image_main) -> None:
+    from i2v_tpu_torch import attacks
+    from i2v_tpu_torch.attacks import i2v
+    from i2v_tpu_torch.data import synthetic
+    from i2v_tpu_torch.models import get_video_model, tap_keys_for
+    from i2v_tpu_torch.ops import kernels, pixel
+
+    args = image_main.arg_parse(["--attack_method", "AENS_I2V_MF", "--tiny", "--clip_len", "4",
+                                 "--aens_momentum", "0.5", "--coef_CE", "--step", "3",
+                                 "--matmul_precision", "float32", "--file_prefix", "parity"])
+    image_main.common.apply_matmul_precision(args)
+    rng = np.random.RandomState(0)
+    clip01 = synthetic.SyntheticAttackDataset(n_samples=1, clip_len=4, size=32).clip01(0)
+    mod = ((rng.rand(4, 3, 32, 32) * 2 - 1) * EPS).astype(np.float32)
+    ilaf_clean = (0.1 + 0.8 * rng.rand(1, 3, 8, 32, 32)).astype(np.float32)
+    ilaf_adv = (ilaf_clean + 0.5 * EPS * np.sign(rng.randn(*ilaf_clean.shape))).astype(np.float32)
+    ilaf_mod = ((rng.rand(*ilaf_clean.shape) * 2 - 1) * 0.9 * EPS).astype(np.float32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        atk = image_main.common.build_image_guided_attack(args, torch.device(device))
+        frames = pixel.flatten_clip_to_frames(torch.from_numpy(clip01[None]).to(device))
+        with torch.no_grad():
+            loss_fn = atk._make_loss(i2v._collect_taps(atk.models, frames))
+        m = torch.from_numpy(mod).to(device).requires_grad_(True)
+        cost, (state1, _) = loss_fn(kernels.rebuild_adv(frames, m, EPS), atk._state0())
+        (g,) = torch.autograd.grad(cost, m)
+        with torch.no_grad():  # the next step's coefficients, from this step's losses
+            _, (_, (_, coeffs1)) = loss_fn(kernels.rebuild_adv(frames, m, EPS), state1)
+
+        bundle = get_video_model("i3d_resnet50", device=device, tiny=True, seed=0)
+        ilaf = attacks.ILAF(bundle.with_taps(tap_keys_for("i3d_resnet50", "ilaf")), "i3d")
+        cost_fn = ilaf.make_cost(torch.from_numpy(ilaf_adv).to(device),
+                                 torch.from_numpy(ilaf_clean).to(device))
+        mi = torch.from_numpy(ilaf_mod).to(device).requires_grad_(True)
+        icost = cost_fn(mi)
+        (ig,) = torch.autograd.grad(icost, mi)
+        out[device] = (float(cost.detach()), g.cpu().numpy(), coeffs1.cpu().numpy(),
+                       float(icost.detach()), ig.cpu().numpy())
+    (c_k, g_k, w_k, ic_k, ig_k), (c_c, g_c, w_c, ic_c, ig_c) = out["cuda"], out["cpu"]
+    facts = {
+        "AENS step-0 cost": (abs(c_k / c_c - 1), ENS_COST_RTOL),
+        "AENS gradient": (float(np.abs(g_k - g_c).max() / np.abs(g_c).max()), ENS_GRAD_ATOL),
+        "AENS next coefficients": (float(np.abs(w_k - w_c).max()), AENS_COEFF_ATOL),
+        "ILAF cost": (abs(ic_k / ic_c - 1), ENS_COST_RTOL),
+        "ILAF gradient": (float(np.abs(ig_k - ig_c).max() / np.abs(ig_c).max()), ENS_GRAD_ATOL),
+    }
+    print(f"[aens/ilaf parity] tiny AENS (4x32^2, momentum 0.5, coef_CE) and tiny I3D ILAF "
+          f"(8x32^2) at a generic modifier, TF32 off: AENS cost card {c_k:.7f} vs CPU "
+          f"{c_c:.7f}, ILAF cost card {ic_k:.7f} vs CPU {ic_c:.7f}; "
+          + "; ".join(f"{k} {v:.3g} (limit {lim})" for k, (v, lim) in facts.items()))
+    if any(v > lim for v, lim in facts.values()) or not (np.abs(g_c).max() > 0
+                                                        and np.abs(ig_c).max() > 0):
+        raise RuntimeError("card and CPU disagree on tiny AENS or ILAF")
+
+
 def main() -> None:
     name = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from i2v_tpu_torch.cli import attack as attack_cli
     from i2v_tpu_torch.cli import evaluate as evaluate_cli
-    from i2v_tpu_torch.cli import image_main
+    from i2v_tpu_torch.cli import fine_tune, image_main
     from i2v_tpu_torch.data import synthetic
     from i2v_tpu_torch.models import get_video_model
     from i2v_tpu_torch.ops import kernels, pixel
@@ -634,20 +901,36 @@ def main() -> None:
     t0 = time.time()
     mean = np.asarray(pixel.IMAGENET_MEAN, np.float32)[:, None, None, None]
     std = np.asarray(pixel.IMAGENET_STD, np.float32)[:, None, None, None]
+    video_models: dict = {}
+
+    def get_bundle(name):  # each full-width video model is built once
+        if name not in video_models:
+            video_models[name] = get_video_model(name, device="cuda")
+        return video_models[name]
+
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["I2V_TPU_OPT_PATH"] = os.path.join(tmp, "outputs")
         phase_build(kernels)
         measured = phase_kernels(kernels, pixel)
         counts, slice_dir = phase_slice(kernels, image_main, synthetic, (mean, std))
         phase_parity(image_main)
-        eval_counts = phase_eval(evaluate_cli, get_video_model, kernels, slice_dir)
+        eval_counts = phase_eval(evaluate_cli, get_bundle, kernels, slice_dir)
         if any(eval_counts.values()):
             raise RuntimeError(f"the eval path launched a kernel: {eval_counts}")
+        fused_counts = phase_fused(kernels, image_main, evaluate_cli, get_bundle, (mean, std))
+        video_models.clear()  # the later phases' peaks hold no video model
         counts["sign_step"] = phase_whitebox(kernels, attack_cli, synthetic, (mean, std))
         counts["sign_step"] += phase_whitebox_slowfast(kernels, attack_cli, synthetic, pixel,
                                                        (mean, std))
         phase_whitebox_parity(attack_cli, synthetic)
         phase_eval_parity(evaluate_cli, get_video_model, pixel)
+        for path_counts in (fused_counts,
+                            phase_aens(kernels, image_main, synthetic, (mean, std)),
+                            phase_dr(kernels, image_main, synthetic, (mean, std)),
+                            phase_ilaf(kernels, fine_tune, synthetic, (mean, std))):
+            for k in counts:
+                counts[k] += path_counts[k]
+        phase_aens_ilaf_parity(image_main)
     print(f"[done] every phase passed in {time.time() - t0:.2f} s after the device check")
 
     where = {"rebuild_fwd": ("i2v_tpu_torch/csrc/rebuild_adv.cu",

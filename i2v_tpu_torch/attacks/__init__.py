@@ -3,8 +3,11 @@
 
 from .core import Attack, SignAttackConfig, make_ce_grad_fn, run_sign_attack  # noqa: F401
 from .i2v import (  # noqa: F401
+    AENS_I2V_MF,
+    ILAF,
     ImageGuidedFMDirection_Adam,
     ImageGuidedFML2_Adam_MultiModels,
+    ImageGuidedStd_Adam,
     run_adam_modifier_attack,
 )
 from .whitebox import BIM, FGSM, MIFGSM, SGM, SIM  # noqa: F401

@@ -189,13 +189,45 @@ class Attack:
             raise ValueError(f"{type} is not a valid type. [Options: float, int]")
         self._return_type = type
 
+    def save(self, save_dir: str, batches, verbose: bool = True) -> None:
+        """Attack every batch and write ``{label}-adv.npy`` for each clip (the
+        reference's Attack.save loop, base_attacks.py:95-136, on the artifact
+        protocol). ``batches`` yields dicts with clips and labels."""
+        from ..utils import artifacts
+
+        correct = total = 0
+        for step, batch in enumerate(batches):
+            adv = self(batch["clips"], batch["labels"])
+            if isinstance(adv, tuple):  # AENS returns (adv, used_time, cost_saved)
+                adv = adv[0]
+            if self._return_type == "int":
+                # artifacts hold normalized float32 clips: back to that domain
+                # first, as the JAX package does (the reference saves
+                # adv.float()/255, the [0,1] domain, base_attacks.py:119-123)
+                adv = pixel.normalize(adv.float() / 255, channel_axis=1)
+            artifacts.save_batch(save_dir, batch["labels"], adv.detach().cpu().numpy())
+            if verbose and hasattr(self.model, "apply_norm"):
+                # image surrogates have no normalized-domain forward: no accuracy
+                with torch.no_grad():
+                    preds = torch.argmax(self.model.apply_norm(adv), dim=-1)
+                labels = torch.as_tensor(batch["labels"], device=preds.device)
+                total += int(labels.shape[0])
+                correct += int(torch.sum(preds == labels))
+                print(f"- Save Progress [{step + 1}] "
+                      f"Accuracy: {100.0 * correct / max(total, 1):.2f} %")
+
     def _attack01(self, clean01, labels):
         raise NotImplementedError
 
-    def __call__(self, videos, labels, video_names=None) -> torch.Tensor:
+    def _clean01(self, videos) -> torch.Tensor:
+        """A normalized-domain clip batch (array or tensor) → [0,1] float32
+        on ``self.device``."""
         if not isinstance(videos, torch.Tensor):
             videos = torch.from_numpy(np.array(videos, dtype=np.float32))
-        clean01 = pixel.unnormalize(videos.to(self.device, torch.float32), channel_axis=1)
+        return pixel.unnormalize(videos.to(self.device, torch.float32), channel_axis=1)
+
+    def __call__(self, videos, labels, video_names=None) -> torch.Tensor:
+        clean01 = self._clean01(videos)
         labels = torch.as_tensor(labels, device=self.device).long()
         labels = self._transform_labels(clean01, labels)
         adv01, costs = self._attack01(clean01, labels)

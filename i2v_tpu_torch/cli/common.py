@@ -1,8 +1,9 @@
 """Shared CLI plumbing for the image-guided and white-box attacks: data,
 device and precision, model and attack construction, resume, artifacts.
 
-PyTorch counterpart of :mod:`i2v_tpu.cli.common` for the methods ported so
-far.
+PyTorch counterpart of :mod:`i2v_tpu.cli.common` without the multi-device
+runners (``--sharded``, ``--model_parallel``, ``--frame_chunk``,
+``--multigrid`` are refused, naming their ROADMAP item).
 ``--data synthetic`` is the only source ported so far; ``--tiny`` swaps in
 width-reduced backbones. ``--device`` (default ``cuda``) names the device the
 attack runs on; a CUDA run on a machine without a card stops, it never
@@ -22,11 +23,24 @@ from ..data import synthetic as synthetic_mod
 from ..models import get_image_models
 from ..utils import artifacts
 
-# the methods ported so far; the parser's choices reject the others
 IMAGE_GUIDED_METHODS = (
+    "ImageGuidedStd_Adam",
     "ImageGuidedFMDirection_Adam",
     "ImageGuidedFML2_Adam_MultiModels",
+    "AENS_I2V_MF",
 )
+# the JAX CLI's surrogates for DR and I2V; densenet and vit are refused
+DIRECTION_IMAGE_MODELS = ("resnet", "vgg", "alexnet", "squeezenet")
+UNPORTED_IMAGE_MODELS = ("densenet", "vit")
+# the JAX image CLI's runner flags, refused with the work item named
+UNPORTED_RUNNER_FLAGS = {
+    "sharded": "items 5 and 9 (the frame-chunked runner; multi-device)",
+    "model_parallel": "item 9 (multi-device)",
+    "frame_chunk": "item 5 (the frame-chunked runner)",
+    "param_dtype": "item 5 (the frame-chunked runner's bf16 params)",
+    "multigrid": "item 9 (parallel/multigrid.py)",
+    "multigrid_scale": "item 9 (parallel/multigrid.py)",
+}
 WHITEBOX_METHODS = ("FGSM", "BIM", "MIFGSM", "SGM", "SIM")
 # the JAX package's other white-box methods, refused with the work item named
 UNPORTED_WHITEBOX_METHODS = ("DIFGSM", "TIFGSM", "TIFGSM3D", "TAP", "TemporalTranslation")
@@ -40,6 +54,30 @@ def whitebox_method(name: str) -> str:
             f"{name} is not ported yet (ROADMAP Queue 1: DIFGSM, TIFGSM/TIFGSM3D/TAP, "
             "TemporalTranslation); ported: " + ", ".join(WHITEBOX_METHODS))
     return name
+
+
+def direction_image_model(name: str) -> str:
+    """argparse ``type`` of --direction_image_model: names the ROADMAP item of
+    a surrogate that is not ported yet."""
+    if name in UNPORTED_IMAGE_MODELS:
+        raise argparse.ArgumentTypeError(
+            f"{name} is not ported yet (ROADMAP Queue 1, item 9: models/densenet.py, "
+            "models/vit.py); ported: " + ", ".join(DIRECTION_IMAGE_MODELS))
+    return name
+
+
+def add_unported_runner_args(p: argparse.ArgumentParser) -> None:
+    """The JAX image CLI's runner flags; :func:`refuse_unported_runner_args`
+    stops a run that passes one."""
+    for flag, item in UNPORTED_RUNNER_FLAGS.items():
+        p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
+                       help=f"not ported yet (ROADMAP Queue 1, {item})")
+
+
+def refuse_unported_runner_args(p: argparse.ArgumentParser, args) -> None:
+    for flag, item in UNPORTED_RUNNER_FLAGS.items():
+        if getattr(args, flag) is not None:
+            p.error(f"--{flag} is not ported yet (ROADMAP Queue 1, {item})")
 
 
 def add_data_args(p: argparse.ArgumentParser) -> None:
@@ -102,19 +140,25 @@ def build_dataset(args):
 
 
 def build_image_guided_attack(args, device: torch.device):
-    """Dispatch an image-guided method (reference: image_main.py:66-80)."""
+    """Dispatch an image-guided method (reference: image_main.py:66-80), and
+    AENS, which the reference defines but never wires to a CLI."""
     method = args.attack_method
     hw = 32 if args.tiny else data_shape(args)[1]
-    if method == "ImageGuidedFMDirection_Adam":
+    if method in ("ImageGuidedStd_Adam", "ImageGuidedFMDirection_Adam"):
         models = get_image_models([args.direction_image_model], args.depth,
                                   device=device, tiny=args.tiny, input_hw=hw)
-        return attacks.ImageGuidedFMDirection_Adam(models, step_size=args.step_size,
-                                                   steps=args.step)
+        return getattr(attacks, method)(models, step_size=args.step_size, steps=args.step)
+    names = ["resnet", "vgg", "squeezenet", "alexnet"]
     if method == "ImageGuidedFML2_Adam_MultiModels":
-        names = ["resnet", "vgg", "squeezenet", "alexnet"]
         depths = {"resnet": 2, "vgg": 3, "squeezenet": 2, "alexnet": 3}
         models = get_image_models(names, depths, device=device, tiny=args.tiny, input_hw=hw)
         return attacks.ImageGuidedFML2_Adam_MultiModels(models, steps=args.step)
+    if method == "AENS_I2V_MF":
+        depths = {n: [2, 3] for n in names}
+        models = get_image_models(names, depths, device=device, tiny=args.tiny, input_hw=hw)
+        return attacks.AENS_I2V_MF(models, step_size=args.step_size,
+                                   momentum=args.aens_momentum, coef_CE=args.coef_CE,
+                                   steps=args.step)
     raise ValueError(f"unknown image-guided method {method!r}")
 
 

@@ -5,21 +5,29 @@
 
 Writes ``{label}-adv.npy`` + ``loss_info_{shard}.json`` into
 ``OPT_PATH/Image-{method}-{step}-{prefix}``, the same run directory the JAX
-CLI (``i2v_tpu.cli.image_main``) names for the same flags.
+CLI (``i2v_tpu.cli.image_main``) names for the same flags. All four methods
+of the JAX CLI: DR, I2V, ENS-I2V and AENS-I2V-MF (which the reference
+defines but never wires to a CLI). ``--fused_eval`` evaluates each attacked
+batch on the video models in the same process (:mod:`..eval.fused`).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import time
 
 import numpy as np
+import torch
 
 from ..utils import artifacts, get_paths
 from . import common
 
 
 def arg_parse(argv=None, kind: str = "Image", default_step: int = 60):
+    """``default_step``: 60 for Kinetics (image_main.py:28), 10 for UCF-101
+    (image_main_ucf101.py:26), so that default runs land in the reference's
+    run directories."""
     p = argparse.ArgumentParser(description="image-guided cross-modal attack")
     p.add_argument("--batch_nums", type=int, default=1)
     p.add_argument("--batch_index", type=int, default=1)
@@ -30,13 +38,27 @@ def arg_parse(argv=None, kind: str = "Image", default_step: int = 60):
     p.add_argument("--depth", type=int, default=1, help="tap depth 1-4")
     p.add_argument("--step_size", type=float, default=0.004)
     p.add_argument("--direction_image_model", default="resnet",
-                   choices=["resnet", "vgg", "alexnet", "squeezenet"])
+                   type=common.direction_image_model,
+                   choices=common.DIRECTION_IMAGE_MODELS)
+    p.add_argument("--aens_momentum", type=float, default=0.0)
+    p.add_argument("--coef_CE", action="store_true")
     p.add_argument("--profile", default=None,
                    help="write a torch.profiler Chrome trace into this directory")
+    p.add_argument("--fused_eval", default=None, metavar="MODELS",
+                   help="comma-separated video model names (or 'all'): evaluate each "
+                        "attacked batch on them in this process, the clips never leaving "
+                        "the device, and write the artifacts from a background thread "
+                        "(eval/fused.py); replaces the reference's generate-then-evaluate "
+                        "round trip (run_image_guided.py:48-52)")
     p.add_argument("--artifact_dtype", default="float32", choices=["float32", "float16"],
-                   help="artifact storage dtype")
+                   help="artifact storage dtype; with --fused_eval, float16 is cast on the "
+                        "device and halves the device-to-host copy")
+    p.add_argument("--no_artifacts", action="store_true",
+                   help="with --fused_eval: write the reports only, no artifacts")
+    common.add_unported_runner_args(p)
     common.add_data_args(p)
     args = p.parse_args(argv)
+    common.refuse_unported_runner_args(p, args)
     args.kind = kind
     args.adv_path = os.path.join(
         get_paths().opt_path,
@@ -46,9 +68,11 @@ def arg_parse(argv=None, kind: str = "Image", default_step: int = 60):
     return args
 
 
-def run(args) -> str:
-    """Attack every clip of the shard and write its artifacts. The
-    throughput summary is printed and kept as ``args.throughput``."""
+def run(args, get_bundle=None) -> str:
+    """Attack every clip of the shard and write its artifacts (or, under
+    ``--fused_eval``, the reports too). The throughput summary is printed and
+    kept as ``args.throughput``. ``get_bundle(name)``, where given, supplies
+    the fused path's video models."""
     from ..utils.profiling import StepTimer, trace
 
     print(args)
@@ -57,18 +81,66 @@ def run(args) -> str:
     dataset, iterate = common.build_dataset(args)
     left, right = common.shard_bounds(args, len(dataset))
     attack = common.build_image_guided_attack(args, device)
+    if args.fused_eval:
+        return _run_fused(args, device, dataset, iterate, attack, left, right, get_bundle)
     dtype = np.float16 if args.artifact_dtype == "float16" else np.float32
     timer = StepTimer(steps_per_call=args.step, clips_per_call=args.batch_size, device=device)
     with trace(args.profile):
         for step, batch in enumerate(iterate(dataset, args.batch_size, left, right)):
             print(f"Running {args.attack_method}, {step + 1}")
             with timer(clips=len(batch["labels"])):
-                adv = attack(batch["clips"], batch["labels"], batch["names"])
+                out = attack(batch["clips"], batch["labels"], batch["names"])
+            adv = out[0] if isinstance(out, tuple) else out  # AENS's triple
             common.save_attack_outputs(args.adv_path, batch, adv, dtype=dtype)
     # one loss_info_{batch_index}.json per shard (reference: image_main.py:94)
     artifacts.save_loss_info(args.adv_path, attack.loss_info, args.batch_index)
     args.throughput = timer.summary()
     print(f"[summary] {args.throughput}")
+    return args.adv_path
+
+
+def _run_fused(args, device, dataset, iterate, attack, left, right, get_bundle) -> str:
+    """Fused generate→evaluate: each adversarial batch feeds the resident
+    video models on the device; artifacts go out from a writer thread."""
+    from ..eval.fused import FusedGenerateEvaluate
+    from ..models.video_zoo import VIDEO_BUILDERS, get_video_model
+    from ..utils.paths import VIDEO_MODEL_NAMES
+    from ..utils.profiling import trace
+
+    names = (list(VIDEO_MODEL_NAMES) if args.fused_eval == "all"
+             else [n.strip() for n in args.fused_eval.split(",") if n.strip()])
+    for n in names:
+        if n not in VIDEO_BUILDERS:
+            raise SystemExit(f"unknown video model {n!r}; have {sorted(VIDEO_BUILDERS)}")
+    ucf = args.kind.startswith("UCF101")
+    if get_bundle is None:
+        def get_bundle(name):
+            return get_video_model(name, device=device, tiny=args.tiny, ucf101=ucf)
+    bundles = {n: get_bundle(n) for n in names}
+    # report rows: one per class (reference: reference.py:106, _ucf101.py:137)
+    n_classes = 101 if ucf else 400
+    dtype = np.float16 if args.artifact_dtype == "float16" else np.float32
+    fused = FusedGenerateEvaluate(attack, bundles,
+                                  run_dir=None if args.no_artifacts else args.adv_path,
+                                  n_classes=n_classes, artifact_dtype=dtype)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    n_clips = 0
+    with trace(args.profile):
+        for step, batch in enumerate(iterate(dataset, args.batch_size, left, right)):
+            print(f"Running fused {args.attack_method}+eval, {step + 1}")
+            fused.process_batch(batch)
+            n_clips += len(batch["labels"])
+        # finalize drains the artifact writer: its files are part of the run
+        acc = fused.finalize(report_dir=args.adv_path,
+                             shard=args.batch_index if args.batch_nums > 1 else None)
+    dt = time.perf_counter() - t0
+    artifacts.save_loss_info(args.adv_path, attack.loss_info, args.batch_index)
+    args.throughput = {"clips": n_clips, "elapsed_s": dt, "clips_per_sec": n_clips / dt}
+    print(f"[summary] fused gen+eval: {n_clips / dt:.3f} clips/s "
+          f"({n_clips} clips, {len(names)} eval models, {dt:.1f}s)")
+    print(f"[summary] top1: {acc}")
     return args.adv_path
 
 

@@ -165,17 +165,18 @@ def single_pass_eval(bundles: dict, files_batches: Sequence[Sequence[str]], run_
     return predictions, labels_all, {n: m.avg for n, m in top1.items()}
 
 
-def write_reports(run_dir: str, columns: dict, n_classes: int, model_val_acc: dict) -> None:
+def write_reports(run_dir: str, columns: dict, n_classes: int, model_val_acc: dict,
+                  suffix: str = "") -> None:
     """The CSV as ``pandas.DataFrame.to_csv(index=False)`` writes it
     (QUOTE_MINIMAL, ``\\n`` line ends, integer cells) and the JSON as
-    ``json.dump`` writes it."""
-    with open(os.path.join(run_dir, "results_all_models_prediction.csv"), "w",
+    ``json.dump`` writes it; ``suffix`` goes before each file's extension."""
+    with open(os.path.join(run_dir, f"results_all_models_prediction{suffix}.csv"), "w",
               newline="") as f:
         w = csv.writer(f, lineterminator="\n")
         w.writerow(["gt_label"] + [f"{name}-pre" for name in columns])
         for label in range(n_classes):
             w.writerow([label] + [int(col[label]) for col in columns.values()])
-    with open(os.path.join(run_dir, "top1_acc_all_models.json"), "w") as f:
+    with open(os.path.join(run_dir, f"top1_acc_all_models{suffix}.json"), "w") as f:
         json.dump(model_val_acc, f)
 
 

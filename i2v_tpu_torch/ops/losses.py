@@ -1,10 +1,11 @@
-"""Attack loss functions: the per-frame cosine objective of I2V / ENS-I2V,
+"""Attack loss functions: the per-frame cosine objective of I2V / ENS-I2V /
+AENS-I2V-MF, DR's activation dispersion, ILAF's feature-displacement gain,
 and the cross-entropy of the white-box attacks.
 
-PyTorch counterpart of the cosine and cross-entropy parts of
-:mod:`i2v_tpu.ops.losses` (reference: image_attacks.py:336-347,
+PyTorch counterpart of :mod:`i2v_tpu.ops.losses` without TAP's distance
+(reference: image_attacks.py:216-220, 336-347, 597-613,
 TPAMI_attack.py:271-287). Taps arrive as explicit model outputs, first
-axis = frames.
+axis = frames (or clips, for ILAF's video taps).
 """
 
 from __future__ import annotations
@@ -55,3 +56,46 @@ def per_tap_frame_cosines(taps_adv: Sequence[torch.Tensor],
                           taps_clean: Sequence[torch.Tensor]) -> torch.Tensor:
     """Stacked per-tap per-frame cosine matrix (n_taps, N)."""
     return torch.stack([cosine_similarity_flat(a, c) for a, c in zip(taps_adv, taps_clean)])
+
+
+def dispersion_cost(taps: Sequence[torch.Tensor]) -> torch.Tensor:
+    """DR's objective, minimized: Σ over taps of the unbiased (ddof=1) std of
+    all the tap's elements, as torch's ``.std()`` (reference:
+    image_attacks.py:216-220)."""
+    total = 0.0
+    for t in taps:
+        total = total + torch.std(t.float(), correction=1)
+    return total
+
+
+def ilaf_cost(taps_step: Sequence[torch.Tensor], taps_clean: Sequence[torch.Tensor],
+              init_directions: Sequence[torch.Tensor],
+              init_norms: Sequence[torch.Tensor]) -> torch.Tensor:
+    """ILAF's objective, minimized: −Σ over taps of
+    (0.5·‖Δ_step‖/‖Δ_init‖ + ⟨dir_init, dir_step⟩), Δ = feat − feat(clean)
+    (reference: image_attacks.py:597-613)."""
+    total = 0.0
+    for step_t, clean_t, init_dir, init_norm in zip(taps_step, taps_clean, init_directions,
+                                                    init_norms):
+        delta = (step_t - clean_t).float()
+        # the 1e-24 inside the sqrt keeps ∂‖δ‖/∂δ finite at δ = 0 (adv == clean)
+        step_norm = torch.sqrt(torch.sum(delta * delta) + 1e-24)
+        step_dir = delta / step_norm
+        magnitude_gain = step_norm / (init_norm + 1e-12)
+        angle = torch.sum(init_dir.float() * step_dir)
+        total = total - (0.5 * magnitude_gain + angle)
+    return total
+
+
+def feature_delta_direction(taps_adv: Sequence[torch.Tensor],
+                            taps_clean: Sequence[torch.Tensor]):
+    """ILAF's starting directions and norms: (feat(adv) − feat(clean)) over
+    its L2 norm, and that norm, per tap (reference: image_attacks.py:561-567).
+    Returns (directions, norms)."""
+    dirs, norms = [], []
+    for a, c in zip(taps_adv, taps_clean):
+        d = (a - c).float()
+        n = torch.linalg.vector_norm(d)
+        dirs.append(d / (n + 1e-12))  # 0/0 guard when adv == clean
+        norms.append(n)
+    return dirs, norms

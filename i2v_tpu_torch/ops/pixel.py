@@ -54,14 +54,18 @@ def rebuild_adv(clean01: torch.Tensor, modifier: torch.Tensor, epsilon: float) -
     return torch.clamp(clean01 + torch.clamp(modifier, -epsilon, epsilon), 0.0, 1.0)
 
 
+def sign_keep_nan(g: torch.Tensor) -> torch.Tensor:
+    """``sign(g)`` with NaN kept, as ``jnp.sign`` and the Pallas kernel give
+    it (``torch.sign(nan)`` is 0, which would skip the pixel without a
+    trace)."""
+    return torch.where(torch.isnan(g), g, torch.sign(g))
+
+
 def sign_step_project(adv01: torch.Tensor, grad: torch.Tensor, clean01: torch.Tensor,
                       step_size: float, epsilon: float) -> torch.Tensor:
     """One full sign-attack pixel update: ``adv + α·sign(g)`` then ε-ball and
-    [0,1] projection. A NaN gradient gives a NaN pixel, as ``jnp.sign`` and
-    the Pallas kernel do (``torch.sign(nan)`` is 0, which would skip the
-    pixel without a trace)."""
-    sign = torch.where(torch.isnan(grad), grad, torch.sign(grad))
-    stepped = adv01 + step_size * sign
+    [0,1] projection. A NaN gradient gives a NaN pixel (:func:`sign_keep_nan`)."""
+    stepped = adv01 + step_size * sign_keep_nan(grad)
     return project_linf(stepped, clean01, epsilon)
 
 

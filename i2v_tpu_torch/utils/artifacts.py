@@ -34,11 +34,10 @@ def save_adv_clip(run_dir: str, label: int, clip_cthw: np.ndarray,
                   kind: str = "adv", dtype=np.float32) -> str:
     """Save one normalized-domain (3,T,H,W) clip keyed by label.
 
-    ``dtype=np.float16`` is the opt-in compact format: on relay-backed hosts
-    artifact egress runs at ~10 MB/s, so halving bytes halves the dominant
-    stage of a real generate-then-evaluate run; eval's load casts back to
-    f32 (≤6e-4 absolute pixel error in the normalized domain — well under
-    the ε=16/255 perturbation scale)."""
+    ``dtype=np.float16`` is the opt-in compact format: half the bytes on disk
+    and, in the fused path, half the device-to-host copy (the cast runs on the
+    device); eval's load casts back to f32 (≤6e-4 absolute pixel error in the
+    normalized domain — well under the ε=16/255 perturbation scale)."""
     os.makedirs(run_dir, exist_ok=True)
     arr = np.asarray(clip_cthw, dtype=dtype)
     if arr.ndim != 4 or arr.shape[0] != 3:

@@ -161,10 +161,25 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
         os.path.join(tmp_path, "Image-ImageGuidedFMDirection_Adam-1-synthetic"))
 
 
-def test_cli_rejects_methods_not_ported_yet(tmp_path, monkeypatch):
+@pytest.mark.parametrize("flags,item", [
+    (["--sharded"], "items 5 and 9"),
+    (["--model_parallel", "2"], "item 9"),
+    (["--frame_chunk", "auto"], "item 5"),
+    (["--param_dtype", "bfloat16"], "item 5"),
+    (["--multigrid", "12"], "item 9"),
+    (["--direction_image_model", "densenet"], "item 9"),
+    (["--direction_image_model", "vit"], "item 9"),
+])
+def test_cli_rejects_methods_not_ported_yet(tmp_path, monkeypatch, capsys, flags, item):
+    """The JAX image CLI's runner flags and its densenet/vit surrogates are
+    refused, naming the ROADMAP item; its four methods are all accepted."""
+    from i2v_tpu.cli import image_main as jimage_main
     from i2v_tpu_torch.cli import image_main
 
     monkeypatch.setenv("I2V_TPU_OPT_PATH", str(tmp_path))
-    for method in ("AENS_I2V_MF", "ImageGuidedStd_Adam"):
-        with pytest.raises(SystemExit):
-            image_main.arg_parse(["--attack_method", method])
+    jimage_main.arg_parse(flags)   # a flag of the JAX CLI
+    with pytest.raises(SystemExit):
+        image_main.arg_parse(flags)
+    assert f"ROADMAP Queue 1, {item}" in capsys.readouterr().err
+    for method in jimage_main.common.IMAGE_GUIDED_METHODS:
+        assert image_main.arg_parse(["--attack_method", method]).attack_method == method

@@ -23,6 +23,17 @@ It prints one line a (mode, model) and writes every number, with the card's
 name and power limit, into ``--out``. Floating-point operations a clip come
 from the shapes (``torch.utils.flop_counter`` on the meta device). It needs a
 card and exits without one.
+
+    python tools/torch_eval_profile.py --attacks [--out outputs/attack_profile.json]
+
+profiles the attack paths instead, in both precision modes, at full width
+(32x224^2 clips):
+AENS-I2V-MF at B=1 and B=2 (and 2 steps at B=8 and B=16, for their peaks;
+a batch that does not fit is recorded as such), DR
+(ResNet-101, depth 2) and ENS-I2V at B=1,
+ILAF on I3D-R50 at B=1, and one fused ENS-I2V + six-model evaluation batch at
+B=1. For each: a warm-up call, a timed call (steps/s or clips/s, peak device
+memory) and a traced call (device time by kernel class, idle share).
 """
 
 from __future__ import annotations
@@ -63,6 +74,23 @@ CATEGORIES = (
 )
 
 
+# the attack paths' kernel classes, first match wins
+ATTACK_CATEGORIES = (
+    ("K1+K2", ("rebuild_fwd_kernel", "rebuild_bwd_kernel")),
+    # cuDNN's FFT convolutions: the transforms and their complex products
+    ("conv fft", ("fft", "cf32")),
+    ("conv dgrad", ("dgrad",)),
+    ("conv fwd", ("fprop", "implicit_gemm", "conv")),
+    ("gemm", ("gemm",)),
+    ("layout", ("nchwToNhwc", "nhwcToNchw", "Transpose")),
+    ("pool", ("pool",)),
+    ("reduce", ("reduce_kernel",)),
+    ("elementwise", ("elementwise_kernel",)),
+)
+ATTACK_STEPS = 10
+AENS_PEAK_BATCH = 16
+
+
 def forward_flops_per_clip(name: str) -> float:
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -99,11 +127,11 @@ def kernel_summary(trace_path: str) -> dict:
             "launches": len(events), "by_name": by_name}
 
 
-def category_shares(by_name: dict) -> dict:
+def category_shares(by_name: dict, categories=CATEGORIES) -> dict:
     total = sum(by_name.values())
     shares: dict = {}
     for name, us in by_name.items():
-        cat = next((c for c, pats in CATEGORIES if any(p in name for p in pats)), "other")
+        cat = next((c for c, pats in categories if any(p in name for p in pats)), "other")
         shares[cat] = shares.get(cat, 0.0) + us / total
     return shares
 
@@ -122,9 +150,133 @@ def timed_eval(bundle, batches, run_dir) -> tuple[float, list]:
     return wall, preds
 
 
+def attack_paths(tmp: str):
+    """(name, batch, steps, make) of each attack path profiled; ``make()``
+    builds the path's models and returns a call that runs the path once on
+    its batch of synthetic clips. Each path's models are built for it alone,
+    so that its peak memory holds no other path's weights."""
+    import numpy as np
+
+    from i2v_tpu_torch import attacks
+    from i2v_tpu_torch.cli import image_main
+    from i2v_tpu_torch.eval.fused import FusedGenerateEvaluate
+    from i2v_tpu_torch.models import tap_keys_for
+    from i2v_tpu_torch.ops import pixel
+
+    os.environ["I2V_TPU_OPT_PATH"] = tmp
+    ds = SyntheticAttackDataset(n_samples=AENS_PEAK_BATCH)
+    clips = np.stack([ds[i][0] for i in range(AENS_PEAK_BATCH)])
+    device = torch.device("cuda")
+
+    def image_attack(*flags, steps=ATTACK_STEPS):
+        args = image_main.arg_parse(list(flags) + ["--step", str(steps)])
+        return common.build_image_guided_attack(args, device)
+
+    def aens(b, steps=ATTACK_STEPS):
+        atk = image_attack("--attack_method", "AENS_I2V_MF", "--step_size", "0.005",
+                           steps=steps)
+        return lambda: atk(clips[:b], list(range(b)))
+
+    def dr():
+        atk = image_attack("--attack_method", "ImageGuidedStd_Adam", "--depth", "2")
+        return lambda: atk(clips[:1], [0])
+
+    def ens():
+        atk = image_attack("--attack_method", "ImageGuidedFML2_Adam_MultiModels")
+        return lambda: atk(clips[:1], [0])
+
+    def ilaf():
+        atk = attacks.ILAF(get_video_model("i3d_resnet50", device=device).with_taps(
+            tap_keys_for("i3d_resnet50", "ilaf")), "i3d", steps=ATTACK_STEPS)
+        ori01 = ds.clip01(0)[None]
+        adv01 = np.clip(ori01 + 0.8 * (16 / 255) * np.sign(
+            np.random.RandomState(0).randn(*ori01.shape)), 0, 1).astype(np.float32)
+        adv = pixel.normalize(torch.from_numpy(adv01), channel_axis=1).numpy()
+        return lambda: atk(adv, clips[:1], [0])
+
+    def fused():
+        atk = image_attack("--attack_method", "ImageGuidedFML2_Adam_MultiModels")
+        bundles = {n: get_video_model(n, device=device) for n in video_zoo.VIDEO_BUILDERS}
+
+        def batch():
+            f = FusedGenerateEvaluate(atk, bundles, run_dir=os.path.join(tmp, "fused"))
+            f.process_batch({"clips": clips[:1], "labels": np.arange(1)})
+            f.finalize()
+
+        return batch
+
+    return [("AENS-I2V-MF", 1, ATTACK_STEPS, lambda: aens(1)),
+            ("AENS-I2V-MF", 2, ATTACK_STEPS, lambda: aens(2)),
+            # half and all of the production batch, for their peaks (every
+            # step holds the same activations), over 2 steps
+            ("AENS-I2V-MF", AENS_PEAK_BATCH // 2, 2, lambda: aens(AENS_PEAK_BATCH // 2, 2)),
+            ("AENS-I2V-MF", AENS_PEAK_BATCH, 2, lambda: aens(AENS_PEAK_BATCH, 2)),
+            ("DR", 1, ATTACK_STEPS, dr),
+            ("ENS-I2V", 1, ATTACK_STEPS, ens),
+            ("ILAF I3D-R50", 1, ATTACK_STEPS, ilaf),
+            ("fused ENS-I2V + six models", 1, ATTACK_STEPS, fused)]
+
+
+def profile_attacks(result: dict, tmp: str) -> None:
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    result["attack_rows"] = []
+    for mode in MODES:
+        prec = common.apply_matmul_precision(argparse.Namespace(matmul_precision=mode))
+        print(f"[precision] {prec}")
+        for name, batch, steps, make in attack_paths(tmp):
+            torch.cuda.reset_peak_memory_stats()
+            call = make()
+            try:
+                warm_s, _ = timed(call)
+            except torch.OutOfMemoryError as e:  # a result: the batch does not fit
+                row = {"mode": mode, "path": name, "batch": batch, "steps": steps,
+                       "oom": str(e).splitlines()[0],
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+                result["attack_rows"].append(row)
+                print(f"[{mode}] {name}, B={batch}: out of memory after a peak of "
+                      f"{row['peak_gib']:.2f} GiB allocated: {row['oom']}")
+                del call, e
+                gc.collect()
+                torch.cuda.empty_cache()
+                continue
+            torch.cuda.reset_peak_memory_stats()
+            wall_s, _ = timed(call)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            trace_path = os.path.join(tmp, "trace.json")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                timed(call)
+            prof.export_chrome_trace(trace_path)
+            k = kernel_summary(trace_path)
+            os.remove(trace_path)
+            del call
+            gc.collect()
+            torch.cuda.empty_cache()
+            row = {"mode": mode, "path": name, "batch": batch, "steps": steps,
+                   "warmup_s": warm_s, "wall_s": wall_s, "steps_per_sec": steps / wall_s,
+                   "clips_per_sec": batch / wall_s, "peak_gib": peak,
+                   "device_ms": k["kernel_us"] / 1e3,
+                   "idle_share": 1 - k["busy_us"] / k["span_us"] if k["span_us"] else None,
+                   "shares": category_shares(k["by_name"], ATTACK_CATEGORIES),
+                   "kernels": {n[:160]: us / k["kernel_us"] for n, us in k["by_name"].items()
+                               if us >= 0.002 * k["kernel_us"]}}
+            result["attack_rows"].append(row)
+            print(f"[{mode}] {name}, B={batch}, {steps} steps: {row['steps_per_sec']:.3f} "
+                  f"steps/s, {row['clips_per_sec']:.4f} clips/s ({wall_s:.3f} s; warm-up "
+                  f"{warm_s:.3f} s), device {row['device_ms']:.2f} ms, idle "
+                  f"{row['idle_share']:.4f}, peak {peak:.2f} GiB; " + ", ".join(
+                      f"{c} {v:.2%}" for c, v in sorted(row["shares"].items(),
+                                                        key=lambda kv: -kv[1])))
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--out", default="outputs/eval_profile.json")
+    p.add_argument("--out", default=None,
+                   help="default outputs/eval_profile.json, or outputs/attack_profile.json "
+                        "with --attacks")
+    p.add_argument("--attacks", action="store_true", help="profile the attack paths")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("torch_eval_profile: no CUDA device is available")
@@ -135,6 +287,15 @@ def main(argv=None) -> dict:
                           timeout=60).stdout.strip().splitlines()[0]
     print(card)
     result = {"card": card, "torch": torch.__version__, "batch": BATCH, "rows": []}
+    if args.attacks:
+        out = args.out or "outputs/attack_profile.json"
+        with tempfile.TemporaryDirectory() as tmp:
+            profile_attacks(result, tmp)
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(result, f, indent=1)
+        return result
+    args.out = args.out or "outputs/eval_profile.json"
     with tempfile.TemporaryDirectory() as tmp:
         ds = SyntheticAttackDataset(n_samples=BATCH)
         for label in range(BATCH):
