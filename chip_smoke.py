@@ -48,9 +48,21 @@ raises and the script exits non-zero:
                  run's adv/ori pairs: K1/K2 every step, outputs in the ε-ball
  15. aens/ilaf parity — tiny AENS and ILAF on the card and on the CPU: cost,
                  gradient at a generic modifier, AENS's next coefficients
+ 16. wb family — 10-step DIFGSM, TIFGSM, TIFGSM3D and TAP over one clip each
+                 on full-width I3D-R50 through the attack CLI: every step
+                 through K3, the (total) cost rose; the DI/TI/TAP transforms
+                 give the same output in every --matmul_precision mode
+ 17. tt        — 5-step TemporalTranslation (kernlen 15, --tt_chunk 5) over
+                 one clip on full-width I3D-R50
+ 18. remat     — 3-step BIM at B=4 with and without --remat: the same step-0
+                 costs and input gradient, a lower peak with it
+ 19. ucf101    — 2-step BIM through cli.attack_ucf101 on the 101-class I3D-R50
+ 20. wb family parity — tiny I3D DIFGSM (pinned draws), TIFGSM3D, TAP and TT
+                 on the card and on the CPU: step-0 cost and gradient
 
-Each path (slice, eval, whitebox, sf whitebox, aens, dr, fused, ilaf) is
-driven with the launch counters set to 0 just before it and read just after.
+Each path (slice, eval, whitebox, sf whitebox, aens, dr, fused, ilaf, wb
+family, tt, remat, ucf101) is driven with the launch counters set to 0 just
+before it and read just after.
 The line before the last is a JSON object with each kernel's launches over
 those paths, its error, times and bound; the last line is
 {"ok": true, "device": {...}}.
@@ -95,6 +107,12 @@ AENS_MOMENTUM = 0.8        # > 0, so that carried-over coefficients show in clip
 DR_STEPS = 5
 FUSED_CLIPS, FUSED_STEPS = 2, 5
 ILAF_CLIPS, ILAF_STEPS = WB_RUNS[0][1], 10   # over the BIM run's pairs
+WB_FAMILY = ("DIFGSM", "TIFGSM", "TIFGSM3D", "TAP")   # 10 steps (WB_STEPS), one clip each
+TT_STEPS = 5
+REMAT_BATCH, REMAT_STEPS = 4, 3
+UCF_STEPS = 2
+PREC_MODES = ("float32", "default", "high")
+PREC_ATOL = 1e-6          # a transform's output across precision modes, times max|out|
 REPORT_CSV, REPORT_JSON = "results_all_models_prediction.csv", "top1_acc_all_models.json"
 
 
@@ -888,10 +906,273 @@ def phase_aens_ilaf_parity(image_main) -> None:
         raise RuntimeError("card and CPU disagree on tiny AENS or ILAF")
 
 
+def _wb_argv(method: str, clips: int, steps: int, batch: int = 1) -> list:
+    return ["--model", "i3d_resnet50", "--attack_method", method, "--step", str(steps),
+            "--data", "synthetic", "--n_synthetic", str(clips), "--batch_size", str(batch),
+            "--device", "cuda", "--matmul_precision", "float32"]
+
+
+def _wb_want(clips: int, steps: int, batch: int = 1) -> dict:
+    """A white-box path's launches: K3 once a step of each batch."""
+    return {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": -(-clips // batch) * steps}
+
+
+def _loss_costs(args, key: str = "cost") -> dict:
+    return {v: np.asarray([float(c[i][key]) for i in range(len(c))])
+            for v, c in args.loss_info.items()}
+
+
+def _rises(label: str, costs: dict, n: int, steps: int, at_end: bool = True) -> None:
+    """Each clip's cost rose: by the last step, or (``at_end=False``) at some
+    step after the first."""
+    if len(costs) != n:
+        raise RuntimeError(f"{label}: costs recorded for {len(costs)} clips, expected {n}")
+    for v, c in costs.items():
+        rose = c[-1] > c[0] if at_end else c[1:].max() > c[0]
+        if len(c) != steps or not np.isfinite(c).all() or not rose:
+            raise RuntimeError(f"{label} {v}: the cost did not rise: {c}")
+
+
+def _check_pairs(run_dir: str, clips: int, synthetic, pixel_mean_std) -> None:
+    ds = synthetic.SyntheticAttackDataset(n_samples=clips)
+    for label in range(clips):
+        for kind in ("adv", "ori"):
+            _check_clip(run_dir, label, kind, ds, pixel_mean_std)
+
+
+def _precision_independence(attack_cli) -> dict:
+    """Each new attack's transform on one full-width clip gradient in every
+    --matmul_precision mode, against the float32 mode: max |diff| / max |out|."""
+    from i2v_tpu_torch.ops import diversity, grads, smoothing
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    g = torch.randn(CLIP_SHAPE, device="cuda", generator=gen)
+    k1d = smoothing.gaussian_1d(15)
+    tap_k = smoothing.uniform_kernel_3d(3, 3)
+
+    def tap(x):  # TAP's smoothing and its backward, as the attack differentiates it
+        x = x.clone().requires_grad_(True)
+        y = smoothing.depthwise_conv3d(x, tap_k)
+        (dx,) = torch.autograd.grad(y, x, torch.sign(y))
+        return torch.cat([y.detach().flatten(), dx.flatten()])
+
+    transforms = {
+        "TIFGSM3D": lambda x: grads.norm_grads(smoothing.depthwise_conv3d_separable(x, k1d), True),
+        "TIFGSM": lambda x: smoothing.ti_smooth_2d_separable(x, k1d),
+        "TAP": tap,
+        "DI": lambda x: diversity.diversity_gather(x, 240, 3, 5, 224, 250),
+        "TT": lambda x: smoothing.smooth_variant_grads(
+            smoothing.cycle_variants(x, range(-7, 8)), smoothing.temporal_kernel(15)),
+    }
+    out = {}
+    for mode in PREC_MODES:
+        attack_cli.common.apply_matmul_precision(
+            attack_cli.arg_parse(["--matmul_precision", mode]))
+        out[mode] = {k: f(g) for k, f in transforms.items()}
+    attack_cli.common.apply_matmul_precision(attack_cli.arg_parse(["--matmul_precision",
+                                                                    "float32"]))
+    errs = {}
+    for k in transforms:
+        ref = out["float32"][k]
+        errs[k] = max(float((out[m][k] - ref).abs().max() / ref.abs().max()) for m in PREC_MODES)
+        if not errs[k] <= PREC_ATOL:
+            raise RuntimeError(f"{k}'s transform depends on the precision mode: {errs[k]}")
+    return errs
+
+
+def phase_wb_family(kernels, attack_cli, synthetic, pixel_mean_std) -> int:
+    """10-step DIFGSM, TIFGSM, TIFGSM3D and TAP over one clip each on
+    full-width I3D-R50 through the attack CLI; returns the K3 launches."""
+    k3, facts = 0, []
+    for method in WB_FAMILY:
+        args = attack_cli.arg_parse(_wb_argv(method, 1, WB_STEPS))
+        _, counts, peak = _run_counted(kernels, method, _wb_want(1, WB_STEPS),
+                                       lambda: attack_cli.run(args))
+        k3 += counts["sign_step"]
+        _check_pairs(args.adv_path, 1, synthetic, pixel_mean_std)
+        costs = _loss_costs(args)
+        # with random weights, TIFGSM3D's 15³-smoothed sign direction raises
+        # the CE of I3D-R50 at first but not steadily: 22.91 → 28.50 at step
+        # 3, 22.74 at step 10 in one run on an H100 (PERF.md §6)
+        _rises(method, costs, 1, WB_STEPS, at_end=method != "TIFGSM3D")
+        (c,) = costs.values()
+        extra = ""
+        if method == "TAP":
+            parts = {k: _loss_costs(args, k)["synthetic_0"] for k in ("ce loss", "reg_cost",
+                                                                      "distance")}
+            extra = " (" + ", ".join(f"{k} {v[0]:.4g} -> {v[-1]:.4g}"
+                                     for k, v in parts.items()) + ")"
+        tp = args.throughput
+        facts.append(f"{method} {WB_STEPS / tp['last_call_s']:.3f} steps/s "
+                     f"({tp['last_call_s']:.3f} s), peak {peak:.2f} GiB, launches {counts}, "
+                     f"cost {c[0]:.4f} -> {c[-1]:.4f} (most {c.max():.4f}){extra}")
+    errs = _precision_independence(attack_cli)
+    print(f"[wb family] I3D-R50 (random weights), 1 clip of 32x224^2 each, {WB_STEPS} steps, "
+          f"TF32 off, through the attack CLI: " + "; ".join(facts)
+          + "; each transform on a full-width gradient across --matmul_precision "
+          f"{'/'.join(PREC_MODES)}: max|diff|/max|out| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (limit {PREC_ATOL})")
+    return k3
+
+
+def phase_tt(kernels, attack_cli, synthetic, pixel_mean_std) -> int:
+    """TemporalTranslation at kernlen 15, --tt_chunk 5, 'adj', over one clip
+    on full-width I3D-R50; returns the K3 launches."""
+    args = attack_cli.arg_parse(_wb_argv("TemporalTranslation", 1, TT_STEPS)
+                                + ["--kernlen", "15", "--tt_chunk", "5", "--move_type", "adj"])
+    _, counts, peak = _run_counted(kernels, "TT", _wb_want(1, TT_STEPS),
+                                   lambda: attack_cli.run(args))
+    _check_pairs(args.adv_path, 1, synthetic, pixel_mean_std)
+    costs = _loss_costs(args)
+    _rises("TT", costs, 1, TT_STEPS)
+    (c,) = costs.values()
+    tp = args.throughput
+    print(f"[tt] TemporalTranslation on I3D-R50 (random weights), kernlen 15 (15 variants a "
+          f"step), --tt_chunk 5, adj, 1 clip of 32x224^2, {TT_STEPS} steps, TF32 off: "
+          f"{TT_STEPS / tp['last_call_s']:.3f} steps/s ({tp['last_call_s']:.3f} s); peak memory "
+          f"{peak:.2f} GiB; launches {counts}; mean CE over the variants "
+          f"{np.round(c, 4).tolist()}")
+    return counts["sign_step"]
+
+
+def phase_remat(kernels, attack_cli, synthetic) -> int:
+    """BIM at B=4 on full-width I3D-R50 with and without --remat through the
+    attack CLI (peaks, rates, the step-0 costs), then the step-0 input
+    gradient of both bundles on the same clips; returns the K3 launches.
+    Later steps are printed only: cuDNN's input-gradient convolutions sum in
+    an order that varies from run to run, so a sign flips where |g| is
+    within that noise of 0, and the random-weight CE amplifies it; the same
+    gradient taken twice without remat shows the noise."""
+    from i2v_tpu_torch.attacks import make_ce_grad_fn
+    from i2v_tpu_torch.models import get_video_model
+    from i2v_tpu_torch.ops import pixel
+
+    k3, runs = 0, {}
+    for flags in ([], ["--remat"]):
+        args = attack_cli.arg_parse(_wb_argv("BIM", REMAT_BATCH, REMAT_STEPS, REMAT_BATCH)
+                                    + flags + ["--file_prefix", "remat" if flags else "plain"])
+        _, counts, peak = _run_counted(kernels, f"BIM {flags}",
+                                       _wb_want(REMAT_BATCH, REMAT_STEPS, REMAT_BATCH),
+                                       lambda: attack_cli.run(args))
+        k3 += counts["sign_step"]
+        costs = _loss_costs(args)
+        runs[bool(flags)] = (np.stack([costs[v] for v in sorted(costs)]), peak,
+                             REMAT_STEPS / args.throughput["last_call_s"])
+    (c0, p0, r0), (c1, p1, r1) = runs[False], runs[True]
+    step0_rel = float(np.max(np.abs(c1[:, 0] / c0[:, 0] - 1)))
+    later_rel = float(np.max(np.abs(c1 / c0 - 1)))
+
+    ds = synthetic.SyntheticAttackDataset(n_samples=REMAT_BATCH)
+    clean01 = pixel.unnormalize(torch.from_numpy(np.stack([ds[i][0] for i in range(REMAT_BATCH)]))
+                                .cuda(), channel_axis=1)
+    labels = torch.arange(REMAT_BATCH, device="cuda")
+    grads = []
+    for remat in (False, False, True):
+        bundle = get_video_model("i3d_resnet50", device="cuda", remat=remat)
+        grads.append(make_ce_grad_fn(bundle.apply_norm)(clean01, labels, None)[1])
+        del bundle
+    scale = float(grads[0].abs().max())
+    noise = float((grads[1] - grads[0]).abs().max()) / scale
+    err = float((grads[2] - grads[0]).abs().max()) / scale
+    print(f"[remat] BIM on I3D-R50 at B={REMAT_BATCH}, {REMAT_STEPS} steps, TF32 off: without "
+          f"--remat {r0:.3f} steps/s, peak {p0:.2f} GiB; with --remat {r1:.3f} steps/s "
+          f"({r0 / r1:.3f}x the step time), peak {p1:.2f} GiB ({p1 / p0:.3f} of it); step-0 "
+          f"costs relative difference {step0_rel:.3g} (limit 1e-5); step-0 input gradient "
+          f"max|diff|/max|g| with remat {err:.3g} (limit {WB_GRAD_ATOL}), the same gradient "
+          f"twice without it {noise:.3g}; information only: all {REMAT_STEPS} steps' costs "
+          f"max relative difference {later_rel:.3g}, first clip {c0[0].tolist()} vs "
+          f"{c1[0].tolist()}")
+    if step0_rel > 1e-5 or err > WB_GRAD_ATOL or not p1 < p0:
+        raise RuntimeError("--remat changed the step-0 cost or gradient, or did not lower "
+                           "the peak")
+    return k3
+
+
+def phase_ucf101(kernels, attack_cli, attack_ucf101, synthetic, pixel_mean_std) -> int:
+    """2-step BIM through cli.attack_ucf101 on the 101-class I3D-R50."""
+    argv = _wb_argv("BIM", 1, UCF_STEPS)
+    build, seen = attack_cli.get_video_model, {}
+
+    def capture(*a, **k):  # the bundle the CLI builds, to read its head
+        seen["bundle"] = build(*a, **k)
+        return seen["bundle"]
+
+    attack_cli.get_video_model = capture
+    try:
+        run_dir, counts, peak = _run_counted(kernels, "ucf101", _wb_want(1, UCF_STEPS),
+                                             lambda: attack_ucf101.main(argv))
+    finally:
+        attack_cli.get_video_model = build
+    classes = seen["bundle"].module.fc.out_features
+    name = os.path.basename(run_dir)
+    if classes != 101 or name != f"UCF101_Video_i3d_resnet50-BIM-{UCF_STEPS}-synthetic":
+        raise RuntimeError(f"cli.attack_ucf101: {classes} classes, run directory {name}")
+    _check_pairs(run_dir, 1, synthetic, pixel_mean_std)
+    print(f"[ucf101] BIM through cli.attack_ucf101 on I3D-R50 with its {classes}-class head "
+          f"(random weights), 1 clip, {UCF_STEPS} steps, TF32 off: run directory {name}; "
+          f"peak {peak:.2f} GiB; launches {counts}")
+    return counts["sign_step"]
+
+
+def phase_wb_family_parity(attack_cli, synthetic) -> None:
+    """Tiny I3D DIFGSM (a draw that applies, the same on both: the draws come
+    from a CPU generator), TIFGSM3D (the smoothed step direction), TAP (its
+    four components at a generic point) and TT (kernlen 3), card vs CPU."""
+    from i2v_tpu_torch import attacks
+    from i2v_tpu_torch.models import get_video_model
+    from i2v_tpu_torch.ops import diversity, pixel
+
+    ds = synthetic.SyntheticAttackDataset(n_samples=2, clip_len=8, size=32)
+    clips = np.stack([ds[i][0] for i in range(2)])
+    labels = np.arange(2)
+    clean01_np = pixel.unnormalize(torch.from_numpy(clips), channel_axis=1).numpy()
+    rng = np.random.RandomState(6)
+    adv01_np = np.clip(clean01_np + 0.8 * EPS * np.tanh(rng.randn(*clean01_np.shape)), 0, 1)
+    adv01_np = adv01_np.astype(np.float32)
+    seed = next(s for s in range(100)
+                if diversity.draw(torch.Generator().manual_seed(s), 32, 36)[0])
+    draw = diversity.draw(torch.Generator().manual_seed(seed), 32, 36)
+    attack_cli.common.apply_matmul_precision(
+        attack_cli.arg_parse(["--matmul_precision", "float32"]))
+    out = {}
+    for device in ("cuda", "cpu"):
+        bundle = get_video_model("i3d_resnet50", device=device, tiny=True, seed=0)
+        clean01 = torch.from_numpy(clean01_np).to(device)
+        lab = torch.from_numpy(labels).to(device)
+        di = attacks.DIFGSM(bundle)
+        ti3 = attacks.TIFGSM3D(bundle)
+        tap = attacks.TAP(bundle, {"kernlen": 3, "temporal_kernlen": 3})
+        tt = attacks.TemporalTranslation(bundle, {"kernlen": 3, "chunk": 3, "weight": 0.5})
+        c_di, g_di = di._build_grad_fn(bundle)(clean01, lab, torch.Generator().manual_seed(seed))
+        c_ti, g_ti = ti3._build_grad_fn(bundle)(clean01, lab, None)
+        g_ti = ti3._build_smooth_fn()(g_ti)
+        c_tap, g_tap = tap._build_grad_fn(clean01)(torch.from_numpy(adv01_np).to(device), lab,
+                                                   None)
+        c_tt, g_tt = tt._build_grad_fn()(clean01, lab, None)
+        out[device] = {"DIFGSM": (c_di, g_di), "TIFGSM3D": (c_ti, g_ti), "TAP": (c_tap, g_tap),
+                       "TT": (c_tt, g_tt)}
+    facts, bad = [], []
+    for name in out["cpu"]:
+        (ck, gk), (cc, gc) = ((c.detach().cpu().numpy(), g.cpu().numpy())
+                              for c, g in (out["cuda"][name], out["cpu"][name]))
+        cost_rel = float(np.max(np.abs(np.atleast_1d(ck) / np.atleast_1d(cc) - 1)))
+        grad_err = float(np.abs(gk - gc).max() / np.abs(gc).max())
+        facts.append(f"{name} cost {np.round(np.atleast_1d(ck), 6).tolist()} (relative "
+                     f"{cost_rel:.3g}), gradient {grad_err:.3g}")
+        if cost_rel > WB_COST_RTOL or grad_err > WB_GRAD_ATOL or not np.abs(gc).max() > 0:
+            bad.append(name)
+    print(f"[wb family parity] tiny I3D 2x8x32^2, TF32 off, card vs CPU at step 0 (TAP at a "
+          f"generic point; DIFGSM at the draw {draw}; limits: cost {WB_COST_RTOL} relative, "
+          f"gradient {WB_GRAD_ATOL} of max|g|): " + "; ".join(facts))
+    if bad:
+        raise RuntimeError(f"card and CPU disagree on tiny {bad}")
+
+
 def main() -> None:
     name = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from i2v_tpu_torch.cli import attack as attack_cli
+    from i2v_tpu_torch.cli import attack_ucf101
     from i2v_tpu_torch.cli import evaluate as evaluate_cli
     from i2v_tpu_torch.cli import fine_tune, image_main
     from i2v_tpu_torch.data import synthetic
@@ -931,6 +1212,12 @@ def main() -> None:
             for k in counts:
                 counts[k] += path_counts[k]
         phase_aens_ilaf_parity(image_main)
+        counts["sign_step"] += phase_wb_family(kernels, attack_cli, synthetic, (mean, std))
+        counts["sign_step"] += phase_tt(kernels, attack_cli, synthetic, (mean, std))
+        counts["sign_step"] += phase_remat(kernels, attack_cli, synthetic)
+        counts["sign_step"] += phase_ucf101(kernels, attack_cli, attack_ucf101, synthetic,
+                                            (mean, std))
+        phase_wb_family_parity(attack_cli, synthetic)
     print(f"[done] every phase passed in {time.time() - t0:.2f} s after the device check")
 
     where = {"rebuild_fwd": ("i2v_tpu_torch/csrc/rebuild_adv.cu",

@@ -10,4 +10,5 @@ from .i2v import (  # noqa: F401
     ImageGuidedStd_Adam,
     run_adam_modifier_attack,
 )
-from .whitebox import BIM, FGSM, MIFGSM, SGM, SIM  # noqa: F401
+from .temporal import TemporalTranslation  # noqa: F401
+from .whitebox import BIM, DIFGSM, FGSM, MIFGSM, SGM, SIM, TAP, TIFGSM, TIFGSM3D  # noqa: F401

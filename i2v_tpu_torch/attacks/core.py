@@ -28,7 +28,8 @@ from ..ops import grads as grad_ops
 from ..ops import kernels, losses, pixel
 
 # grad_fn(adv01, labels, generator) -> (cost, grad w.r.t. adv01); the cost
-# already carries the targeted sign (it is ascended)
+# already carries the targeted sign (it is ascended); the generator (a CPU
+# torch.Generator, or None) gives a step's random draws
 GradFn = Callable[[torch.Tensor, torch.Tensor, torch.Generator],
                   tuple[torch.Tensor, torch.Tensor]]
 
@@ -70,21 +71,28 @@ def _apply_grad_norm(g: torch.Tensor, kind: Optional[str]) -> torch.Tensor:
 def _chunked(grad_fn: GradFn, b: int, chunk: int) -> GradFn:
     """``grad_fn`` over equal clip-batch chunks. A chunk that does not divide
     the batch (the trailing batch of a run) snaps to the largest divisor of
-    the batch that fits, which keeps the accumulation exact."""
+    the batch that fits, which keeps the accumulation exact.
+
+    Every chunk starts from the generator state of the step, so all chunks
+    see the step's one set of random draws (DI's transform), as the JAX
+    engine hands the step's one key to every chunk."""
     if b % chunk:
         chunk = max(d for d in range(1, chunk + 1) if b % d == 0)
     k = b // chunk
 
     def chunked(adv, labels, generator):
+        state = generator.get_state() if generator is not None else None
         costs, grads = [], []
         for i in range(k):
+            if state is not None:
+                generator.set_state(state)
             c, g = grad_fn(adv[i * chunk:(i + 1) * chunk], labels[i * chunk:(i + 1) * chunk],
                            generator)
             costs.append(c)
             grads.append(g)
         # global cost = mean of the chunk means; d(global)/d(chunk) =
         # (1/k)·d(chunk mean)/d(chunk)
-        return torch.stack(costs).mean(), torch.cat(grads) / k
+        return torch.stack(costs).mean(0), torch.cat(grads) / k
 
     return chunked
 
@@ -94,8 +102,10 @@ def run_sign_attack(grad_fn: GradFn, clean01: torch.Tensor, labels: torch.Tensor
                     smooth_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
                     generator: Optional[torch.Generator] = None):
     """Run the iterative sign attack. Returns ``(adv01, per-step costs)``:
-    the [0,1]-domain (B, C, T, H, W) adversarial clips and a (steps,) tensor
-    of the cost before each update, both on ``clean01``'s device."""
+    the [0,1]-domain (B, C, T, H, W) adversarial clips and the cost before
+    each update stacked over steps, (steps,) or (steps, k) for a vector cost
+    such as TAP's, both on ``clean01``'s device. ``generator`` is handed to
+    ``grad_fn`` each step for its random draws."""
     b = clean01.shape[0]
     if cfg.batch_chunk and cfg.batch_chunk < b:
         grad_fn = _chunked(grad_fn, b, cfg.batch_chunk)
@@ -155,6 +165,7 @@ class Attack:
         self._attack_mode = "default"
         self._return_type = "float"
         self._target_map_function = None
+        self._calls = 0
         self.loss_info: dict = {}
 
     # -- attack modes (reference: base_attacks.py:49-80) --------------------
@@ -181,6 +192,15 @@ class Attack:
             with torch.no_grad():
                 return torch.argmin(self.model.apply01(clean01), dim=-1)
         return labels
+
+    def _next_generator(self) -> torch.Generator:
+        """A fresh but reproducible generator for each call, as the JAX
+        engine folds its call count into the key (the reference redraws DI
+        and TT randomness every batch). On the CPU, so that drawing a step's
+        scalars never waits on the card."""
+        generator = torch.Generator().manual_seed(self._calls)
+        self._calls += 1
+        return generator
 
     def set_return_type(self, type: str) -> None:
         """'float' (normalized clips) or 'int' (uint8 [0,255] pixel clips)

@@ -41,19 +41,10 @@ UNPORTED_RUNNER_FLAGS = {
     "multigrid": "item 9 (parallel/multigrid.py)",
     "multigrid_scale": "item 9 (parallel/multigrid.py)",
 }
-WHITEBOX_METHODS = ("FGSM", "BIM", "MIFGSM", "SGM", "SIM")
-# the JAX package's other white-box methods, refused with the work item named
-UNPORTED_WHITEBOX_METHODS = ("DIFGSM", "TIFGSM", "TIFGSM3D", "TAP", "TemporalTranslation")
-
-
-def whitebox_method(name: str) -> str:
-    """argparse ``type`` of --attack_method: names the ROADMAP item of a
-    method that is not ported yet (``choices`` then rejects unknown names)."""
-    if name in UNPORTED_WHITEBOX_METHODS:
-        raise argparse.ArgumentTypeError(
-            f"{name} is not ported yet (ROADMAP Queue 1: DIFGSM, TIFGSM/TIFGSM3D/TAP, "
-            "TemporalTranslation); ported: " + ", ".join(WHITEBOX_METHODS))
-    return name
+WHITEBOX_METHODS = (
+    "FGSM", "BIM", "MIFGSM", "DIFGSM", "TIFGSM", "TIFGSM3D", "SGM", "SIM",
+    "TAP", "TemporalTranslation",
+)
 
 
 def direction_image_model(name: str) -> str:
@@ -166,13 +157,27 @@ def build_whitebox_attack(args, bundle):
     """Dispatch a white-box method name to an attack instance (the
     reference's getattr dispatch, attack.py:76-83)."""
     name = args.attack_method
-    if name == "SIM" and getattr(args, "sim_batch_scales", False):
+    if name == "TemporalTranslation":
+        params = {"kernlen": args.kernlen, "momentum": bool(args.momentum),
+                  "weight": args.augmentation_weight, "move_type": args.move_type,
+                  "kernel_mode": args.kernel_mode, "chunk": args.tt_chunk}
+        atk = attacks.TemporalTranslation(bundle, params, steps=args.step)
+    elif name == "TAP":
+        params = {"kernlen": 3, "temporal_kernlen": 3, "eta": 1e3, "conv3d": True}
+        atk = attacks.TAP(bundle, params, steps=args.step)
+    elif name == "SIM" and getattr(args, "sim_batch_scales", False):
         atk = attacks.SIM(bundle, steps=args.step, batch_scales=True)
     else:
         atk = getattr(attacks, name)(bundle, steps=args.step)
     chunk = getattr(args, "batch_chunk", None)
     if chunk:
-        atk.cfg = dataclasses.replace(atk.cfg, batch_chunk=chunk)
+        if hasattr(atk, "cfg"):
+            atk.cfg = dataclasses.replace(atk.cfg, batch_chunk=chunk)
+        else:
+            # TAP and TT build their configurations inside; a memory flag
+            # dropped without a word would leave the user out of memory
+            print(f"[warn] --batch_chunk {chunk} is not supported by {name} and was ignored",
+                  flush=True)
     return atk
 
 

@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.pixel import normalize as _normalize
-from .video_common import Bottleneck3D, NonLocal3D, conv3d, max_pool3d, relu
+from .video_common import Bottleneck3D, NonLocal3D, conv3d, max_pool3d, relu, remat_call
 
 # '3x1x1' inflation frequency per stage (mmaction i3d defaults)
 _INFLATE_R50 = ((1, 1, 1), (1, 0, 1, 0), (1, 0, 1, 0, 1, 0), (0, 1, 0))
@@ -34,8 +34,11 @@ class I3DResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  inflate_freq: Sequence[Sequence[int]] = _INFLATE_R50,
                  nonlocal_pos: Sequence[Sequence[int]] = _NL5, nl_sub_sample: bool = True,
-                 nl_type: str = "gaussian", width: int = 64, num_classes: int = 400):
+                 nl_type: str = "gaussian", width: int = 64, num_classes: int = 400,
+                 remat: bool = False):
         super().__init__()
+        # remat the stem too: its pre-pool activation is the model's largest
+        self.remat = remat
         self.stage_sizes = tuple(stage_sizes)
         self.nonlocal_pos = tuple(tuple(p) for p in nonlocal_pos)
         self.conv1 = conv3d(3, width, (5, 7, 7), (2, 2, 2))
@@ -53,6 +56,9 @@ class I3DResNet(nn.Module):
                                     NonLocal3D(in_ch, sub_sample=nl_sub_sample, nl_type=nl_type))
         self.fc = nn.Linear(in_ch, num_classes)
 
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+        return max_pool3d(relu(self.conv1(x)), (1, 3, 3), (1, 2, 2), (0, 1, 1))
+
     def forward(self, clip_bcthw: torch.Tensor, *, normalize: bool = True,
                 relu_grad_scale: float = 1.0):
         """→ (logits, {"res_layer1": …, …, "res_layer4": …}).
@@ -62,12 +68,12 @@ class I3DResNet(nn.Module):
         of every ReLU but the stem's and those of each stage's block 0, as
         the reference's name-filtered SGM hooks do (base_attacks.py:509-511)."""
         x = _normalize(clip_bcthw, channel_axis=1) if normalize else clip_bcthw
-        x = max_pool3d(relu(self.conv1(x)), (1, 3, 3), (1, 2, 2), (0, 1, 1))
+        x = remat_call(self.remat, self._stem, x)
         taps = {}
         for stage, n_blocks in enumerate(self.stage_sizes):
             for block in range(n_blocks):
                 scale = 1.0 if block == 0 else relu_grad_scale
-                x = getattr(self, f"layer{stage + 1}_{block}")(x, scale)
+                x = remat_call(self.remat, getattr(self, f"layer{stage + 1}_{block}"), x, scale)
                 if block in self.nonlocal_pos[stage]:
                     x = getattr(self, f"layer{stage + 1}_{block}_nl")(x)
             taps[f"res_layer{stage + 1}"] = x

@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.pixel import normalize as _normalize
-from .video_common import conv3d, max_pool3d, relu
+from .video_common import conv3d, max_pool3d, relu, remat_call
 
 
 class SFBottleneck(nn.Module):
@@ -55,8 +55,10 @@ class SFBottleneck(nn.Module):
 class SlowFast(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), fast_stride: int = 2,
                  slow_stride: int = 8, beta_inv: int = 8, width: int = 64,
-                 num_classes: int = 400, slow_temporal_stages: Sequence[int] = (2, 3)):
+                 num_classes: int = 400, slow_temporal_stages: Sequence[int] = (2, 3),
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.stage_sizes = tuple(stage_sizes)
         self.fast_stride, self.slow_stride = fast_stride, slow_stride
         alpha = slow_stride // fast_stride
@@ -99,8 +101,8 @@ class SlowFast(nn.Module):
         for block in range(self.stage_sizes[stage]):
             # SGM: the reference's hooks skip '0.relu' names, so each stage's
             # block 0 stays unscaled (base_attacks.py:509-511)
-            x = getattr(self, f"{pathway}_res{stage + 2}_{block}")(
-                x, 1.0 if block == 0 else scale)
+            x = remat_call(self.remat, getattr(self, f"{pathway}_res{stage + 2}_{block}"),
+                           x, 1.0 if block == 0 else scale)
         return x
 
     def forward(self, clip_bcthw: torch.Tensor, *, normalize: bool = True,

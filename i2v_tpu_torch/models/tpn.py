@@ -33,7 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.pixel import normalize as _normalize
-from .video_common import conv3d, max_pool3d, relu
+from .video_common import conv3d, max_pool3d, relu, remat_call
 
 
 class TPNBottleneck(nn.Module):
@@ -66,8 +66,9 @@ class TPN(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
                  num_classes: int = 400, temporal_stages: Sequence[int] = (2, 3),
                  temporal_scales: Sequence[int] = (32, 32), upsample_scale: int = 1,
-                 neck_groups: int = 32):
+                 neck_groups: int = 32, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.stage_sizes = tuple(stage_sizes)
         self.temporal_scales = tuple(temporal_scales)
         self.upsample_scale = upsample_scale
@@ -118,7 +119,8 @@ class TPN(nn.Module):
         taps, feats = {}, []
         for stage, n_blocks in enumerate(self.stage_sizes):
             for block in range(n_blocks):
-                x = getattr(self, f"layer{stage + 1}_{block}")(x, 1.0 if block == 0 else s)
+                x = remat_call(self.remat, getattr(self, f"layer{stage + 1}_{block}"),
+                               x, 1.0 if block == 0 else s)
             taps[f"layer{stage + 1}"] = x
             feats.append(x)
 

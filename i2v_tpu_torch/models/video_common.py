@@ -10,6 +10,8 @@ PyTorch counterpart of :mod:`i2v_tpu.models.video_common`:
     backward scaling of every non-stem ReLU (replacing the reference's
     backward hooks, base_attacks.py:495-511) without a second copy of the
     weights.
+  - ``remat`` (:func:`remat_call`) recomputes a block in the backward pass
+    instead of keeping its activations, as the JAX package's ``nn.remat``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.activations import grad_scaled_relu
 
@@ -48,6 +52,17 @@ def max_pool_hw2(x: torch.Tensor) -> torch.Tensor:
 def relu(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """ReLU whose backward is scaled by ``scale`` (SGM) unless it is 1."""
     return torch.relu(x) if scale == 1.0 else grad_scaled_relu(x, scale)
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat``, and while autograd records, its
+    activations are recomputed in the backward pass instead of kept. The
+    non-reentrant checkpoint lets frozen weights and SGM's scaled ReLU run
+    inside; the recompute runs the same forward, so values and gradients are
+    those without it."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 class Bottleneck3D(nn.Module):

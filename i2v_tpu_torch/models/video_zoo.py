@@ -56,14 +56,18 @@ def tap_keys_for(model_name: str, purpose: str = "tap") -> tuple:
 
 
 def get_video_model(name: str, *, device: torch.device | str, tiny: bool = False,
-                    ucf101: bool = False, seed: int = 0) -> VideoModel:
+                    ucf101: bool = False, remat: bool = False, seed: int = 0) -> VideoModel:
     """Build a video-model bundle for a reference model name, in eval mode
     with frozen weights (no weight gradient ever runs), on ``device``.
     ``ucf101=True`` gives the 101-class head of the fine-tuned models at full
-    width (reference_ucf101.py:107-117); the tiny models keep 10 classes."""
+    width (reference_ucf101.py:107-117); the tiny models keep 10 classes.
+    ``remat=True`` recomputes the bottlenecks (and I3D's stem) in backward
+    passes instead of keeping their activations."""
     if name not in VIDEO_BUILDERS:
         raise ValueError(f"unknown video model {name!r}; have {sorted(VIDEO_BUILDERS)}")
-    kw = {"num_classes": 101} if ucf101 and not tiny else {}
+    kw = {"remat": remat}
+    if ucf101 and not tiny:
+        kw["num_classes"] = 101
     module = (TINY_BUILDERS if tiny else VIDEO_BUILDERS)[name](**kw)
     if not tiny:
         warnings.warn(f"no pretrained checkpoint for {name!r}"

@@ -1,9 +1,10 @@
 """Attack loss functions: the per-frame cosine objective of I2V / ENS-I2V /
 AENS-I2V-MF, DR's activation dispersion, ILAF's feature-displacement gain,
-and the cross-entropy of the white-box attacks.
+TAP's signed-√ feature distance, and the cross-entropy of the white-box
+attacks.
 
-PyTorch counterpart of :mod:`i2v_tpu.ops.losses` without TAP's distance
-(reference: image_attacks.py:216-220, 336-347, 597-613,
+PyTorch counterpart of :mod:`i2v_tpu.ops.losses` (reference:
+image_attacks.py:216-220, 336-347, 597-613, base_attacks.py:784-792,
 TPAMI_attack.py:271-287). Taps arrive as explicit model outputs, first
 axis = frames (or clips, for ILAF's video taps).
 """
@@ -66,6 +67,20 @@ def dispersion_cost(taps: Sequence[torch.Tensor]) -> torch.Tensor:
     for t in taps:
         total = total + torch.std(t.float(), correction=1)
     return total
+
+
+def tap_feature_distance(taps_adv: Sequence[torch.Tensor], taps_clean: Sequence[torch.Tensor],
+                         batch: int) -> torch.Tensor:
+    """TAP's mid-layer distance: a per-sample L2 between ``signed_sqrt`` maps,
+    summed over taps → (batch,) (reference: base_attacks.py:789-792). The
+    1e-12 inside the sqrt keeps the norm's gradient finite at adv == clean."""
+    from .activations import signed_sqrt
+
+    per_tap = []
+    for a, c in zip(taps_adv, taps_clean):
+        d = signed_sqrt(a.float()).reshape(batch, -1) - signed_sqrt(c.float()).reshape(batch, -1)
+        per_tap.append(torch.sqrt(torch.sum(d * d, dim=1) + 1e-12))
+    return torch.sum(torch.stack(per_tap), dim=0)
 
 
 def ilaf_cost(taps_step: Sequence[torch.Tensor], taps_clean: Sequence[torch.Tensor],

@@ -39,6 +39,14 @@ def unnormalize(x: torch.Tensor, channel_axis: int = 1) -> torch.Tensor:
     return x * std + mean
 
 
+def scale_perts(perts: torch.Tensor, channel_axis: int = 1) -> torch.Tensor:
+    """Normalized-domain perturbation → pixel-domain scale (÷std only): the
+    reference's ``_transform_perts`` of TAP's smoothness term
+    (base_attacks.py:138-143, 795)."""
+    _, std = _stats(perts, channel_axis)
+    return perts / std
+
+
 def project_linf(adv: torch.Tensor, clean: torch.Tensor, epsilon: float) -> torch.Tensor:
     """Project ``adv`` into the ε-ball around ``clean`` ∩ [0,1]
     (reference: base_attacks.py:291-292)."""

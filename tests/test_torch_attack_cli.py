@@ -1,6 +1,7 @@
-"""The port's white-box attack CLI on the CPU: its run directory is the JAX
-CLI's, it writes adv and ori artifacts, it resumes, and it refuses what is
-not ported (naming the ROADMAP item) and a CUDA device without a card."""
+"""The port's white-box attack CLIs on the CPU: their run directories, flags
+and defaults are the JAX CLIs', all ten methods run, they write adv and ori
+artifacts, resume, and refuse an unknown method or model and a CUDA device
+without a card."""
 
 import os
 import types
@@ -11,8 +12,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from i2v_tpu.cli import attack as jattack_cli  # noqa: E402
+from i2v_tpu.cli import attack_ucf101 as jattack_ucf101_cli  # noqa: E402
 from i2v_tpu_torch import attacks  # noqa: E402
-from i2v_tpu_torch.cli import attack, common  # noqa: E402
+from i2v_tpu_torch.cli import attack, attack_ucf101, common  # noqa: E402
 from i2v_tpu_torch.data.synthetic import SyntheticAttackDataset  # noqa: E402
 from i2v_tpu_torch.models import get_video_model  # noqa: E402
 from i2v_tpu_torch.ops import pixel  # noqa: E402
@@ -88,14 +90,98 @@ def test_build_whitebox_attack_applies_the_flags():
     assert atk.cfg.batch_chunk is None and atk.cfg.grad_norm == "frame"
 
 
-@pytest.mark.parametrize("method", common.UNPORTED_WHITEBOX_METHODS)
-def test_unported_methods_are_refused_with_the_roadmap_item(method, capsys):
-    assert method in jattack_cli.common.WHITEBOX_METHODS
-    with pytest.raises(SystemExit):
-        attack.arg_parse(["--attack_method", method])
-    assert "ROADMAP Queue 1" in capsys.readouterr().err
+@pytest.mark.parametrize("method", ["DIFGSM", "TIFGSM", "TIFGSM3D", "TAP", "TemporalTranslation"])
+def test_methods_refused_before_are_accepted_and_run(opt_path, method, capsys):
+    """The five methods the CLI refused before this slice run one tiny step
+    and write the JAX CLI's run directory; an unknown name is refused."""
+    flags = ["--attack_method", method, "--step", "1", "--kernlen", "3"]
+    args = attack.arg_parse(flags + TINY)
+    assert args.adv_path == jattack_cli.arg_parse(flags + TINY[:-2]).adv_path
+    run_dir = attack.run(args)
+    assert sorted(os.listdir(run_dir)) == ["0-adv.npy", "0-ori.npy", "1-adv.npy", "1-ori.npy"]
+    assert all(len(v) == 1 for v in args.loss_info.values()) and len(args.loss_info) == 2
+    if method == "TAP":
+        assert set(args.loss_info["synthetic_0"][0]) == {"cost", "ce loss", "reg_cost",
+                                                         "distance"}
+    assert "not ported" not in capsys.readouterr().err
     with pytest.raises(SystemExit):
         attack.arg_parse(["--attack_method", "NOPE"])
+
+
+def test_the_clis_accept_the_jax_clis_ten_methods_and_defaults():
+    assert common.WHITEBOX_METHODS == jattack_cli.common.WHITEBOX_METHODS
+    assert len(common.WHITEBOX_METHODS) == 10
+    assert all(hasattr(attacks, m) for m in common.WHITEBOX_METHODS)
+    for port_cli, jax_cli in ((attack, jattack_cli), (attack_ucf101, jattack_ucf101_cli)):
+        ucf = {"ucf101": True} if port_cli is attack_ucf101 else {}
+        mine = vars(attack.arg_parse([], **ucf))
+        theirs = vars(jax_cli.arg_parse([]))
+        for key in ("kernlen", "momentum", "augmentation_weight", "move_type", "kernel_mode",
+                    "remat", "tt_chunk", "sim_batch_scales", "step", "attack_method", "model"):
+            assert mine[key] == theirs[key], key
+
+
+def test_tt_flags_reach_the_attack():
+    bundle = get_video_model("i3d_resnet50", device="cpu", tiny=True)
+    args = attack.arg_parse(["--attack_method", "TemporalTranslation", "--kernlen", "7",
+                             "--momentum", "1", "--augmentation_weight", "0.25", "--move_type",
+                             "random", "--kernel_mode", "linear", "--tt_chunk", "3",
+                             "--step", "4"])
+    atk = common.build_whitebox_attack(args, bundle)
+    assert isinstance(atk, attacks.TemporalTranslation)
+    assert (atk.kernlen, atk.momentum, atk.weight, atk.move_type, atk.kernel_mode, atk.chunk,
+            atk.steps) == (7, True, 0.25, "random", "linear", 3, 4)
+    assert atk.moves == tuple(range(-3, 4))
+    atk = common.build_whitebox_attack(attack.arg_parse(["--attack_method", "TAP"]), bundle)
+    assert (atk.kernlen, atk.temporal_kernlen, atk.eta, atk.conv3d, atk.feat_coef) == \
+        (3, 3, 1e3, True, 0.05)
+
+
+@pytest.mark.parametrize("method", ["TAP", "TemporalTranslation"])
+def test_batch_chunk_on_tap_and_tt_warns_and_is_ignored(method, capsys):
+    bundle = get_video_model("i3d_resnet50", device="cpu", tiny=True)
+    atk = common.build_whitebox_attack(
+        attack.arg_parse(["--attack_method", method, "--batch_chunk", "2"]), bundle)
+    assert not hasattr(atk, "cfg")
+    assert (f"[warn] --batch_chunk 2 is not supported by {method} and was ignored"
+            in capsys.readouterr().out)
+    atk = common.build_whitebox_attack(
+        attack.arg_parse(["--attack_method", "DIFGSM", "--batch_chunk", "2"]), bundle)
+    assert atk.cfg.batch_chunk == 2 and "[warn]" not in capsys.readouterr().out
+
+
+def test_remat_reaches_the_video_model(opt_path, monkeypatch):
+    built = {}
+    real = attack.get_video_model
+
+    def recording(name, **kw):
+        built.update(kw)
+        return real(name, **kw)
+
+    monkeypatch.setattr(attack, "get_video_model", recording)
+    attack.main(["--step", "1", "--remat", "--tiny", "--n_synthetic", "1", "--device", "cpu"])
+    assert built["remat"] is True and built["ucf101"] is False
+
+
+def test_attack_ucf101_writes_the_jax_clis_run_dir_with_101_class_heads(opt_path, monkeypatch):
+    flags = ["--attack_method", "BIM", "--step", "2", "--file_prefix", "u"]
+    assert attack_ucf101.main.__module__ == "i2v_tpu_torch.cli.attack_ucf101"
+    assert attack.arg_parse(flags, ucf101=True).adv_path == \
+        jattack_ucf101_cli.arg_parse(flags).adv_path
+    built = {}
+    real = attack.get_video_model
+
+    def recording(name, **kw):
+        built.update(kw)
+        return real(name, **kw)
+
+    monkeypatch.setattr(attack, "get_video_model", recording)
+    run_dir = attack_ucf101.main(flags + TINY)
+    assert os.path.basename(run_dir) == "UCF101_Video_i3d_resnet50-BIM-2-synthetic-u"
+    assert sorted(os.listdir(run_dir)) == ["0-adv.npy", "0-ori.npy", "1-adv.npy", "1-ori.npy"]
+    assert built["ucf101"] is True
+    # the full-width bundle the flag selects has the 101-class head
+    assert get_video_model("tpn_resnet50", device="cpu", ucf101=True).module.fc.out_features == 101
 
 
 def test_unported_models_are_refused(opt_path):

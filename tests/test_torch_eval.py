@@ -13,7 +13,6 @@ import json
 import os
 import shutil
 import threading
-import time
 
 import jax
 import jax.numpy as jnp
@@ -229,12 +228,13 @@ def test_prefetch_reraises_worker_errors_and_stops_when_abandoned():
             produced.append(i)
             yield i
 
-    before = threading.active_count()
+    before = set(threading.enumerate())
     it = threaded_prefetch(endless)
     assert next(it) == 0
+    # the prefetch worker itself, not a thread count that other threads of
+    # the process (an earlier test's, winding down) also move
+    (worker,) = set(threading.enumerate()) - before
     it.close()   # the consumer stops early
-    deadline = time.time() + 10
-    while threading.active_count() > before and time.time() < deadline:
-        time.sleep(0.05)
-    assert threading.active_count() == before
+    worker.join(timeout=60)
+    assert not worker.is_alive()
     assert len(produced) < 10

@@ -162,8 +162,10 @@ def test_writer_errors_are_raised_at_submit_and_at_close(tmp_path):
     blocker.write_text("")  # a file where the run directory should be
     w = fused.AsyncArtifactWriter(str(blocker / "run"))
     w.submit([0], torch.zeros(1, *CLIP))
-    deadline = time.time() + 10
-    while not w._err and time.time() < deadline:  # the writer thread fails
+    # the writer thread fails; the poll ends as soon as it has, and the long
+    # deadline only covers a machine whose threads are starved
+    deadline = time.time() + 60
+    while not w._err and time.time() < deadline:
         time.sleep(0.01)
     with pytest.raises(RuntimeError, match="artifact writer failed"):
         w.submit([1], torch.zeros(1, *CLIP))

@@ -34,6 +34,18 @@ a batch that does not fit is recorded as such), DR
 ILAF on I3D-R50 at B=1, and one fused ENS-I2V + six-model evaluation batch at
 B=1. For each: a warm-up call, a timed call (steps/s or clips/s, peak device
 memory) and a traced call (device time by kernel class, idle share).
+
+    python tools/torch_eval_profile.py --whitebox [--out outputs/whitebox_profile.json]
+
+profiles the white-box paths on full-width I3D-R50 with TF32 off, the same
+three calls each: BIM, DIFGSM, TIFGSM, TIFGSM3D and TAP at B=1 (10 steps),
+TemporalTranslation (kernlen 15, chunk 5) at B=1 and at B=16 with and
+without ``--remat``, and BIM at B=16 with and without ``--remat``; a batch
+that does not fit is recorded as such. Then it times, with CUDA events, each
+transform the new attacks add to a step on one full-width clip gradient (DI's
+selection forward and backward, TI's 2-D and 3-D smoothing, TAP's 3³
+smoothing forward and backward, TT's variant rolls) beside a cuDNN depthwise
+conv doing the 3-D smoothing's work.
 """
 
 from __future__ import annotations
@@ -77,6 +89,7 @@ CATEGORIES = (
 # the attack paths' kernel classes, first match wins
 ATTACK_CATEGORIES = (
     ("K1+K2", ("rebuild_fwd_kernel", "rebuild_bwd_kernel")),
+    ("K3", ("sign_step_kernel",)),
     # cuDNN's FFT convolutions: the transforms and their complex products
     ("conv fft", ("fft", "cf32")),
     ("conv dgrad", ("dgrad",)),
@@ -89,6 +102,9 @@ ATTACK_CATEGORIES = (
 )
 ATTACK_STEPS = 10
 AENS_PEAK_BATCH = 16
+WB_BATCH = 16              # the reference's white-box batch
+TT_STEPS, TT_PEAK_STEPS = 5, 2
+TRANSFORM_ITERS = 20
 
 
 def forward_flops_per_clip(name: str) -> float:
@@ -217,16 +233,100 @@ def attack_paths(tmp: str):
             ("fused ENS-I2V + six models", 1, ATTACK_STEPS, fused)]
 
 
-def profile_attacks(result: dict, tmp: str) -> None:
+def whitebox_paths(tmp: str):
+    """(name, batch, steps, make) of each white-box path, as
+    :func:`attack_paths`: each through the attack CLI's dispatch on its own
+    full-width I3D-R50."""
+    import numpy as np
+
+    from i2v_tpu_torch.cli import attack as attack_cli
+
+    os.environ["I2V_TPU_OPT_PATH"] = tmp
+    ds = SyntheticAttackDataset(n_samples=WB_BATCH)
+    clips = np.stack([ds[i][0] for i in range(WB_BATCH)])
+
+    def path(method, b, steps, *flags):
+        args = attack_cli.arg_parse(["--attack_method", method, "--step", str(steps)]
+                                    + list(flags))
+        bundle = get_video_model("i3d_resnet50", device="cuda", remat=args.remat)
+        atk = common.build_whitebox_attack(args, bundle)
+        return lambda: atk(clips[:b], np.arange(b))
+
+    rows = [(m, 1, ATTACK_STEPS, ()) for m in ("BIM", "DIFGSM", "TIFGSM", "TIFGSM3D", "TAP")]
+    rows += [("TemporalTranslation", 1, TT_STEPS, ()),
+             ("TemporalTranslation", WB_BATCH, TT_PEAK_STEPS, ()),
+             ("TemporalTranslation", WB_BATCH, TT_PEAK_STEPS, ("--remat",)),
+             ("BIM", WB_BATCH, 3, ()), ("BIM", WB_BATCH, 3, ("--remat",))]
+    return [(m + (" --remat" if flags else ""), b, steps,
+             lambda m=m, b=b, steps=steps, flags=flags: path(m, b, steps, *flags))
+            for m, b, steps, flags in rows]
+
+
+def _event_ms(fn, iters: int = TRANSFORM_ITERS) -> float:
+    """Device ms a call of ``fn``, CUDA events around ``iters`` calls after
+    a warm-up (the host enqueues ahead; each call is milliseconds long)."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def time_transforms(result: dict) -> None:
+    """The new attacks' per-step transforms on one full-width clip gradient
+    (1, 3, 32, 224, 224), TF32 off, and a cuDNN depthwise conv3d of the 15³
+    Gaussian beside the separable shifted-slice form."""
+    import torch.nn.functional as F
+
+    from i2v_tpu_torch.ops import diversity, smoothing
+
+    common.apply_matmul_precision(argparse.Namespace(matmul_precision="float32"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.randn(1, 3, 32, 224, 224, device="cuda", generator=gen)
+    x = g.clone().requires_grad_(True)
+    k1d = smoothing.gaussian_1d(15)
+    k3 = smoothing.ti_kernel_3d(15)
+    tap_k = smoothing.uniform_kernel_3d(3, 3)
+    filt = torch.from_numpy(k3).cuda()[None, None].expand(3, 1, 15, 15, 15).contiguous()
+
+    def di():
+        y = diversity.diversity_gather(x, 240, 3, 5, 224, 250)
+        torch.autograd.grad(y, x, g)
+
+    def tap():
+        y = smoothing.depthwise_conv3d(x, tap_k)
+        torch.autograd.grad(y, x, g)
+
+    forms = {
+        "DI selection, forward and backward": di,
+        "TI 2-D separable 15x15 (TIFGSM)": lambda: smoothing.ti_smooth_2d_separable(g, k1d),
+        "TI 3-D separable 15^3 (TIFGSM3D)": lambda: smoothing.depthwise_conv3d_separable(g, k1d),
+        "TAP 3^3 smoothing, forward and backward": tap,
+        "TT 15 variant rolls": lambda: [torch.roll(g, m, dims=2) for m in range(-7, 8)],
+        "cuDNN depthwise conv3d 15^3, TF32 off": lambda: F.conv3d(g, filt, padding=7, groups=3),
+    }
+    result["transforms_ms"] = {}
+    for name, fn in forms.items():
+        ms = _event_ms(fn)
+        result["transforms_ms"][name] = ms
+        print(f"[transform] {name}: {ms:.4f} ms on one (1,3,32,224,224) gradient")
+
+
+def profile_attacks(result: dict, tmp: str, paths=attack_paths, modes=MODES,
+                    key: str = "attack_rows") -> None:
     import gc
 
     from torch.profiler import ProfilerActivity, profile
 
-    result["attack_rows"] = []
-    for mode in MODES:
+    result[key] = []
+    for mode in modes:
         prec = common.apply_matmul_precision(argparse.Namespace(matmul_precision=mode))
         print(f"[precision] {prec}")
-        for name, batch, steps, make in attack_paths(tmp):
+        for name, batch, steps, make in paths(tmp):
             torch.cuda.reset_peak_memory_stats()
             call = make()
             try:
@@ -235,7 +335,7 @@ def profile_attacks(result: dict, tmp: str) -> None:
                 row = {"mode": mode, "path": name, "batch": batch, "steps": steps,
                        "oom": str(e).splitlines()[0],
                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-                result["attack_rows"].append(row)
+                result[key].append(row)
                 print(f"[{mode}] {name}, B={batch}: out of memory after a peak of "
                       f"{row['peak_gib']:.2f} GiB allocated: {row['oom']}")
                 del call, e
@@ -262,7 +362,7 @@ def profile_attacks(result: dict, tmp: str) -> None:
                    "shares": category_shares(k["by_name"], ATTACK_CATEGORIES),
                    "kernels": {n[:160]: us / k["kernel_us"] for n, us in k["by_name"].items()
                                if us >= 0.002 * k["kernel_us"]}}
-            result["attack_rows"].append(row)
+            result[key].append(row)
             print(f"[{mode}] {name}, B={batch}, {steps} steps: {row['steps_per_sec']:.3f} "
                   f"steps/s, {row['clips_per_sec']:.4f} clips/s ({wall_s:.3f} s; warm-up "
                   f"{warm_s:.3f} s), device {row['device_ms']:.2f} ms, idle "
@@ -277,6 +377,8 @@ def main(argv=None) -> dict:
                    help="default outputs/eval_profile.json, or outputs/attack_profile.json "
                         "with --attacks")
     p.add_argument("--attacks", action="store_true", help="profile the attack paths")
+    p.add_argument("--whitebox", action="store_true",
+                   help="profile the white-box paths and the new attacks' transforms")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("torch_eval_profile: no CUDA device is available")
@@ -291,6 +393,15 @@ def main(argv=None) -> dict:
         out = args.out or "outputs/attack_profile.json"
         with tempfile.TemporaryDirectory() as tmp:
             profile_attacks(result, tmp)
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(result, f, indent=1)
+        return result
+    if args.whitebox:
+        out = args.out or "outputs/whitebox_profile.json"
+        time_transforms(result)
+        with tempfile.TemporaryDirectory() as tmp:
+            profile_attacks(result, tmp, whitebox_paths, ("float32",), "whitebox_rows")
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         with open(out, "w") as f:
             json.dump(result, f, indent=1)
