@@ -59,10 +59,25 @@ raises and the script exits non-zero:
  19. ucf101    — 2-step BIM through cli.attack_ucf101 on the 101-class I3D-R50
  20. wb family parity — tiny I3D DIFGSM (pinned draws), TIFGSM3D, TAP and TT
                  on the card and on the CPU: step-0 cost and gradient
+ 21. chunked aens — 3-step full-width AENS-I2V-MF at the reference's B=16
+                 through image_main --sharded --frame_chunk auto: K1/K2 once a
+                 chunk a step (and K1 once at the end), the artifacts in the
+                 ε-ball; its peak memory and steps/s
+ 22. chunk equality — ENS-I2V at B=2 (which fits whole) with --sharded and
+                 --frame_chunk 16 and without: the step-0 cost and gradient at
+                 a generic modifier; the later steps printed
+ 23. multigrid  — 6-step ENS-I2V at B=1 with --sharded --multigrid 3: six
+                 costs, K1/K2 at 112² and then at 224², outputs in the ε-ball
+ 24. runner parity — the tiny chunked AENS runner (momentum 0.5) on the card
+                 and on the CPU: step-0 cost and gradient at a generic modifier
 
+Phase 3 also holds K1/K2 to their plain versions at the chunked runner's
+shapes: a 512-frame call (B=16), a 128-frame chunk that starts 128 frames
+into a 512-frame modifier, and a 112² call (multigrid's coarse phase).
 Each path (slice, eval, whitebox, sf whitebox, aens, dr, fused, ilaf, wb
-family, tt, remat, ucf101) is driven with the launch counters set to 0 just
-before it and read just after.
+family, tt, remat, ucf101, chunked aens, chunk equality, multigrid) is
+driven with the launch counters set to 0 just before it and read just
+after.
 The line before the last is a JSON object with each kernel's launches over
 those paths, its error, times and bound; the last line is
 {"ok": true, "device": {...}}.
@@ -108,12 +123,38 @@ DR_STEPS = 5
 FUSED_CLIPS, FUSED_STEPS = 2, 5
 ILAF_CLIPS, ILAF_STEPS = WB_RUNS[0][1], 10   # over the BIM run's pairs
 WB_FAMILY = ("DIFGSM", "TIFGSM", "TIFGSM3D", "TAP")   # 10 steps (WB_STEPS), one clip each
+# attacks that step along a smoothed gradient, not the steepest one: on random
+# weights they raise I3D-R50's CE at first but not steadily, so their check is
+# that some step after the first is above it. On an H100, TIFGSM went 22.91 →
+# 27.63 and back to 24.93; TIFGSM3D 22.91 → 28.50 at step 3, 22.74 at step 10;
+# TemporalTranslation 23.48 → 23.95 at step 1, 22.68 at step 3, 23.06 at
+# step 4 (PERF.md §6)
+UNSTEADY = ("TIFGSM", "TIFGSM3D")
 TT_STEPS = 5
 REMAT_BATCH, REMAT_STEPS = 4, 3
 UCF_STEPS = 2
 PREC_MODES = ("float32", "default", "high")
 PREC_ATOL = 1e-6          # a transform's output across precision modes, times max|out|
 REPORT_CSV, REPORT_JSON = "results_all_models_prediction.csv", "top1_acc_all_models.json"
+# the chunked runner's shapes of K1/K2: (label, frames of the call, offset in
+# frames into a modifier of how many frames, H = W)
+CHUNK_SHAPES = (("B=16, 512 frames", 512, 0, 512, 224),
+                ("the auto chunk, 256 frames 256 into 512", 256, 256, 512, 224),
+                ("a 128-frame chunk 128 frames into 512", 128, 128, 512, 224),
+                ("multigrid's coarse 112^2", 32, 0, 32, 112))
+L2_BYTES = 50 * 2**20     # the H100's L2: a timed call at a smaller shape rotates
+                          # over input sets that move twice this, so each is cold
+CHUNK_CLIPS, CHUNK_STEPS = 16, 3      # AENS at the reference's production batch
+EQ_CLIPS, EQ_STEPS, EQ_CHUNK = 2, 3, 16
+EQ_COST_RTOL = 1e-5       # chunked vs whole step-0 cost on the card
+EQ_GRAD_ATOL = 5e-5       # a chunk's gradient vs the whole runner's over the same
+                          # frames, times max|g|: the same batch size, so the same
+                          # cuDNN algorithms; the same gradient varies run to run by
+                          # up to 1.61e-5 of max|g| (PERF.md §6)
+EQ_L2_RTOL = 1e-3         # chunked vs whole over the batch, ||diff|| / ||g||: cuDNN
+                          # picks its algorithms by batch size, and the rounding that
+                          # differs flips a few ReLU and max-pool switches (PERF.md §6)
+MG_STEPS, MG_COARSE = 6, 3
 
 
 def phase_device() -> str:
@@ -127,7 +168,7 @@ def phase_device() -> str:
     name = torch.cuda.get_device_name(0)
     print(f"[device] {name}; nvidia-smi: {card}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; {torch.cuda.device_count()} visible")
-    return name
+    return name, card
 
 
 def phase_build(kernels) -> None:
@@ -255,6 +296,64 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def _bound(name: str, numel: int) -> tuple[float, str]:
+    """The least ms a call over ``numel`` elements could take, and what bounds it."""
+    nbytes, ops = (w * numel for w in KERNEL_WORK[name])
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def _chunk_shapes(kernels, pixel, gen, eps32: float, err: dict) -> list:
+    """K1/K2 against their plain versions, ties planted, and timed, at each of
+    CHUNK_SHAPES: the call is a view ``offset`` frames into a buffer of
+    ``frames_of`` frames, as the runner's chunk views are."""
+    facts = []
+    for label, frames, offset, frames_of, hw in CHUNK_SHAPES:
+        shape = (frames, 3, hw, hw)
+        full = (frames_of, 3, hw, hw)
+        clean, mod, g = (t.view(full)[offset:offset + frames]
+                         for t in _inputs(int(np.prod(full)), gen))
+        for t in (clean, mod, g):
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise RuntimeError(f"{label}: the view is not a dense 16-byte aligned one")
+        flat_c, flat_m = clean.view(-1), mod.view(-1)
+        _plant(flat_c, flat_m, eps32)
+        fwd, bwd = _compare(kernels, pixel, clean, mod, g, eps32)
+        err["rebuild_fwd"] = max(err["rebuild_fwd"], fwd)
+        err["rebuild_bwd"] = max(err["rebuild_bwd"], bwd)
+        if fwd != 0.0 or bwd != 0.0:
+            raise RuntimeError(f"kernel differs from its plain version ({label} {shape}): "
+                               f"forward {fwd}, backward {bwd}")
+        n_sets = -(-2 * L2_BYTES // (3 * clean.numel() * 4))
+        sets = [(clean, mod, g)] + [tuple(t.view(shape) for t in _inputs(clean.numel(), gen))
+                                    for _ in range(n_sets - 1)]
+        graphs = []
+        for c_, m_, g_ in sets:
+            m_leaf = m_.clone().requires_grad_(True)
+            graphs.append((pixel.rebuild_adv(c_, m_leaf, eps32), m_leaf, g_))
+        turn = iter(range(10**9))
+
+        def pick(items):
+            return items[next(turn) % len(items)]
+
+        ms = {"rebuild_fwd": (
+                  _time_ms(lambda: kernels.launch_rebuild_fwd(*pick(sets)[:2], eps32), TIMING_ITERS),
+                  _time_ms(lambda: pixel.rebuild_adv(*pick(sets)[:2], eps32), TIMING_ITERS)),
+              "rebuild_bwd": (
+                  _time_ms(lambda: kernels.launch_rebuild_bwd(*pick(sets), eps32), TIMING_ITERS),
+                  _time_ms(lambda: torch.autograd.grad(*pick(graphs), retain_graph=True),
+                           TIMING_ITERS))}
+        facts.append(f"{label} {shape} at byte offset {offset * 3 * hw * hw * 4} "
+                     f"(pointer mod 16 = {mod.data_ptr() % 16}; timed over {n_sets} input "
+                     f"set(s)): " + ", ".join(
+                         f"{k} {k_ms:.4f} ms (plain {p_ms:.4f}, bound "
+                         f"{_bound(k, clean.numel())[0]:.4f} by {_bound(k, clean.numel())[1]})"
+                         for k, (k_ms, p_ms) in ms.items()))
+        del clean, mod, g, sets, graphs
+    torch.cuda.synchronize()
+    return facts
+
+
 def phase_kernels(kernels, pixel) -> dict:
     eps32 = float(np.float32(EPS))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -274,6 +373,7 @@ def phase_kernels(kernels, pixel) -> dict:
             raise RuntimeError(f"kernel differs from its plain version ({label}): "
                                f"forward {fwd}, backward {bwd}")
     torch.cuda.synchronize()
+    chunk_facts = _chunk_shapes(kernels, pixel, gen, eps32, err)
 
     # K3 at the white-box path's α (BIM: ε/10) and ε
     alpha32 = float(np.float32(EPS / WB_STEPS))
@@ -314,9 +414,8 @@ def phase_kernels(kernels, pixel) -> dict:
         k2 = _time_ms(kern, TIMING_ITERS)
         p2 = _time_ms(plain, TIMING_ITERS)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        nbytes, ops = (w * numel[name] for w in KERNEL_WORK[name])
-        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-        bounds[name] = (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations")
+        bounds[name] = _bound(name, numel[name])
+    print(f"[kernels] K1/K2 at the chunked runner's shapes: " + "; ".join(chunk_facts))
     print(f"[kernels] bit-identical to the plain version at {MAIN_SHAPE} (K1, K2) and "
           f"{CLIP_SHAPE} (K3), sizes {RAGGED_SIZES} and a misaligned view, ties and NaNs "
           "planted; "
@@ -991,10 +1090,7 @@ def phase_wb_family(kernels, attack_cli, synthetic, pixel_mean_std) -> int:
         k3 += counts["sign_step"]
         _check_pairs(args.adv_path, 1, synthetic, pixel_mean_std)
         costs = _loss_costs(args)
-        # with random weights, TIFGSM3D's 15³-smoothed sign direction raises
-        # the CE of I3D-R50 at first but not steadily: 22.91 → 28.50 at step
-        # 3, 22.74 at step 10 in one run on an H100 (PERF.md §6)
-        _rises(method, costs, 1, WB_STEPS, at_end=method != "TIFGSM3D")
+        _rises(method, costs, 1, WB_STEPS, at_end=method not in UNSTEADY)
         (c,) = costs.values()
         extra = ""
         if method == "TAP":
@@ -1024,7 +1120,7 @@ def phase_tt(kernels, attack_cli, synthetic, pixel_mean_std) -> int:
                                    lambda: attack_cli.run(args))
     _check_pairs(args.adv_path, 1, synthetic, pixel_mean_std)
     costs = _loss_costs(args)
-    _rises("TT", costs, 1, TT_STEPS)
+    _rises("TT", costs, 1, TT_STEPS, at_end=False)   # see UNSTEADY
     (c,) = costs.values()
     tp = args.throughput
     print(f"[tt] TemporalTranslation on I3D-R50 (random weights), kernlen 15 (15 variants a "
@@ -1168,8 +1264,196 @@ def phase_wb_family_parity(attack_cli, synthetic) -> None:
         raise RuntimeError(f"card and CPU disagree on tiny {bad}")
 
 
+def _chunked_want(frames: int, chunk, steps: int) -> dict:
+    """Launch counts of one runner call: K1 and K2 once a chunk a step, and
+    K1 once more over the whole batch at the end."""
+    from i2v_tpu_torch.parallel import sharded
+
+    n_chunks = frames // sharded.snap_frame_chunk(
+        sharded.resolve_frame_chunk(chunk, frames, (224, 224)), frames)
+    return {"rebuild_fwd": steps * n_chunks + 1, "rebuild_bwd": steps * n_chunks,
+            "sign_step": 0}
+
+
+def phase_chunked_aens(kernels, image_main, synthetic, pixel_mean_std, card: str) -> dict:
+    """AENS-I2V-MF at the reference's B=16 x 32 x 224^2, full width, TF32 off,
+    through image_main --sharded --frame_chunk auto."""
+    from i2v_tpu_torch.parallel import sharded
+
+    argv = ["--attack_method", "AENS_I2V_MF", "--data", "synthetic", "--n_synthetic",
+            str(CHUNK_CLIPS), "--batch_size", str(CHUNK_CLIPS), "--step", str(CHUNK_STEPS),
+            "--step_size", "0.005", "--aens_momentum", str(AENS_MOMENTUM), "--sharded",
+            "--frame_chunk", "auto", "--device", "cuda", "--matmul_precision", "float32",
+            "--file_prefix", "chunked"]
+    args = image_main.arg_parse(argv)
+    frames = CHUNK_CLIPS * 32
+    chunk = sharded.resolve_frame_chunk("auto", frames, (224, 224))
+    want = _chunked_want(frames, "auto", CHUNK_STEPS)
+    _, counts, peak = _run_counted(kernels, "chunked AENS", want, lambda: image_main.run(args))
+    ds = synthetic.SyntheticAttackDataset(n_samples=CHUNK_CLIPS)
+    for label in range(CHUNK_CLIPS):
+        _check_clip(args.adv_path, label, "adv", ds, pixel_mean_std)
+    costs = _costs(args.adv_path)
+    _descends("chunked AENS", costs, CHUNK_CLIPS, CHUNK_STEPS)
+    tp = args.throughput
+    (c,) = {tuple(v) for v in costs.values()}   # one batch: every clip records its costs
+    print(f"[chunked aens] AENS-I2V-MF, four full-width surrogates with 8 taps, "
+          f"B={CHUNK_CLIPS} x 32 x 224^2 in one batch, {CHUNK_STEPS} steps, momentum "
+          f"{AENS_MOMENTUM}, TF32 off, --frame_chunk auto = {chunk} frames "
+          f"({frames // chunk} chunks a step), on {card}: peak memory {peak:.2f} GiB; "
+          f"{CHUNK_STEPS / tp['last_call_s']:.4f} steps/s and "
+          f"{CHUNK_CLIPS / tp['last_call_s']:.4f} clips/s ({tp['last_call_s']:.3f} s for the "
+          f"call, the clean taps, the final rebuild and the first use of these shapes "
+          f"included); launches {counts}; costs {np.round(c, 4).tolist()}; {CHUNK_CLIPS} "
+          "artifacts in the ε-ball and [0,1]")
+    return counts
+
+
+def phase_chunk_equality(kernels, image_main, synthetic) -> dict:
+    """ENS-I2V at B=2, full width, with --sharded and --frame_chunk 16 and
+    without, at a generic modifier: the step-0 costs agree; each chunk's
+    gradient is the whole-batch runner's over that chunk's frames alone (the
+    same batch size, so the same cuDNN algorithms); and the chunked gradient
+    is the whole batch's up to the switches of ReLU and max-pool that flip
+    where cuDNN's batch-size-dependent algorithms round a pre-activation to
+    the other side of 0 or of its neighbour (each moves one upstream
+    gradient value whole, so the max-abs difference is printed, and the L2
+    one held). The 3-step costs from the flat start are printed."""
+    from i2v_tpu_torch.ops import pixel
+
+    ds = synthetic.SyntheticAttackDataset(n_samples=EQ_CLIPS)
+    videos = np.stack([ds[i][0] for i in range(EQ_CLIPS)])
+    clean01 = pixel.unnormalize(torch.from_numpy(videos).cuda(), channel_axis=1)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mod = (torch.rand(EQ_CLIPS * 32, 3, 224, 224, device="cuda", generator=gen) * 2 - 1) \
+        * 0.9 * EPS
+    base = ["--attack_method", "ImageGuidedFML2_Adam_MultiModels", "--data", "synthetic",
+            "--n_synthetic", str(EQ_CLIPS), "--batch_size", str(EQ_CLIPS), "--step",
+            str(EQ_STEPS), "--sharded", "--device", "cuda", "--matmul_precision", "float32"]
+    out, total, per_chunk = {}, {}, []
+    for chunk in (None, EQ_CHUNK):
+        args = image_main.arg_parse(base + ([] if chunk is None
+                                            else ["--frame_chunk", str(chunk)]))
+        image_main.common.apply_matmul_precision(args)
+        atk = image_main.common.build_image_guided_attack(args, torch.device("cuda"))
+        cost, g = atk._runner.value_and_grad(clean01, mod)
+        if chunk is None:
+            for i in range(0, EQ_CLIPS * 32, EQ_CHUNK):   # chunk i alone, whole
+                clip, t = divmod(i, 32)
+                per_chunk.append(atk._runner.value_and_grad(
+                    clean01[clip:clip + 1, :, t:t + EQ_CHUNK], mod[i:i + EQ_CHUNK])[1])
+        _, counts, peak = _run_counted(
+            kernels, f"ENS chunk {chunk}", _chunked_want(EQ_CLIPS * 32, chunk, EQ_STEPS),
+            lambda: atk(videos, list(range(EQ_CLIPS)), ["a", "b"]))
+        out[chunk] = (float(cost), g, [float(atk.loss_info["a"][i]["cost"])
+                                       for i in range(EQ_STEPS)], peak, counts)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        del atk
+    (c_w, g_w, t_w, p_w, n_w), (c_c, g_c, t_c, p_c, n_c) = out[None], out[EQ_CHUNK]
+    scale = float(g_w.abs().max())
+    cost_rel = abs(c_c / c_w - 1)
+    chunk_err = max(float((g_k - g_c[i * EQ_CHUNK:(i + 1) * EQ_CHUNK]).abs().max()) / scale
+                    for i, g_k in enumerate(per_chunk))
+    diff = (g_c - g_w).abs()
+    max_err = float(diff.max()) / scale
+    l2_err = float(torch.linalg.vector_norm(g_c - g_w) / torch.linalg.vector_norm(g_w))
+    share = float((diff > EQ_GRAD_ATOL * scale).float().mean())
+    print(f"[chunk equality] ENS-I2V, four full-width surrogates, B={EQ_CLIPS} x 32 x 224^2, "
+          f"TF32 off, at a modifier uniform in ±0.9ε: step-0 cost whole {c_w:.7f} vs "
+          f"--frame_chunk {EQ_CHUNK} {c_c:.7f} (relative {cost_rel:.3g}, limit {EQ_COST_RTOL}); "
+          f"each chunk's gradient against the whole runner over that chunk alone: max|diff|/"
+          f"max|g| {chunk_err:.3g} (limit {EQ_GRAD_ATOL}); chunked against whole: "
+          f"||diff||/||g|| {l2_err:.3g} (limit {EQ_L2_RTOL}), max|diff|/max|g| {max_err:.3g}, "
+          f"share of elements beyond {EQ_GRAD_ATOL} of max|g| {share:.3g}; peaks {p_w:.2f} and "
+          f"{p_c:.2f} GiB; launches {n_w} and {n_c}; information only: {EQ_STEPS} steps from "
+          f"the flat start, whole {t_w} vs chunked {t_c}")
+    if (cost_rel > EQ_COST_RTOL or chunk_err > EQ_GRAD_ATOL or l2_err > EQ_L2_RTOL
+            or not scale > 0):
+        raise RuntimeError("the chunked runner disagrees with the whole batch on the card")
+    return total
+
+
+def phase_multigrid(kernels, image_main, synthetic, pixel_mean_std) -> dict:
+    """6-step ENS-I2V at B=1 with --sharded --multigrid 3: K1/K2 at 112^2 in
+    the coarse phase, then at 224^2."""
+    argv = ["--attack_method", "ImageGuidedFML2_Adam_MultiModels", "--data", "synthetic",
+            "--n_synthetic", "1", "--batch_size", "1", "--step", str(MG_STEPS), "--sharded",
+            "--multigrid", str(MG_COARSE), "--device", "cuda", "--matmul_precision", "float32",
+            "--file_prefix", "multigrid"]
+    args = image_main.arg_parse(argv)
+    sides = {"rebuild_fwd": [], "rebuild_bwd": []}
+    launch = {"rebuild_fwd": kernels.launch_rebuild_fwd, "rebuild_bwd": kernels.launch_rebuild_bwd}
+
+    def recording(name):
+        def wrapper(clean01, modifier, *rest):
+            sides[name].append(int(modifier.shape[-1]))
+            return launch[name](clean01, modifier, *rest)
+        return wrapper
+
+    coarse, fine = MG_COARSE, MG_STEPS - MG_COARSE
+    want_sides = {"rebuild_fwd": [112] * (coarse + 1) + [224] * (fine + 1),
+                  "rebuild_bwd": [112] * coarse + [224] * fine}
+    kernels.launch_rebuild_fwd = recording("rebuild_fwd")
+    kernels.launch_rebuild_bwd = recording("rebuild_bwd")
+    try:
+        _, counts, peak = _run_counted(
+            kernels, "multigrid", {k: len(v) for k, v in want_sides.items()} | {"sign_step": 0},
+            lambda: image_main.run(args))
+    finally:
+        kernels.launch_rebuild_fwd = launch["rebuild_fwd"]
+        kernels.launch_rebuild_bwd = launch["rebuild_bwd"]
+    if sides != want_sides:
+        raise RuntimeError(f"multigrid launched K1/K2 at sides {sides}, expected {want_sides}")
+    _check_clip(args.adv_path, 0, "adv", synthetic.SyntheticAttackDataset(n_samples=1),
+                pixel_mean_std)
+    (c,) = _costs(args.adv_path).values()
+    if len(c) != MG_STEPS or not np.isfinite(c).all():
+        raise RuntimeError(f"multigrid recorded costs {c}")
+    print(f"[multigrid] ENS-I2V, 1 clip of 32x224^2, {MG_STEPS} steps with the first "
+          f"{MG_COARSE} at 112^2, TF32 off: {MG_STEPS / args.throughput['last_call_s']:.3f} "
+          f"steps/s with warm-up; peak {peak:.2f} GiB; launches {counts}, K1 at sides "
+          f"{sides['rebuild_fwd']}, K2 at {sides['rebuild_bwd']}; costs "
+          f"{np.round(c, 4).tolist()}; output in the ε-ball and [0,1]")
+    return counts
+
+
+def phase_runner_parity(image_main) -> None:
+    """The tiny chunked AENS runner on the card and on the CPU from the same
+    seeds: step-0 cost and gradient at a generic modifier."""
+    from i2v_tpu_torch.data import synthetic
+    from i2v_tpu_torch.ops import pixel
+
+    args = image_main.arg_parse(["--attack_method", "AENS_I2V_MF", "--tiny", "--clip_len", "4",
+                                 "--aens_momentum", "0.5", "--sharded", "--frame_chunk", "2",
+                                 "--step", "3", "--matmul_precision", "float32",
+                                 "--file_prefix", "runner-parity"])
+    image_main.common.apply_matmul_precision(args)
+    ds = synthetic.SyntheticAttackDataset(n_samples=2, clip_len=4, size=32)
+    clean01 = np.stack([ds.clip01(i) for i in range(2)])
+    mod = ((np.random.RandomState(5).rand(8, 3, 32, 32) * 2 - 1) * 0.9 * EPS).astype(np.float32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        atk = image_main.common.build_image_guided_attack(args, torch.device(device))
+        cost, g = atk._runner.value_and_grad(torch.from_numpy(clean01).to(device),
+                                             torch.from_numpy(mod).to(device))
+        videos = pixel.normalize(torch.from_numpy(clean01), channel_axis=1).numpy()
+        atk(videos, [0, 1], ["a", "b"])
+        out[device] = (float(cost), g.cpu().numpy(),
+                       [float(atk.loss_info["a"][i]["cost"]) for i in range(3)])
+    (c_k, g_k, t_k), (c_c, g_c, t_c) = out["cuda"], out["cpu"]
+    cost_rel = abs(c_k / c_c - 1)
+    grad_err = float(np.abs(g_k - g_c).max() / np.abs(g_c).max())
+    print(f"[runner parity] tiny AENS runner (8 taps, momentum 0.5, --frame_chunk 2 over 2x4 "
+          f"frames of 32^2), TF32 off, at a generic modifier: step-0 cost card {c_k:.7f} vs CPU "
+          f"{c_c:.7f} (relative {cost_rel:.3g}, limit {ENS_COST_RTOL}); gradient "
+          f"max|diff|/max|g| {grad_err:.3g} (limit {ENS_GRAD_ATOL}); information only: 3 steps "
+          f"from the flat start, card {t_k} vs CPU {t_c}")
+    if cost_rel > ENS_COST_RTOL or grad_err > ENS_GRAD_ATOL or not np.abs(g_c).max() > 0:
+        raise RuntimeError("card and CPU disagree on the tiny chunked AENS runner")
+
+
 def main() -> None:
-    name = phase_device()
+    name, card = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from i2v_tpu_torch.cli import attack as attack_cli
     from i2v_tpu_torch.cli import attack_ucf101
@@ -1218,6 +1502,13 @@ def main() -> None:
         counts["sign_step"] += phase_ucf101(kernels, attack_cli, attack_ucf101, synthetic,
                                             (mean, std))
         phase_wb_family_parity(attack_cli, synthetic)
+        for path_counts in (phase_chunked_aens(kernels, image_main, synthetic, (mean, std),
+                                               card),
+                            phase_chunk_equality(kernels, image_main, synthetic),
+                            phase_multigrid(kernels, image_main, synthetic, (mean, std))):
+            for k in counts:
+                counts[k] += path_counts[k]
+        phase_runner_parity(image_main)
     print(f"[done] every phase passed in {time.time() - t0:.2f} s after the device check")
 
     where = {"rebuild_fwd": ("i2v_tpu_torch/csrc/rebuild_adv.cu",

@@ -1,9 +1,11 @@
 """Shared CLI plumbing for the image-guided and white-box attacks: data,
 device and precision, model and attack construction, resume, artifacts.
 
-PyTorch counterpart of :mod:`i2v_tpu.cli.common` without the multi-device
-runners (``--sharded``, ``--model_parallel``, ``--frame_chunk``,
-``--multigrid`` are refused, naming their ROADMAP item).
+PyTorch counterpart of :mod:`i2v_tpu.cli.common`. ``--sharded`` runs
+I2V / ENS-I2V / AENS-I2V-MF through the frame-chunked single-device runner
+(:mod:`i2v_tpu_torch.parallel`), with ``--frame_chunk``, ``--param_dtype``
+and ``--multigrid``; only ``--model_parallel`` is refused, naming its ROADMAP
+item.
 ``--data synthetic`` is the only source ported so far; ``--tiny`` swaps in
 width-reduced backbones. ``--device`` (default ``cuda``) names the device the
 attack runs on; a CUDA run on a machine without a card stops, it never
@@ -34,12 +36,7 @@ DIRECTION_IMAGE_MODELS = ("resnet", "vgg", "alexnet", "squeezenet")
 UNPORTED_IMAGE_MODELS = ("densenet", "vit")
 # the JAX image CLI's runner flags, refused with the work item named
 UNPORTED_RUNNER_FLAGS = {
-    "sharded": "items 5 and 9 (the frame-chunked runner; multi-device)",
     "model_parallel": "item 9 (multi-device)",
-    "frame_chunk": "item 5 (the frame-chunked runner)",
-    "param_dtype": "item 5 (the frame-chunked runner's bf16 params)",
-    "multigrid": "item 9 (parallel/multigrid.py)",
-    "multigrid_scale": "item 9 (parallel/multigrid.py)",
 }
 WHITEBOX_METHODS = (
     "FGSM", "BIM", "MIFGSM", "DIFGSM", "TIFGSM", "TIFGSM3D", "SGM", "SIM",
@@ -130,23 +127,71 @@ def build_dataset(args):
     return ds, synthetic_mod.iterate_batches
 
 
-def build_image_guided_attack(args, device: torch.device):
-    """Dispatch an image-guided method (reference: image_main.py:66-80), and
-    AENS, which the reference defines but never wires to a CLI."""
+def check_runner_args(args) -> None:
+    """The JAX CLI's checks of ``--sharded`` and ``--multigrid``, with its
+    conditions and messages (``i2v_tpu/cli/common.py:199-226,246-251``)."""
     method = args.attack_method
     hw = 32 if args.tiny else data_shape(args)[1]
+    sharded = getattr(args, "sharded", False)
+    multigrid = getattr(args, "multigrid", 0) or 0
+    if multigrid and not sharded:
+        raise SystemExit("--multigrid runs through the sharded or model-parallel runners; "
+                         "add --sharded or --model_parallel N")
+    if multigrid and method == "AENS_I2V_MF":
+        raise SystemExit("--multigrid does not compose with AENS's adaptive coefficients "
+                         "(resolution-coupled signal)")
+    if multigrid and method == "ImageGuidedStd_Adam":
+        raise SystemExit("--multigrid supports the cosine-objective methods (I2V/ENS), not DR")
+    if multigrid and multigrid >= args.step:
+        raise SystemExit(f"--multigrid {multigrid} must be smaller than --step {args.step} "
+                         "(some steps must remain for the full-resolution phase)")
+    mg_scale = getattr(args, "multigrid_scale", 2)
+    if multigrid and (mg_scale < 2 or hw % mg_scale):
+        raise SystemExit(f"--multigrid_scale {mg_scale} must be >= 2 and divide the spatial "
+                         f"size ({hw})")
+    if sharded and method == "ImageGuidedStd_Adam":
+        raise SystemExit("--sharded supports the cosine-objective methods (I2V/ENS/AENS), "
+                         "not DR")
+
+
+def build_image_guided_attack(args, device: torch.device):
+    """Dispatch an image-guided method (reference: image_main.py:66-80), and
+    AENS, which the reference defines but never wires to a CLI. ``--sharded``
+    routes I2V, ENS-I2V and AENS through the frame-chunked runner instead of
+    the attack class."""
+    check_runner_args(args)
+    method = args.attack_method
+    hw = 32 if args.tiny else data_shape(args)[1]
+
+    def build(models, *, step_size, adaptive=False, momentum=0.0, coef_ce=False):
+        from ..parallel import ShardedImageGuidedAttack
+
+        return ShardedImageGuidedAttack(
+            models, steps=args.step, step_size=step_size, adaptive=adaptive,
+            aens_momentum=momentum, coef_ce=coef_ce, name=method,
+            frame_chunk=args.frame_chunk,
+            param_dtype=torch.bfloat16 if args.param_dtype == "bfloat16" else None,
+            multigrid=args.multigrid, multigrid_scale=args.multigrid_scale)
+
     if method in ("ImageGuidedStd_Adam", "ImageGuidedFMDirection_Adam"):
         models = get_image_models([args.direction_image_model], args.depth,
                                   device=device, tiny=args.tiny, input_hw=hw)
+        if args.sharded:
+            return build(models, step_size=args.step_size)
         return getattr(attacks, method)(models, step_size=args.step_size, steps=args.step)
     names = ["resnet", "vgg", "squeezenet", "alexnet"]
     if method == "ImageGuidedFML2_Adam_MultiModels":
         depths = {"resnet": 2, "vgg": 3, "squeezenet": 2, "alexnet": 3}
         models = get_image_models(names, depths, device=device, tiny=args.tiny, input_hw=hw)
+        if args.sharded:
+            return build(models, step_size=0.005)
         return attacks.ImageGuidedFML2_Adam_MultiModels(models, steps=args.step)
     if method == "AENS_I2V_MF":
         depths = {n: [2, 3] for n in names}
         models = get_image_models(names, depths, device=device, tiny=args.tiny, input_hw=hw)
+        if args.sharded:
+            return build(models, step_size=args.step_size, adaptive=True,
+                         momentum=args.aens_momentum, coef_ce=args.coef_CE)
         return attacks.AENS_I2V_MF(models, step_size=args.step_size,
                                    momentum=args.aens_momentum, coef_CE=args.coef_CE,
                                    steps=args.step)

@@ -9,6 +9,11 @@ CLI (``i2v_tpu.cli.image_main``) names for the same flags. All four methods
 of the JAX CLI: DR, I2V, ENS-I2V and AENS-I2V-MF (which the reference
 defines but never wires to a CLI). ``--fused_eval`` evaluates each attacked
 batch on the video models in the same process (:mod:`..eval.fused`).
+``--sharded`` runs I2V, ENS-I2V and AENS through the frame-chunked runner
+(:mod:`..parallel`), which fits AENS at the reference's B=16 on one card:
+
+    python -m i2v_tpu_torch.cli.image_main --attack_method AENS_I2V_MF \
+        --batch_size 16 --sharded --frame_chunk auto --device cuda
 """
 
 from __future__ import annotations
@@ -22,6 +27,16 @@ import torch
 
 from ..utils import artifacts, get_paths
 from . import common
+
+
+def _int_or_auto(s: str):
+    """argparse type of --frame_chunk: an int or the literal 'auto'."""
+    if s == "auto":
+        return s
+    try:
+        return int(s)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"expected an integer or 'auto', got {s!r}")
 
 
 def arg_parse(argv=None, kind: str = "Image", default_step: int = 60):
@@ -55,6 +70,24 @@ def arg_parse(argv=None, kind: str = "Image", default_step: int = 60):
                         "device and halves the device-to-host copy")
     p.add_argument("--no_artifacts", action="store_true",
                    help="with --fused_eval: write the reports only, no artifacts")
+    p.add_argument("--sharded", action="store_true",
+                   help="run I2V/ENS/AENS through the frame-chunked runner "
+                        "(parallel/sharded.py) instead of the attack class")
+    p.add_argument("--frame_chunk", type=_int_or_auto, default=None,
+                   help="with --sharded: accumulate the gradient over chunks of this many "
+                        "frames (exact: the objective is a sum of per-frame terms), so that "
+                        "one chunk's activations are alive at a time; 'auto' picks the chunk "
+                        "for the resolution (parallel/sharded.resolve_frame_chunk)")
+    p.add_argument("--param_dtype", default=None, choices=["bfloat16"],
+                   help="with --sharded: store the surrogates' weights in bf16 (the convs "
+                        "stay float32)")
+    p.add_argument("--multigrid", type=int, default=0, metavar="K",
+                   help="with --sharded (I2V/ENS only): run the first K of --step Adam steps "
+                        "on downsampled clips and warm-start the full-resolution phase from "
+                        "the upsampled modifier (parallel/multigrid.py); the trajectory "
+                        "differs from the reference's")
+    p.add_argument("--multigrid_scale", type=int, default=2,
+                   help="multigrid downsampling factor (must divide the spatial size)")
     common.add_unported_runner_args(p)
     common.add_data_args(p)
     args = p.parse_args(argv)

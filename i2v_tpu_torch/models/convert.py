@@ -15,6 +15,13 @@ comes from ``params["a"]["b"]["kernel"]`` and ``a.b.bias`` from
 
 ``fold_bn`` folds a BatchNorm into the preceding conv, as the JAX package's
 converter does, so that a torchvision state_dict can feed the port later.
+
+Runner state crosses too, both ways, exactly: the frame-batch modifier
+(``modifier_from_jax``/``modifier_to_jax``: the JAX runner's (B·T, H, W, 3)
+against the port's (B·T, 3, H, W)) and the Adam state
+(``adam_state_from_jax``/``adam_state_to_jax``: optax's ``(count int32, mu,
+nu)`` against torch Adam's ``(step float32, exp_avg, exp_avg_sq)``), so that
+a segment of one package's runner can seed the other's.
 """
 
 from __future__ import annotations
@@ -99,3 +106,29 @@ def from_jax_params(module: nn.Module, flax_params: Mapping) -> nn.Module:
     if unused:
         raise KeyError(f"Flax parameters with no port counterpart: {unused}")
     return module
+
+
+def modifier_from_jax(mod_nhwc) -> torch.Tensor:
+    """The JAX runner's (N, H, W, 3) modifier → the port's (N, 3, H, W)."""
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(np.asarray(mod_nhwc), (0, 3, 1, 2))))
+
+
+def modifier_to_jax(mod_nchw: torch.Tensor) -> np.ndarray:
+    """The port's (N, 3, H, W) modifier → the JAX runner's (N, H, W, 3)."""
+    return np.ascontiguousarray(mod_nchw.detach().cpu().numpy().transpose(0, 2, 3, 1))
+
+
+def adam_state_from_jax(count, mu, nu) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """optax's ``(count, mu, nu)`` → torch Adam's ``(step, exp_avg,
+    exp_avg_sq)``: the count as a float32 scalar (exact below 2**24), the
+    moments in the modifier's layout."""
+    return (torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+            modifier_from_jax(mu), modifier_from_jax(nu))
+
+
+def adam_state_to_jax(step, exp_avg: torch.Tensor,
+                      exp_avg_sq: torch.Tensor) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """torch Adam's ``(step, exp_avg, exp_avg_sq)`` → optax's ``(count int32,
+    mu, nu)``."""
+    return (np.asarray(int(torch.as_tensor(step)), dtype=np.int32),
+            modifier_to_jax(exp_avg), modifier_to_jax(exp_avg_sq))

@@ -162,17 +162,14 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--sharded"], "items 5 and 9"),
     (["--model_parallel", "2"], "item 9"),
-    (["--frame_chunk", "auto"], "item 5"),
-    (["--param_dtype", "bfloat16"], "item 5"),
-    (["--multigrid", "12"], "item 9"),
     (["--direction_image_model", "densenet"], "item 9"),
     (["--direction_image_model", "vit"], "item 9"),
 ])
 def test_cli_rejects_methods_not_ported_yet(tmp_path, monkeypatch, capsys, flags, item):
-    """The JAX image CLI's runner flags and its densenet/vit surrogates are
-    refused, naming the ROADMAP item; its four methods are all accepted."""
+    """The JAX image CLI's --model_parallel and its densenet/vit surrogates
+    are refused, naming the ROADMAP item; its four methods are all accepted,
+    and so are its other runner flags."""
     from i2v_tpu.cli import image_main as jimage_main
     from i2v_tpu_torch.cli import image_main
 
@@ -183,3 +180,8 @@ def test_cli_rejects_methods_not_ported_yet(tmp_path, monkeypatch, capsys, flags
     assert f"ROADMAP Queue 1, {item}" in capsys.readouterr().err
     for method in jimage_main.common.IMAGE_GUIDED_METHODS:
         assert image_main.arg_parse(["--attack_method", method]).attack_method == method
+    ported = ["--sharded", "--frame_chunk", "auto", "--param_dtype", "bfloat16", "--multigrid",
+              "12", "--multigrid_scale", "4"]
+    assert vars(image_main.arg_parse(ported)).items() >= {
+        "sharded": True, "frame_chunk": "auto", "param_dtype": "bfloat16", "multigrid": 12,
+        "multigrid_scale": 4}.items()

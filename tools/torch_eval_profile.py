@@ -35,6 +35,16 @@ ILAF on I3D-R50 at B=1, and one fused ENS-I2V + six-model evaluation batch at
 B=1. For each: a warm-up call, a timed call (steps/s or clips/s, peak device
 memory) and a traced call (device time by kernel class, idle share).
 
+    python tools/torch_eval_profile.py --attacks --frame_chunk 64,128,256,none \
+        [--out outputs/chunk_profile.json]
+
+profiles instead the frame-chunked runner (``image_main --sharded``) at the
+reference's B=16 in both precision modes, AENS-I2V-MF and then ENS-I2V, each
+at every chunk listed (an int, ``auto``, or ``none`` for no chunking), over
+3 steps a call: the chunk sweep behind ``AUTO_CHUNK_BYTES``
+(``i2v_tpu_torch/parallel/sharded.py``). A chunk that does not fit is
+recorded as such.
+
     python tools/torch_eval_profile.py --whitebox [--out outputs/whitebox_profile.json]
 
 profiles the white-box paths on full-width I3D-R50 with TF32 off, the same
@@ -102,6 +112,7 @@ ATTACK_CATEGORIES = (
 )
 ATTACK_STEPS = 10
 AENS_PEAK_BATCH = 16
+CHUNK_STEPS = 3
 WB_BATCH = 16              # the reference's white-box batch
 TT_STEPS, TT_PEAK_STEPS = 5, 2
 TRANSFORM_ITERS = 20
@@ -231,6 +242,35 @@ def attack_paths(tmp: str):
             ("ENS-I2V", 1, ATTACK_STEPS, ens),
             ("ILAF I3D-R50", 1, ATTACK_STEPS, ilaf),
             ("fused ENS-I2V + six models", 1, ATTACK_STEPS, fused)]
+
+
+def chunked_paths(chunks):
+    """``paths(tmp)`` of :func:`profile_attacks` for the frame-chunked runner:
+    AENS-I2V-MF, then ENS-I2V, at B=16 through the image CLI's dispatch with
+    ``--sharded --frame_chunk c`` for each ``c`` of ``chunks``."""
+    def paths(tmp: str):
+        import numpy as np
+
+        from i2v_tpu_torch.cli import image_main
+
+        os.environ["I2V_TPU_OPT_PATH"] = tmp
+        ds = SyntheticAttackDataset(n_samples=AENS_PEAK_BATCH)
+        clips = np.stack([ds[i][0] for i in range(AENS_PEAK_BATCH)])
+
+        def make(method, chunk):
+            flags = ["--attack_method", method, "--step", str(CHUNK_STEPS), "--step_size",
+                     "0.005", "--sharded"] + ([] if chunk == "none" else ["--frame_chunk", chunk])
+            atk = common.build_image_guided_attack(image_main.arg_parse(flags),
+                                                   torch.device("cuda"))
+            return lambda: atk(clips, list(range(AENS_PEAK_BATCH)))
+
+        return [(f"{label} --sharded --frame_chunk {c}", AENS_PEAK_BATCH, CHUNK_STEPS,
+                 lambda m=method, c=c: make(m, c))
+                for method, label in (("AENS_I2V_MF", "AENS-I2V-MF"),
+                                      ("ImageGuidedFML2_Adam_MultiModels", "ENS-I2V"))
+                for c in chunks]
+
+    return paths
 
 
 def whitebox_paths(tmp: str):
@@ -379,6 +419,9 @@ def main(argv=None) -> dict:
     p.add_argument("--attacks", action="store_true", help="profile the attack paths")
     p.add_argument("--whitebox", action="store_true",
                    help="profile the white-box paths and the new attacks' transforms")
+    p.add_argument("--frame_chunk", default=None, metavar="C,C,...",
+                   help="with --attacks: profile the frame-chunked runner at B=16 at each of "
+                        "these chunks (ints, 'auto', 'none') instead")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("torch_eval_profile: no CUDA device is available")
@@ -389,19 +432,18 @@ def main(argv=None) -> dict:
                           timeout=60).stdout.strip().splitlines()[0]
     print(card)
     result = {"card": card, "torch": torch.__version__, "batch": BATCH, "rows": []}
-    if args.attacks:
-        out = args.out or "outputs/attack_profile.json"
+    if args.attacks or args.whitebox:
         with tempfile.TemporaryDirectory() as tmp:
-            profile_attacks(result, tmp)
-        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
-        with open(out, "w") as f:
-            json.dump(result, f, indent=1)
-        return result
-    if args.whitebox:
-        out = args.out or "outputs/whitebox_profile.json"
-        time_transforms(result)
-        with tempfile.TemporaryDirectory() as tmp:
-            profile_attacks(result, tmp, whitebox_paths, ("float32",), "whitebox_rows")
+            if args.attacks and args.frame_chunk:
+                out = args.out or "outputs/chunk_profile.json"
+                profile_attacks(result, tmp, chunked_paths(args.frame_chunk.split(",")))
+            elif args.attacks:
+                out = args.out or "outputs/attack_profile.json"
+                profile_attacks(result, tmp)
+            else:
+                out = args.out or "outputs/whitebox_profile.json"
+                time_transforms(result)
+                profile_attacks(result, tmp, whitebox_paths, ("float32",), "whitebox_rows")
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         with open(out, "w") as f:
             json.dump(result, f, indent=1)
