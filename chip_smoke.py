@@ -70,12 +70,27 @@ raises and the script exits non-zero:
                  costs, K1/K2 at 112² and then at 224², outputs in the ε-ball
  24. runner parity — the tiny chunked AENS runner (momentum 0.5) on the card
                  and on the CPU: step-0 cost and gradient at a generic modifier
+ 25. real data  — real formats at full width: two seeded uint8 Kinetics
+                 sidecars (80x256x340) behind a manifest, and checkpoint files
+                 of the four whole-network surrogates and I3D-R50 written with
+                 to_jax_params + save_params. 20-step ENS-I2V at B=2 through
+                 image_main --data kinetics --u8_ingress --prefetch 1 with the
+                 surrogates loaded (no random-init warning, K1/K2 21/20, the
+                 card's uint8 ingest bit-identical to the float32 path, a
+                 3-step float32-ingest twin with the same step-0 cost); 10-step
+                 BIM on the loaded I3D-R50 (K3 20, -ori bit-identical to the
+                 host transform); cli.evaluate over the ENS clips (I3D-R50's
+                 logits those of its seed, bit for bit; five models warn); and,
+                 where Pillow writes JPEGs, cli.attack_ucf101 --data ucf101 over
+                 frame JPEGs. Host decode ms a clip, bytes and upload time a
+                 batch, uint8 against float32
 
 Phase 3 also holds K1/K2 to their plain versions at the chunked runner's
 shapes: a 512-frame call (B=16), a 128-frame chunk that starts 128 frames
 into a 512-frame modifier, and a 112² call (multigrid's coarse phase).
 Each path (slice, eval, whitebox, sf whitebox, aens, dr, fused, ilaf, wb
-family, tt, remat, ucf101, chunked aens, chunk equality, multigrid) is
+family, tt, remat, ucf101, chunked aens, chunk equality, multigrid, and real
+data's ENS, twin, BIM and UCF-101 runs) is
 driven with the launch counters set to 0 just before it and read just
 after.
 The line before the last is a JSON object with each kernel's launches over
@@ -1452,6 +1467,319 @@ def phase_runner_parity(image_main) -> None:
         raise RuntimeError("card and CPU disagree on the tiny chunked AENS runner")
 
 
+REAL_FRAMES = 80          # a decoded Kinetics sidecar: (80, 256, 340, 3) uint8, 20.9 MB
+REAL_CLIPS = ((3, -1), (11, 5))   # (label, clip_index): the window at the end, a seeded one
+REAL_STEPS = 20           # ENS-I2V at B=2 from the uint8 sidecars
+REAL_TWIN_STEPS = 3       # the float32-ingest twin
+REAL_FILE_SEED = 7        # the checkpoint files' weights; the CLIs draw their init from 0
+REAL_UCF_FRAMES = 33      # a UCF-101 clip of 240x320 frame JPEGs
+ENS_NAMES = ("resnet", "vgg", "squeezenet", "alexnet")
+
+
+def _write_checkpoints(ckpt_dir: str) -> dict:
+    """The four whole-network surrogates and I3D-R50, seeded, written through
+    ``to_jax_params`` + ``save_params``; returns {name: (file bytes, CPU
+    state dict)}."""
+    import warnings
+
+    from i2v_tpu_torch.models import get_image_models, get_video_model
+    from i2v_tpu_torch.models.convert import save_params, to_jax_params
+
+    out = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # these builds find no file yet, and say so
+        modules = [(b.name, b.module) for b in get_image_models(
+            ENS_NAMES, 2, device="cpu", truncate=False, seed=REAL_FILE_SEED)]
+        modules.append(("i3d_resnet50", get_video_model("i3d_resnet50", device="cpu",
+                                                        seed=REAL_FILE_SEED).module))
+    for name, module in modules:
+        path = save_params(to_jax_params(module), name, ckpt_dir)
+        out[name] = (os.path.getsize(path), module.state_dict())
+    return out
+
+
+def _recorded(fn):
+    """``fn()`` and the texts of the warnings it gave."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as record:
+        warnings.simplefilter("always")
+        out = fn()
+    return out, [str(w.message) for w in record]
+
+
+def _h2d_ms(host: np.ndarray, iters: int = 10) -> float:
+    """A pinned, non-blocking upload of ``host``, timed with CUDA events."""
+    pinned = torch.from_numpy(host).pin_memory()
+    pinned.to("cuda", non_blocking=True)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        pinned.to("cuda", non_blocking=True)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_real_data(kernels, image_main, attack_cli, attack_ucf101, evaluate_cli, pixel,
+                    card: str, tmp: str) -> dict:
+    """Real-format clips and checkpoint files through the CLIs at full width:
+    ENS-I2V from uint8 Kinetics sidecars with --u8_ingress --prefetch 1 and
+    loaded surrogates, its float32-ingest twin, BIM on the loaded I3D-R50,
+    cli.evaluate over the ENS clips, and cli.attack_ucf101 over frame JPEGs
+    where Pillow can write them. Returns the launch counts of its paths."""
+    import shutil
+
+    from i2v_tpu_torch.data import decode, kinetics, native, pipeline, transforms, ucf101
+    from i2v_tpu_torch.models import get_video_model
+    from i2v_tpu_torch.utils import artifacts
+
+    t0 = time.time()
+    root = os.path.join(tmp, "real")
+    data, ckpts, empty = (os.path.join(root, d) for d in ("kinetics", "ckpts", "empty"))
+    for d in (data, ckpts, empty):
+        os.makedirs(d)
+    frames, rows = {}, ["path,gt_label,clip_index"]
+    for i, (label, clip_index) in enumerate(REAL_CLIPS):
+        frames[label] = np.random.RandomState(100 + i).randint(
+            0, 256, (REAL_FRAMES, 256, 340, 3), dtype=np.uint8)
+        np.save(os.path.join(data, f"clip{label}.npy"), frames[label])
+        rows.append(f"clip{label}.npy,{label},{clip_index}")
+    anno = os.path.join(data, "anno.csv")
+    with open(anno, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    env = {"I2V_TPU_KINETICS_ANNO": anno, "I2V_TPU_KINETICS_DATA": data,
+           "I2V_TPU_CKPTS": ckpts}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    totals = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
+    try:
+        # -- decode backends and the host half of ingest
+        backend = decode.backend()
+        print(f"[real data] decode backend for video files: {backend}; the native "
+              "FFmpeg/libjpeg library " + (
+                  "is built" if native.available() else
+                  "is not built on this machine (its g++ log is above), so no AVI is decoded "
+                  "here: tests/test_torch_data.py holds native decode of avi_synth AVIs to the "
+                  "JAX package's on the CPU"))
+        if native.available():
+            from PIL import Image
+
+            from i2v_tpu_torch.data.avi_synth import write_mjpeg_avi
+
+            avi = os.path.join(root, "clip.avi")
+            write_mjpeg_avi(avi, [Image.fromarray(f) for f in frames[3][:8]])
+            via_native = native.decode_video(avi)
+            np.save(avi + ".side.npy", via_native)
+            if not np.array_equal(decode.decode_video(avi), np.load(avi + ".side.npy")):
+                raise RuntimeError("the native decode of an MJPEG AVI is not its own sidecar")
+            print(f"[real data] MJPEG AVI of 8 frames decoded natively to {via_native.shape}, "
+                  "equal to its sidecar")
+        ds = {mode: kinetics.KineticsAttackDataset(anno, data, raw_uint8=mode == "uint8")
+              for mode in ("float32", "uint8")}
+        host_ms = {}
+        for mode, d in ds.items():
+            t = time.perf_counter()
+            for _ in range(3):
+                items = [d[i] for i in range(len(d))]
+            host_ms[mode] = (time.perf_counter() - t) * 1e3 / (3 * len(d))
+        batch = {mode: next(kinetics.iterate_batches(d, len(REAL_CLIPS)))
+                 for mode, d in ds.items()}
+        via_f32 = pixel.unnormalize(torch.from_numpy(batch["float32"]["clips"]).cuda(), 1)
+        via_u8 = pixel.ingest_u8_clips(batch["uint8"]["clips"], "cuda")
+        prefetched = next(pipeline.device_prefetch(iter([batch["uint8"]]), "cuda", 1))
+        via_pf = pixel.ingest_u8_clips(prefetched["clips"])
+        if not (torch.equal(via_u8, via_f32) and torch.equal(via_pf, via_f32)):
+            raise RuntimeError("uint8 ingest on the card is not the float32 path's clean clip: "
+                               f"max |diff| {float((via_u8 - via_f32).abs().max())}")
+        nbytes = {m: b["clips"].nbytes for m, b in batch.items()}
+        upload = {m: _h2d_ms(b["clips"]) for m, b in batch.items()}
+        del via_f32, via_u8, via_pf, prefetched, items
+        print(f"[real data] {card}: host decode + transform of a (80,256,340,3) sidecar to "
+              f"32x224^2: {host_ms['float32']:.2f} ms a clip normalized on the host, "
+              f"{host_ms['uint8']:.2f} ms a clip kept uint8; host-to-device bytes a batch of "
+              f"{len(REAL_CLIPS)}: uint8 {nbytes['uint8'] / 1e6:.2f} MB, float32 "
+              f"{nbytes['float32'] / 1e6:.2f} MB; pinned upload {upload['uint8']:.3f} ms "
+              f"against {upload['float32']:.3f} ms; uint8 ingest on the card (direct and "
+              "through device_prefetch) bit-identical to the float32 path's clean clip")
+
+        # -- checkpoint files from seed REAL_FILE_SEED
+        t = time.time()
+        files = _write_checkpoints(ckpts)
+        print(f"[real data] checkpoint files written with to_jax_params + save_params in "
+              f"{time.time() - t:.2f} s: " + ", ".join(
+                  f"{n} {size / 1e6:.1f} MB" for n, (size, _) in files.items()))
+
+        # -- generate: ENS-I2V from uint8 sidecars, the surrogates from their files
+        argv = ["--attack_method", "ImageGuidedFML2_Adam_MultiModels", "--data", "kinetics",
+                "--batch_size", str(len(REAL_CLIPS)), "--device", "cuda",
+                "--matmul_precision", "float32"]
+        args = image_main.arg_parse(argv + ["--u8_ingress", "--prefetch", "1", "--step",
+                                            str(REAL_STEPS), "--file_prefix", "real"])
+        build, seen = image_main.common.build_image_guided_attack, {}
+
+        def capture(*a, **k):  # the attack the CLI builds, to read its surrogates
+            seen["attack"] = build(*a, **k)
+            return seen["attack"]
+
+        image_main.common.build_image_guided_attack = capture
+        try:
+            (_, counts, peak), msgs = _recorded(lambda: _run_counted(
+                kernels, "real ENS", _want(1, REAL_STEPS), lambda: image_main.run(args)))
+        finally:
+            image_main.common.build_image_guided_attack = build
+        if any("random init" in m for m in msgs):
+            raise RuntimeError(f"a surrogate did not load its file: {msgs}")
+        for b in seen["attack"].models:
+            want = files[b.name][1]
+            for k, v in b.module.state_dict().items():
+                if not torch.equal(v.cpu(), want[k]):
+                    raise RuntimeError(f"{b.name}.{k} is not the file's weight")
+        costs = _costs(args.adv_path)
+        _descends("real ENS", costs, len(REAL_CLIPS), REAL_STEPS)
+        for k in totals:
+            totals[k] += counts[k]
+        twin = image_main.arg_parse(argv + ["--step", str(REAL_TWIN_STEPS),
+                                            "--file_prefix", "real-f32"])
+        _, twin_counts, _ = _run_counted(kernels, "real ENS twin", _want(1, REAL_TWIN_STEPS),
+                                         lambda: image_main.run(twin))
+        twin_costs = _costs(twin.adv_path)
+        rel = max(abs(float(twin_costs[v][0]) / float(c[0]) - 1) for v, c in costs.items())
+        if rel > ENS_COST_RTOL:
+            raise RuntimeError(f"step-0 costs of the uint8 and float32 runs differ by {rel:.3g}")
+        for k in totals:
+            totals[k] += twin_counts[k]
+        for label, _ in REAL_CLIPS:
+            adv = np.load(os.path.join(args.adv_path, f"{label}-adv.npy"))
+            if adv.shape != (3, 32, 224, 224) or not np.isfinite(adv).all():
+                raise RuntimeError(f"{label}-adv.npy: {adv.dtype} {adv.shape}")
+        tp = args.throughput
+        print(f"[real data] {card}: ENS-I2V from 2 uint8 Kinetics sidecars (--u8_ingress "
+              f"--prefetch 1, B=2), the four surrogates loaded from their files, {REAL_STEPS} "
+              f"steps, TF32 off: {REAL_STEPS / tp['last_call_s']:.3f} steps/s "
+              f"({tp['last_call_s']:.3f} s for the batch, warm-up included); peak "
+              f"{peak:.2f} GiB; launches {counts}; no random-init warning; costs "
+              + "; ".join(f"{v}: {c[0]:.4f} -> {c[-1]:.4f}" for v, c in costs.items())
+              + f"; float32-ingest twin ({REAL_TWIN_STEPS} steps after the warm-up: "
+              f"{REAL_TWIN_STEPS / twin.throughput['last_call_s']:.3f} steps/s, launches "
+              f"{twin_counts}): step-0 cost relative difference {rel:.3g} "
+              f"(limit {ENS_COST_RTOL})")
+
+        # -- attack: BIM on the loaded I3D-R50
+        wb = attack_cli.arg_parse(["--model", "i3d_resnet50", "--attack_method", "BIM",
+                                   "--step", str(WB_STEPS), "--data", "kinetics",
+                                   "--u8_ingress", "--prefetch", "1", "--batch_size", "1",
+                                   "--device", "cuda", "--matmul_precision", "float32",
+                                   "--file_prefix", "real"])
+        (_, wb_counts, wb_peak), msgs = _recorded(lambda: _run_counted(
+            kernels, "real BIM", _wb_want(len(REAL_CLIPS), WB_STEPS),
+            lambda: attack_cli.run(wb)))
+        if any("random init" in m for m in msgs):
+            raise RuntimeError(f"I3D-R50 did not load its file: {msgs}")
+        ce = _loss_costs(wb)
+        _rises("real BIM", ce, len(REAL_CLIPS), WB_STEPS)
+        for label, clip_index in REAL_CLIPS:
+            idx = transforms.kinetics_clip_indices(REAL_FRAMES, clip_index, 32)
+            want = transforms.kinetics_val_transform(frames[label][idx])
+            if not np.array_equal(np.load(os.path.join(wb.adv_path, f"{label}-ori.npy")), want):
+                raise RuntimeError(f"{label}-ori.npy is not the host transform of its sidecar")
+        for k in totals:
+            totals[k] += wb_counts[k]
+        wtp = wb.throughput
+        print(f"[real data] {card}: BIM on the loaded I3D-R50, 2 uint8 Kinetics clips at B=1 "
+              f"through --prefetch 1, {WB_STEPS} steps, TF32 off: "
+              f"{WB_STEPS / wtp['last_call_s']:.3f} steps/s for the last clip; peak "
+              f"{wb_peak:.2f} GiB; launches {wb_counts}; CE "
+              + "; ".join(f"{v}: {c[0]:.4f} -> {c[-1]:.4f}" for v, c in ce.items())
+              + "; each -ori.npy bit-identical to the host transform of its sidecar")
+
+        # -- evaluate: I3D-R50 from its file, the other five at random init
+        ev = evaluate_cli.arg_parse(["--adv_path", args.adv_path, "--device", "cuda",
+                                     "--matmul_precision", "float32"])
+        acc, msgs = _recorded(lambda: evaluate_cli.run(ev))
+        warned = sorted(m.split("'")[1] for m in msgs if m.startswith("no converted checkpoint"))
+        others = sorted(set(acc) - {"i3d_resnet50"})
+        if warned != others or len(others) != 5:
+            raise RuntimeError(f"evaluate: random-init warnings for {warned}, expected {others}")
+        files_adv = artifacts.list_adv_files(args.adv_path)
+        clips, labels = artifacts.load_adv_batch(args.adv_path, files_adv)
+        x = torch.from_numpy(clips).cuda()
+        loaded = get_video_model("i3d_resnet50", device="cuda")
+        os.environ["I2V_TPU_CKPTS"] = empty
+        (direct, _) = _recorded(lambda: get_video_model("i3d_resnet50", device="cuda",
+                                                        seed=REAL_FILE_SEED))
+        with torch.no_grad():
+            logits, want_logits = loaded.apply_norm(x), direct.apply_norm(x)
+        if not torch.equal(logits, want_logits):
+            raise RuntimeError("the loaded I3D-R50's logits are not those of the seed it was "
+                               f"saved from: max |diff| {float((logits - want_logits).abs().max())}")
+        with open(os.path.join(args.adv_path, "results_all_models_prediction.csv")) as f:
+            table = [r.split(",") for r in f.read().split("\n")]
+        col = table[0].index("i3d_resnet50-pre")
+        argmax = logits.argmax(-1).cpu().tolist()
+        got = [int(table[1 + int(lab)][col]) for lab in labels]
+        if got != argmax:
+            raise RuntimeError(f"the CSV's I3D-R50 column {got} is not the logits' argmax {argmax}")
+        del loaded, direct, x
+        print(f"[real data] cli.evaluate over the ENS clips: I3D-R50 loaded its file (its logits "
+              f"bit-identical to a seed-{REAL_FILE_SEED} I3D-R50 built on this card, CSV column "
+              f"{got} = their argmax); {', '.join(warned)} warned of random init; top-1 {acc}")
+
+        # -- UCF-101 frame JPEGs, where Pillow can write them
+        try:
+            from PIL import Image
+        except ImportError:
+            Image = None
+            print("[real data] Pillow is not installed here: no frame JPEGs are written and "
+                  "cli.attack_ucf101 --data ucf101 does not run (tests/test_torch_attack_cli.py "
+                  "covers it on the CPU)")
+        if Image is not None:
+            clip_dir = os.path.join(root, "ucf", "v_Smoke_g01_c01")
+            os.makedirs(clip_dir)
+            rng = np.random.RandomState(200)
+            for i in range(1, REAL_UCF_FRAMES + 1):
+                Image.fromarray(rng.randint(0, 256, (240, 320, 3), dtype=np.uint8)).save(
+                    os.path.join(clip_dir, f"image_{i:05d}.jpg"))
+            setting = os.path.join(root, "ucf", "setting.txt")
+            with open(setting, "w") as f:
+                f.write(f"v_Smoke_g01_c01 {REAL_UCF_FRAMES} 42\n")
+            os.environ.update({"I2V_TPU_UCF_SETTING": setting,
+                               "I2V_TPU_UCF_IMAGE_ROOT": os.path.dirname(clip_dir),
+                               "I2V_TPU_UCF_USED_IDXS": os.path.join(root, "absent.pkl")})
+            try:
+                ucf_argv = _wb_argv("BIM", 1, UCF_STEPS)
+                ucf_argv[ucf_argv.index("synthetic")] = "ucf101"
+                ucf_dir, ucf_counts, ucf_peak = _run_counted(
+                    kernels, "real ucf101", _wb_want(1, UCF_STEPS),
+                    lambda: attack_ucf101.main(ucf_argv + ["--u8_ingress", "--file_prefix",
+                                                           "real"]))
+            finally:
+                for k in ("I2V_TPU_UCF_SETTING", "I2V_TPU_UCF_IMAGE_ROOT",
+                          "I2V_TPU_UCF_USED_IDXS"):
+                    os.environ.pop(k)
+            want = ucf101.UCF101AttackDataset(setting, os.path.dirname(clip_dir))[0][0]
+            if not np.array_equal(np.load(os.path.join(ucf_dir, "42-ori.npy")), want):
+                raise RuntimeError("the UCF-101 -ori.npy is not the host transform of its JPEGs")
+            for k in totals:
+                totals[k] += ucf_counts[k]
+            print(f"[real data] cli.attack_ucf101 --data ucf101 --u8_ingress over "
+                  f"{REAL_UCF_FRAMES} Pillow-written 240x320 frame JPEGs (decoded by "
+                  f"{'the native library' if native.available() else 'Pillow'}): "
+                  f"{UCF_STEPS} BIM steps on the 101-class I3D-R50, peak {ucf_peak:.2f} GiB, "
+                  f"launches {ucf_counts}; -ori.npy bit-identical to the host transform")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(ckpts, ignore_errors=True)
+    print(f"[real data] launches over the phase's paths {totals}; phase wall "
+          f"{time.time() - t0:.2f} s")
+    return totals
+
+
 def main() -> None:
     name, card = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1509,6 +1837,10 @@ def main() -> None:
             for k in counts:
                 counts[k] += path_counts[k]
         phase_runner_parity(image_main)
+        real = phase_real_data(kernels, image_main, attack_cli, attack_ucf101, evaluate_cli,
+                               pixel, card, tmp)
+        for k in counts:
+            counts[k] += real[k]
     print(f"[done] every phase passed in {time.time() - t0:.2f} s after the device check")
 
     where = {"rebuild_fwd": ("i2v_tpu_torch/csrc/rebuild_adv.cu",

@@ -240,8 +240,12 @@ class Attack:
         raise NotImplementedError
 
     def _clean01(self, videos) -> torch.Tensor:
-        """A normalized-domain clip batch (array or tensor) → [0,1] float32
-        on ``self.device``."""
+        """A normalized-domain clip batch (array or tensor), or a raw uint8
+        (B,T,H,W,3) one (``--u8_ingress``, normalized on the device and
+        bit-identical to the float32 path), → [0,1] float32 on
+        ``self.device``."""
+        if pixel.is_u8_clips(videos):
+            return pixel.ingest_u8_clips(videos, self.device)
         if not isinstance(videos, torch.Tensor):
             videos = torch.from_numpy(np.array(videos, dtype=np.float32))
         return pixel.unnormalize(videos.to(self.device, torch.float32), channel_axis=1)

@@ -22,8 +22,8 @@ from . import common
 
 def arg_parse(argv=None, ucf101: bool = False):
     """The JAX CLI's flags and defaults; ``ucf101`` names the run directory
-    ``UCF101_Video_{model}-…`` and selects the 101-class heads, as
-    ``i2v_tpu.cli.attack_ucf101`` does."""
+    ``UCF101_Video_{model}-…``, selects the 101-class heads and reads
+    ``--data kinetics`` as ``ucf101``, as ``i2v_tpu.cli.attack_ucf101`` does."""
     p = argparse.ArgumentParser(
         description=f"white-box video attack ({'UCF-101' if ucf101 else 'Kinetics-400'})")
     p.add_argument("--model", default="i3d_resnet50",
@@ -63,6 +63,8 @@ def arg_parse(argv=None, ucf101: bool = False):
     common.add_data_args(p)
     args = p.parse_args(argv)
     args.ucf101 = ucf101
+    if ucf101 and args.data == "kinetics":
+        args.data = "ucf101"
     args.adv_path = os.path.join(
         get_paths().opt_path,
         artifacts.run_dir_name(f"UCF101_Video_{args.model}" if ucf101 else args.model,
@@ -96,7 +98,8 @@ def run(args) -> str:
     timer = StepTimer(steps_per_call=attack.steps, clips_per_call=args.batch_size,
                       device=device)
     with trace(args.profile):
-        for step, batch in enumerate(iterate(dataset, args.batch_size)):
+        for step, batch in enumerate(
+                common.batch_iterator(args, dataset, iterate, keep_host=True)):
             if all(int(label) in done for label in batch["labels"]):
                 continue
             print(f"Running {args.attack_method}, {step + 1}")

@@ -5,8 +5,7 @@
 Same flow and flags as :mod:`.attack`, with the fine-tuned models'
 101-class heads at full width and the ``UCF101_Video_{model}-…`` run
 directory (reference: attack_ucf101.py:56-59,74-79), the JAX CLI's.
-``--data`` is ``synthetic`` only until the data layer is ported (ROADMAP
-Queue 1, item 8).
+``--data kinetics`` reads the UCF-101 frame JPEGs, as ``--data ucf101``.
 """
 
 from __future__ import annotations

@@ -6,24 +6,32 @@ I2V / ENS-I2V / AENS-I2V-MF through the frame-chunked single-device runner
 (:mod:`i2v_tpu_torch.parallel`), with ``--frame_chunk``, ``--param_dtype``
 and ``--multigrid``; only ``--model_parallel`` is refused, naming its ROADMAP
 item.
-``--data synthetic`` is the only source ported so far; ``--tiny`` swaps in
-width-reduced backbones. ``--device`` (default ``cuda``) names the device the
-attack runs on; a CUDA run on a machine without a card stops, it never
-continues on the CPU.
+``--data`` reads Kinetics-400 clips, UCF-101 frame JPEGs or synthetic clips
+(the dataset-free smoke path); ``--u8_ingress`` ships the decoded uint8
+frames and normalizes them on the device, and ``--prefetch N`` decodes and
+uploads N batches ahead of the attack. ``--tiny`` swaps in width-reduced
+backbones. ``--device`` (default ``cuda``) names the device the attack runs
+on; a CUDA run on a machine without a card stops, it never continues on the
+CPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from .. import attacks
+from ..data import kinetics as kinetics_mod
 from ..data import synthetic as synthetic_mod
+from ..data import transforms as transforms_mod
+from ..data import ucf101 as ucf101_mod
 from ..models import get_image_models
-from ..utils import artifacts
+from ..ops import pixel
+from ..utils import artifacts, get_paths
 
 IMAGE_GUIDED_METHODS = (
     "ImageGuidedStd_Adam",
@@ -69,7 +77,7 @@ def refuse_unported_runner_args(p: argparse.ArgumentParser, args) -> None:
 
 
 def add_data_args(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--data", default="synthetic", choices=["synthetic"],
+    p.add_argument("--data", default="synthetic", choices=["kinetics", "ucf101", "synthetic"],
                    help="data source (synthetic = dataset-free smoke path)")
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--n_synthetic", type=int, default=4)
@@ -79,6 +87,15 @@ def add_data_args(p: argparse.ArgumentParser) -> None:
                    help="spatial size (default 224; 32 for --tiny synthetic)")
     p.add_argument("--tiny", action="store_true",
                    help="width-reduced backbones (checkpoint-free runs)")
+    p.add_argument("--u8_ingress", action="store_true",
+                   help="ship decoded uint8 frames to the device and normalize there "
+                        "(4x less host->device traffic; bit-identical numerics)")
+    p.add_argument("--prefetch", type=int, default=0, metavar="DEPTH",
+                   help="decode + upload the next DEPTH batches in a background thread "
+                        "while the current batch attacks (data/pipeline.py); hides decode "
+                        "and host->device ingest behind attack compute. Each prefetched "
+                        "batch holds device memory (B=16 f32 is ~308 MB; 77 MB with "
+                        "--u8_ingress), so keep DEPTH small")
     p.add_argument("--matmul_precision", default=None,
                    choices=["default", "high", "float32"],
                    help="float32 convs and matmuls on the card: 'float32' turns "
@@ -121,10 +138,40 @@ def apply_matmul_precision(args) -> str:
 
 def build_dataset(args):
     """→ (dataset, iterate_batches) for the chosen source."""
+    paths = get_paths()
     clip_len, crop = data_shape(args)
-    ds = synthetic_mod.SyntheticAttackDataset(n_samples=args.n_synthetic,
-                                              clip_len=clip_len, size=crop)
+    u8 = args.u8_ingress
+    if args.data == "kinetics":
+        ds = kinetics_mod.KineticsAttackDataset(paths.kinetics_anno, paths.kinetics_data,
+                                                clip_len=clip_len, crop_size=crop,
+                                                raw_uint8=u8)
+        return ds, kinetics_mod.iterate_batches
+    if args.data == "ucf101":
+        used = (ucf101_mod.load_used_idxs(paths.ucf_used_idxs)
+                if os.path.exists(paths.ucf_used_idxs) else None)
+        ds = ucf101_mod.UCF101AttackDataset(paths.ucf_setting, paths.ucf_image_root,
+                                            used_idxs=used, clip_len=clip_len,
+                                            crop_size=crop, raw_uint8=u8)
+        return ds, ucf101_mod.iterate_batches
+    ds = synthetic_mod.SyntheticAttackDataset(n_samples=args.n_synthetic, clip_len=clip_len,
+                                              size=crop, raw_uint8=u8)
     return ds, synthetic_mod.iterate_batches
+
+
+def batch_iterator(args, dataset, iterate, left: int = 0, right=None,
+                   keep_host: bool = False):
+    """The CLI's batch stream: in the loop's thread by default; with
+    ``--prefetch N`` a decode thread and early uploads to ``args.device`` run
+    N batches ahead of the attack (``data.pipeline.make_input_pipeline``).
+    ``keep_host`` keeps the host clips under ``clips_host`` for the writers
+    of ``-ori`` artifacts."""
+    if args.prefetch <= 0:
+        return iterate(dataset, args.batch_size, left, right)
+    from ..data.pipeline import make_input_pipeline
+
+    return make_input_pipeline(dataset, args.batch_size, iterate, left=left, right=right,
+                               device=resolve_device(args), prefetch_depth=args.prefetch,
+                               keep_host=keep_host)
 
 
 def check_runner_args(args) -> None:
@@ -279,10 +326,25 @@ def resume_subset(dataset, done: set):
     return None if len(keep) == len(samples) else _ResumeSubsetView(dataset, keep)
 
 
+def loss_shard_index(args) -> int:
+    """``loss_info_{N}.json``'s shard id: ``--batch_index`` (the reference's
+    per-shard loss_info files, image_main.py:94). The JAX CLI's process
+    index under a multi-process launch waits for the port's multi-device
+    runner."""
+    return args.batch_index
+
+
 def save_attack_outputs(run_dir, batch, adv: torch.Tensor, save_ori: bool = False,
                         dtype=np.float32) -> None:
     """``{label}-adv.npy`` for each clip of the batch and, with ``save_ori``,
-    the clean clip as ``{label}-ori.npy`` (the white-box protocol)."""
-    ori = np.asarray(batch["clips"]) if save_ori else None
+    the clean clip as ``{label}-ori.npy`` (the white-box protocol). The clean
+    clips come from the host copy a prefetched batch keeps
+    (``clips_host``); uint8 (B,T,H,W,3) clips are normalized on the host
+    into the artifacts' float32 (B,3,T,H,W)."""
+    ori = None
+    if save_ori:
+        ori = np.asarray(batch.get("clips_host", batch["clips"]))
+        if pixel.is_u8_clips(ori):
+            ori = np.stack([transforms_mod.u8_clip_to_normalized(c) for c in ori])
     artifacts.save_batch(run_dir, batch["labels"], adv.detach().cpu().numpy(),
                          ori_batch=ori, dtype=dtype)

@@ -119,14 +119,15 @@ def run(args, get_bundle=None) -> str:
     dtype = np.float16 if args.artifact_dtype == "float16" else np.float32
     timer = StepTimer(steps_per_call=args.step, clips_per_call=args.batch_size, device=device)
     with trace(args.profile):
-        for step, batch in enumerate(iterate(dataset, args.batch_size, left, right)):
+        for step, batch in enumerate(
+                common.batch_iterator(args, dataset, iterate, left, right)):
             print(f"Running {args.attack_method}, {step + 1}")
             with timer(clips=len(batch["labels"])):
                 out = attack(batch["clips"], batch["labels"], batch["names"])
             adv = out[0] if isinstance(out, tuple) else out  # AENS's triple
             common.save_attack_outputs(args.adv_path, batch, adv, dtype=dtype)
     # one loss_info_{batch_index}.json per shard (reference: image_main.py:94)
-    artifacts.save_loss_info(args.adv_path, attack.loss_info, args.batch_index)
+    artifacts.save_loss_info(args.adv_path, attack.loss_info, common.loss_shard_index(args))
     args.throughput = timer.summary()
     print(f"[summary] {args.throughput}")
     return args.adv_path
@@ -161,15 +162,17 @@ def _run_fused(args, device, dataset, iterate, attack, left, right, get_bundle) 
     t0 = time.perf_counter()
     n_clips = 0
     with trace(args.profile):
-        for step, batch in enumerate(iterate(dataset, args.batch_size, left, right)):
+        for step, batch in enumerate(
+                common.batch_iterator(args, dataset, iterate, left, right)):
             print(f"Running fused {args.attack_method}+eval, {step + 1}")
             fused.process_batch(batch)
             n_clips += len(batch["labels"])
         # finalize drains the artifact writer: its files are part of the run
         acc = fused.finalize(report_dir=args.adv_path,
-                             shard=args.batch_index if args.batch_nums > 1 else None)
+                             shard=common.loss_shard_index(args) if args.batch_nums > 1
+                             else None)
     dt = time.perf_counter() - t0
-    artifacts.save_loss_info(args.adv_path, attack.loss_info, args.batch_index)
+    artifacts.save_loss_info(args.adv_path, attack.loss_info, common.loss_shard_index(args))
     args.throughput = {"clips": n_clips, "elapsed_s": dt, "clips_per_sec": n_clips / dt}
     print(f"[summary] fused gen+eval: {n_clips / dt:.3f} clips/s "
           f"({n_clips} clips, {len(names)} eval models, {dt:.1f}s)")

@@ -5,8 +5,7 @@
 Same flow as :mod:`.image_main`, with the ``UCF101_Image-…`` run-directory
 prefix, 10 steps by default, and, under ``--fused_eval``, the video models'
 101-class heads and 101 report rows (reference: image_main_ucf101.py:53-91).
-``--data`` is ``synthetic`` only until the data layer is ported (ROADMAP
-Queue 1, item 8).
+``--data kinetics`` reads the UCF-101 frame JPEGs, as ``--data ucf101``.
 """
 
 from __future__ import annotations
@@ -15,7 +14,10 @@ from . import image_main
 
 
 def main(argv=None) -> str:
-    return image_main.run(image_main.arg_parse(argv, kind="UCF101_Image", default_step=10))
+    args = image_main.arg_parse(argv, kind="UCF101_Image", default_step=10)
+    if args.data == "kinetics":
+        args.data = "ucf101"
+    return image_main.run(args)
 
 
 if __name__ == "__main__":

@@ -1,21 +1,26 @@
-"""Host→device prefetch thread.
+"""Host→device prefetch pipeline.
 
-PyTorch counterpart of ``i2v_tpu.data.pipeline.threaded_prefetch``: a worker
-thread runs a batch iterator ahead of the consumer through a bounded queue,
-so that reading the next batch from disk (and its upload, when the iterator
-issues one) overlaps the consumer's device work.
+PyTorch counterpart of :mod:`i2v_tpu.data.pipeline`. The reference leans on 9
+DataLoader fork-workers (datasets.py:272-274); here a worker thread decodes
+ahead of the device through a bounded queue (:func:`threaded_prefetch`), and
+:func:`device_prefetch` starts each batch's upload early, from pinned memory
+on a side stream, so that decode and the host-to-device copy overlap the
+attack.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Iterator
+from typing import Callable, Iterator, Optional
+
+import numpy as np
+import torch
 
 
-def threaded_prefetch(make_iter: Callable[[], Iterator]) -> Iterator:
-    """Run ``make_iter()`` in a worker thread, at most one item ahead of the
-    consumer (a B=16 evaluation batch is 308 MB, on the device once
+def threaded_prefetch(make_iter: Callable[[], Iterator], depth: int = 1) -> Iterator:
+    """Run ``make_iter()`` in a worker thread, at most ``depth`` items ahead
+    of the consumer (a B=16 evaluation batch is 308 MB, on the device once
     uploaded).
 
     An exception in the worker is raised again in the consumer. The worker's
@@ -23,7 +28,7 @@ def threaded_prefetch(make_iter: Callable[[], Iterator]) -> Iterator:
     its loop, a ``break``) lets the thread exit instead of pinning a batch
     for the life of the process: the generator's ``finally`` (run on close
     or garbage collection) sets it."""
-    q: queue.Queue = queue.Queue(maxsize=1)
+    q: queue.Queue = queue.Queue(maxsize=depth)
     done = object()
     err: list[BaseException] = []
     stop = threading.Event()
@@ -59,3 +64,82 @@ def threaded_prefetch(make_iter: Callable[[], Iterator]) -> Iterator:
             yield item
     finally:
         stop.set()
+
+
+class _Upload:
+    """One batch's clips on their way to the device: pinned host memory,
+    copied without blocking on a side stream. The pinned tensor is held
+    until the consumer takes the batch; after that the caching host
+    allocator keeps its block from reuse until the copy's recorded event
+    has passed."""
+
+    def __init__(self, clips: np.ndarray, device: torch.device,
+                 stream: Optional["torch.cuda.Stream"]):
+        host = torch.from_numpy(np.ascontiguousarray(clips))
+        self.stream = stream
+        if stream is None:
+            self.clips = host.to(device)
+            return
+        self.host = host.pin_memory()
+        with torch.cuda.stream(stream):
+            self.clips = self.host.to(device, non_blocking=True)
+            # this copy's own event: waiting on the whole side stream would
+            # also wait for the later batches' copies queued behind it
+            self.copied = torch.cuda.Event()
+            self.copied.record(stream)
+
+    def take(self) -> torch.Tensor:
+        """The device clips, ordered after the copy on the consumer's stream."""
+        if self.stream is not None:
+            consumer = torch.cuda.current_stream(self.clips.device)
+            consumer.wait_event(self.copied)
+            # the clips were allocated on the side stream: tell the caching
+            # allocator that the consumer's stream uses them too
+            self.clips.record_stream(consumer)
+            self.host = None
+        return self.clips
+
+
+def device_prefetch(batches: Iterator[dict], device: torch.device | str, depth: int = 2,
+                    keep_host: bool = False) -> Iterator[dict]:
+    """Move 'clips' to ``device`` ahead of consumption.
+
+    At most ``depth`` batches are resident beyond the one handed to the
+    consumer (depth=2: double-buffered ahead of the batch in use; a B=16 f32
+    clip batch is 308 MB of device memory, 77 MB in uint8, so an off-by-one
+    here is real memory). 'labels' stay on the host: the consumers name
+    artifacts and report rows by them, and the attacks upload them anyway.
+
+    ``keep_host=True`` keeps the host array under ``clips_host``, so that a
+    consumer that writes the clean clips (``cli.attack``'s ``-ori``) reads
+    the host copy instead of pulling the clips back from the device."""
+    device = torch.device(device)
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    buf: list[tuple[dict, _Upload]] = []
+
+    def put(b):
+        out = dict(b)
+        if keep_host:
+            out["clips_host"] = b["clips"]
+        return out, _Upload(b["clips"], device, stream)
+
+    def take(entry):
+        out, upload = entry
+        out["clips"] = upload.take()
+        return out
+
+    for b in batches:
+        buf.append(put(b))
+        if len(buf) >= depth:
+            yield take(buf.pop(0))
+    for entry in buf:
+        yield take(entry)
+
+
+def make_input_pipeline(dataset, batch_size: int, iterate, *, left: int = 0,
+                        right: Optional[int] = None, device: torch.device | str = "cuda",
+                        prefetch_depth: int = 2, keep_host: bool = False) -> Iterator[dict]:
+    """Decode thread → bounded queue → device upload, composed."""
+    host = threaded_prefetch(lambda: iterate(dataset, batch_size, left, right),
+                             prefetch_depth)
+    return device_prefetch(host, device, prefetch_depth, keep_host=keep_host)

@@ -13,6 +13,16 @@ comes from ``params["a"]["b"]["kernel"]`` and ``a.b.bias`` from
   package and over C·H·W here (the inverse of
   ``i2v_tpu.models.convert.dense_kernel_from_flatten``).
 
+By default every port parameter must get a value and every Flax leaf must
+be used. ``mode="subset"`` lets the file hold more than the module (a
+whole-network surrogate file loaded into a module truncated at its deepest
+tap), and ``mode="overlay"`` lets it hold less (a partial video-model file
+over the module's random init), as the JAX package applies such files.
+``to_jax_params`` is the inverse, and ``save_params``/``load_params`` write
+and read the JAX package's ``{I2V_TPU_CKPTS}/{name}.msgpack`` files
+(``{"params": tree}`` in Flax's msgpack format, :mod:`.checkpoint`) with
+neither flax nor msgpack installed.
+
 ``fold_bn`` folds a BatchNorm into the preceding conv, as the JAX package's
 converter does, so that a torchvision state_dict can feed the port later.
 
@@ -26,13 +36,17 @@ a segment of one package's runner can seed the other's.
 
 from __future__ import annotations
 
+import os
 from typing import Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from . import checkpoint
+
 BN_EPS = 1e-5
+FROM_JAX_MODES = ("strict", "subset", "overlay")
 
 
 def fold_bn(conv_w: np.ndarray, conv_b: Optional[np.ndarray], bn: Mapping,
@@ -82,19 +96,29 @@ def _to_port_layout(name: str, w: np.ndarray, flatten_fed: Mapping[str, tuple]) 
     return w
 
 
-def from_jax_params(module: nn.Module, flax_params: Mapping) -> nn.Module:
+def _flax_key(name: str) -> str:
+    owner, kind = name.rsplit(".", 1)
+    return f"{owner}.{'kernel' if kind == 'weight' else kind}"
+
+
+def from_jax_params(module: nn.Module, flax_params: Mapping, mode: str = "strict") -> nn.Module:
     """Copy a Flax parameter tree into ``module`` in place and return it.
-    Raises unless every port parameter gets a value of its shape and every
-    Flax leaf is used."""
+    Every value that is copied must have its parameter's shape. ``strict``
+    raises unless every port parameter gets a value and every Flax leaf is
+    used; ``subset`` allows unused leaves; ``overlay`` allows both, and a
+    parameter without a leaf keeps its value."""
+    if mode not in FROM_JAX_MODES:
+        raise ValueError(f"mode {mode!r}; have {FROM_JAX_MODES}")
     tree = flax_params["params"] if "params" in flax_params else flax_params
     leaves = _flatten_leaves(tree)
     flatten_fed = getattr(module, "flatten_fed", {})
     used = set()
     with torch.no_grad():
         for name, p in module.named_parameters():
-            owner, kind = name.rsplit(".", 1)
-            key = f"{owner}.{'kernel' if kind == 'weight' else kind}"
+            key = _flax_key(name)
             if key not in leaves:
+                if mode == "overlay":
+                    continue
                 raise KeyError(f"no Flax parameter {key!r} for port parameter {name!r}")
             w = _to_port_layout(name, leaves[key], flatten_fed)
             if tuple(w.shape) != tuple(p.shape):
@@ -103,9 +127,81 @@ def from_jax_params(module: nn.Module, flax_params: Mapping) -> nn.Module:
             p.copy_(torch.from_numpy(np.array(w, dtype=np.float32)))
             used.add(key)
     unused = sorted(set(leaves) - used)
-    if unused:
+    if unused and mode == "strict":
         raise KeyError(f"Flax parameters with no port counterpart: {unused}")
     return module
+
+
+def _to_jax_layout(name: str, w: np.ndarray, flatten_fed: Mapping[str, tuple]) -> np.ndarray:
+    """The inverse of :func:`_to_port_layout`."""
+    if w.ndim == 5:
+        return np.transpose(w, (2, 3, 4, 1, 0))
+    if w.ndim == 4:
+        return np.transpose(w, (2, 3, 1, 0))
+    if w.ndim == 2:
+        owner = name.rsplit(".", 1)[0]
+        if owner in flatten_fed:
+            c, h, ww = flatten_fed[owner]
+            o = w.shape[0]
+            return w.reshape(o, c, h, ww).transpose(0, 2, 3, 1).reshape(o, h * ww * c).T
+        return w.T
+    return w
+
+
+def to_jax_params(module: nn.Module) -> dict:
+    """The Flax parameter tree of ``module`` (without the ``"params"``
+    wrapper), float32 numpy leaves in Flax's layouts: what
+    :func:`from_jax_params` reads back into the same module."""
+    flatten_fed = getattr(module, "flatten_fed", {})
+    tree: dict = {}
+    for name, p in module.named_parameters():
+        *path, leaf = _flax_key(name).split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        w = p.detach().cpu().numpy().astype(np.float32)
+        node[leaf] = np.ascontiguousarray(_to_jax_layout(name, w, flatten_fed))
+    return _sorted(tree)
+
+
+def _sorted(tree: dict) -> dict:
+    """Keys in sorted order at every level, as a JAX pytree keeps them."""
+    return {k: _sorted(v) if isinstance(v, dict) else v for k, v in sorted(tree.items())}
+
+
+def missing_modules(module: nn.Module, flax_params: Mapping) -> list[str]:
+    """The top-level submodules of ``module`` with parameters that the tree
+    has no entry for: what an ``overlay`` load leaves at their init (the
+    JAX package's ``video_zoo._overlay`` reports the same names)."""
+    tree = flax_params["params"] if "params" in flax_params else flax_params
+    tops = {name.split(".", 1)[0] for name, _ in module.named_parameters()}
+    return sorted(tops - set(tree))
+
+
+def checkpoint_path(name: str, ckpt_dir: Optional[str] = None) -> str:
+    """``{ckpt_dir or $I2V_TPU_CKPTS or ./checkpoints}/{name}.msgpack``."""
+    ckpt_dir = ckpt_dir or os.environ.get("I2V_TPU_CKPTS", "./checkpoints")
+    return os.path.join(ckpt_dir, f"{name}.msgpack")
+
+
+def save_params(params: dict, name: str, ckpt_dir: Optional[str] = None) -> str:
+    """Write ``{"params": params}`` to :func:`checkpoint_path` in Flax's
+    msgpack format (the JAX package's ``convert.save_params``)."""
+    path = checkpoint_path(name, ckpt_dir)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(checkpoint.serialize({"params": params}))
+    os.replace(tmp, path)
+    return path
+
+
+def load_params(name: str, ckpt_dir: Optional[str] = None) -> dict:
+    """The parameter tree of :func:`checkpoint_path` (the ``"params"``
+    wrapper taken off, where the file has one)."""
+    with open(checkpoint_path(name, ckpt_dir), "rb") as f:
+        tree = checkpoint.restore(f.read())
+    return tree["params"] if "params" in tree else tree
 
 
 def modifier_from_jax(mod_nhwc) -> torch.Tensor:

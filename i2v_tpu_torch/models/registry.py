@@ -8,16 +8,19 @@ surrogates. Depth indices map onto explicit tap keys:
   vgg         {1:1, 2:11, 3:20, 4:29}             (features[i] ReLU)
   squeezenet  {1:3, 2:6, 3:9, 4:12}               (Fire expand3x3 ReLU)
 
-Weights: the port loads no pretrained checkpoints yet (the JAX package's
-are Flax msgpack files; :func:`.convert.fold_bn` is the start of a
-torchvision route). Weights are random, drawn on the CPU from a seeded
-``torch.Generator`` (so the same seed gives the same weights on every
-device); for full-width models a warning says so.
+Weights: a full-width model loads ``{I2V_TPU_CKPTS}/{name}.msgpack``, the
+JAX package's converted checkpoint (Flax msgpack, read by
+:mod:`.checkpoint` without flax), where the file exists. The file holds the
+whole network; the module, truncated at its deepest tap, takes the subset it
+has. Underneath, every weight is first drawn on the CPU from a seeded
+``torch.Generator`` (the same seed gives the same weights on every device),
+and without a file a warning says that the model keeps those random weights.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import warnings
 from typing import Mapping, Sequence
 
@@ -27,6 +30,7 @@ import torch.nn as nn
 from . import resnet as _resnet
 from . import vgg as _vgg
 from .api import ImageModel
+from .convert import checkpoint_path, from_jax_params, load_params
 
 IMAGE_MODEL_NAMES = ("resnet", "vgg", "alexnet", "squeezenet", "densenet", "vit")
 
@@ -101,10 +105,14 @@ def get_image_models(names: Sequence[str], depths: Mapping[str, int | Sequence[i
         d = depths if isinstance(depths, int) else depths[name]
         module, tap_keys = build_image_model(name, d, truncate=truncate, tiny=tiny,
                                              input_hw=input_hw)
-        if not tiny:
-            warnings.warn(f"no pretrained checkpoint for {name!r}: the port loads none "
-                          "yet; using random init")
         random_init_(module, torch.Generator().manual_seed(seed + i))
+        if not tiny:
+            if os.path.exists(checkpoint_path(name)):
+                from_jax_params(module, load_params(name), mode="subset")
+            else:
+                ckpt_dir = os.path.dirname(checkpoint_path(name))
+                warnings.warn(f"no pretrained checkpoint for {name!r} under {ckpt_dir!r}; "
+                              "using random init (run tools/convert_torchvision.py)")
         module = module.to(device).eval().requires_grad_(False)
         bundles.append(ImageModel(name=name, module=module, tap_keys=tap_keys))
     return bundles

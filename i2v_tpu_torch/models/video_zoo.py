@@ -2,21 +2,26 @@
 their builders and tap tables.
 
 PyTorch counterpart of :mod:`i2v_tpu.models.video_zoo`: I3D, SlowFast and
-TPN, each at ResNet-50 and ResNet-101 depth. Weights: the port loads no
-checkpoints yet (the JAX package's are Flax msgpack files converted from
-gluoncv), so weights are random, drawn on the CPU from a seeded
-``torch.Generator`` (the same seed gives the same weights on every device);
-at full width a warning says so.
+TPN, each at ResNet-50 and ResNet-101 depth. Weights: a full-width model
+loads ``{I2V_TPU_CKPTS}/{name}[_ucf101].msgpack``, the JAX package's
+checkpoint converted from gluoncv (Flax msgpack, read by :mod:`.checkpoint`
+without flax), where the file exists. The file is laid over the random init
+that is drawn first, on the CPU from a seeded ``torch.Generator`` (the same
+seed gives the same weights on every device): a file that covers only part
+of the model loads, and a warning names the modules it left at random init.
+Without a file a warning says that the model keeps its random weights.
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 
 import torch
 
 from . import i3d, slowfast, tpn
 from .api import VideoModel
+from .convert import checkpoint_path, from_jax_params, load_params, missing_modules
 from .registry import random_init_
 
 VIDEO_BUILDERS = {
@@ -69,10 +74,26 @@ def get_video_model(name: str, *, device: torch.device | str, tiny: bool = False
     if ucf101 and not tiny:
         kw["num_classes"] = 101
     module = (TINY_BUILDERS if tiny else VIDEO_BUILDERS)[name](**kw)
-    if not tiny:
-        warnings.warn(f"no pretrained checkpoint for {name!r}"
-                      f"{' (ucf101)' if ucf101 else ''}: the port loads none yet; "
-                      "using random init")
     random_init_(module, torch.Generator().manual_seed(seed))
+    if not tiny:
+        _load_checkpoint(module, name, ucf101)
     module = module.to(device).eval().requires_grad_(False)
     return VideoModel(name=name, module=module, tap_keys=tap_keys_for(name, "tap"))
+
+
+def _load_checkpoint(module, name: str, ucf101: bool) -> None:
+    """Lay ``{name}[_ucf101].msgpack`` over ``module``'s init where the file
+    exists, with the JAX package's warnings (``video_zoo.py:110-128``)."""
+    ckpt = f"{name}_ucf101" if ucf101 else name
+    if not os.path.exists(checkpoint_path(ckpt)):
+        warnings.warn(f"no converted checkpoint for {name!r}"
+                      f"{' (ucf101)' if ucf101 else ''}; using random init "
+                      "(run tools/convert_gluoncv.py)")
+        return
+    params = load_params(ckpt)
+    from_jax_params(module, params, mode="overlay")
+    missing = missing_modules(module, params)
+    if missing:
+        warnings.warn(f"checkpoint for {name!r} left {len(missing)} module(s) at random init: "
+                      f"{missing[:8]}{'…' if len(missing) > 8 else ''} — transfer numbers "
+                      "are NOT valid until these convert (see convert_gluoncv --report)")

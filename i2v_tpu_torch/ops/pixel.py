@@ -11,6 +11,9 @@ the oracle each kernel must match bit for bit on the card.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 # ImageNet statistics, used by both torchvision image models and the
@@ -75,6 +78,64 @@ def sign_step_project(adv01: torch.Tensor, grad: torch.Tensor, clean01: torch.Te
     [0,1] projection. A NaN gradient gives a NaN pixel (:func:`sign_keep_nan`)."""
     stepped = adv01 + step_size * sign_keep_nan(grad)
     return project_linf(stepped, clean01, epsilon)
+
+
+@functools.lru_cache(maxsize=None)
+def _u8_norm_lut(device: torch.device) -> torch.Tensor:
+    """(3, 256) float32 table on ``device``: ``lut[c, v] = (v/255 − mean_c)/std_c``,
+    computed with host numpy arithmetic, the operations of
+    ``data.transforms.u8_clip_to_normalized`` in its order. A uint8 pixel
+    takes only 256 values a channel, so the host half of ToTensor+Normalize
+    tabulates exactly. Cached for each device: ingest runs once a batch, and
+    the table would otherwise cross to the device every time."""
+    v = np.arange(256, dtype=np.float32) / np.float32(255.0)
+    mean = np.asarray(IMAGENET_MEAN, np.float32)
+    std = np.asarray(IMAGENET_STD, np.float32)
+    return torch.from_numpy((v[None, :] - mean[:, None]) / std[:, None]).to(device)
+
+
+def ingest_u8_clips(u8_bthwc, device: torch.device | str | None = None) -> torch.Tensor:
+    """Device-side ingest: raw uint8 (B,T,H,W,3) clips (numpy or tensor) →
+    [0,1] float32 (B,3,T,H,W) on ``device`` (default: the tensor's own).
+
+    The dual of the host's ToTensor+Normalize → upload → ``unnormalize``
+    chain (datasets.py:86-93 + base_attacks.py:145-158): the uint8 frames
+    cross to the device, a quarter of the float32 bytes, and the result is
+    BIT-IDENTICAL to that chain's clean clip, so uint8 ingress changes the
+    transport and not the numbers.
+
+    How: the divides run on the host, in :func:`_u8_norm_lut`, because a
+    device divide need not round as numpy does (CUDA's true-divide by a
+    scalar multiplies by the reciprocal). On the device run only an exact
+    gather from the table and the same eager ``x·std + mean`` that
+    :func:`unnormalize` runs on the float32 path, as two separate ops (a
+    fused multiply-add would round once where the float32 path rounds
+    twice). The uint8 tensor is transposed to (B,3,T,H,W) before anything
+    is widened, and the gather runs a channel at a time, so that its int32
+    indices cover one channel of the batch (103 MB at B=16), not all three.
+    """
+    u8 = u8_bthwc if isinstance(u8_bthwc, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(u8_bthwc))
+    device = torch.device(device) if device is not None else u8.device
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    u8 = u8.to(device).permute(0, 4, 1, 2, 3)
+    lut = _u8_norm_lut(device)
+    norm = torch.empty(u8.shape, dtype=torch.float32, device=device)
+    for c in range(3):
+        idx = u8[:, c].reshape(-1).to(torch.int32)
+        norm[:, c] = lut[c].index_select(0, idx).view(norm.shape[0], *norm.shape[2:])
+        del idx
+    return unnormalize(norm, channel_axis=1)
+
+
+def is_u8_clips(videos) -> bool:
+    """True for the raw uint8 (B,T,H,W,3) ingest layout, as against the
+    normalized float32 (B,C,T,H,W) contract: a normalized clip is never
+    uint8."""
+    dtype = getattr(videos, "dtype", None)
+    return (dtype in (np.uint8, torch.uint8) and videos.ndim == 5
+            and videos.shape[-1] == 3)
 
 
 def flatten_clip_to_frames(clip_bcthw: torch.Tensor) -> torch.Tensor:

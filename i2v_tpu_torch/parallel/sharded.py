@@ -347,9 +347,6 @@ class ShardedImageGuidedAttack(Attack):
                 param_dtype=param_dtype)
 
     def __call__(self, videos, labels=None, video_names=None) -> torch.Tensor:
-        if str(getattr(videos, "dtype", "")) in ("uint8", "torch.uint8"):
-            raise NotImplementedError("uint8 clip batches (--u8_ingress) are not ported yet "
-                                      "(ROADMAP Queue 1, item 8: the data layer)")
         # the normalized clips are not kept: the runner's flattened frames
         # replace them on the device
         adv01, costs = self._runner(self._clean01(videos))

@@ -6,11 +6,10 @@ from __future__ import annotations
 import dataclasses
 import os
 
-# The curated attack-set manifests ship as data files beside the JAX package;
-# the port reads the same files.
-MANIFEST_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "i2v_tpu", "manifests")
+# The curated attack-set manifests ship as data files inside the package (a
+# byte-for-byte copy of the JAX package's).
+MANIFEST_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "manifests")
 
 # the six reference video models (reference: utils.py:8-15)
 VIDEO_MODEL_NAMES = (

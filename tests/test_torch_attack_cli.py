@@ -243,3 +243,66 @@ def test_save_attack_outputs_writes_ori_only_when_asked(tmp_path):
     assert sorted(os.listdir(tmp_path / "b")) == ["3-adv.npy", "3-ori.npy", "5-adv.npy",
                                                   "5-ori.npy"]
     np.testing.assert_array_equal(np.load(tmp_path / "b" / "5-ori.npy"), clips[1])
+
+
+def test_kinetics_u8_ingress_writes_the_f32_paths_ori_and_adv(opt_path, monkeypatch):
+    """BIM from Kinetics sidecars: with --u8_ingress --prefetch 1 the -ori
+    and -adv artifacts are the float32 path's, byte for byte, and the -ori
+    is the host transform of the sidecar's frames."""
+    from i2v_tpu_torch.data import transforms
+
+    rows = ["path,gt_label,clip_index"]
+    frames = {}
+    for v in range(2):
+        frames[v] = np.random.RandomState(40 + v).randint(0, 256, (10, 256, 340, 3), np.uint8)
+        np.save(opt_path / f"vid{v}.npy", frames[v])
+        rows.append(f"vid{v}.npy,{v},{3 * v - 1}")
+    (opt_path / "anno.csv").write_text("\n".join(rows) + "\n")
+    monkeypatch.setenv("I2V_TPU_KINETICS_ANNO", str(opt_path / "anno.csv"))
+    monkeypatch.setenv("I2V_TPU_KINETICS_DATA", str(opt_path))
+    argv = ["--attack_method", "BIM", "--step", "2", "--tiny", "--data", "kinetics",
+            "--clip_len", "4", "--crop_size", "32", "--device", "cpu", "--batch_size", "2"]
+    u8dir = attack.main(argv + ["--u8_ingress", "--prefetch", "1"])
+    f32dir = attack.main(argv + ["--file_prefix", "f32"])
+    assert os.path.basename(u8dir) == "i3d_resnet50-BIM-2-"
+    for label in (0, 1):
+        for kind in ("adv", "ori"):
+            got = np.load(os.path.join(u8dir, f"{label}-{kind}.npy"))
+            np.testing.assert_array_equal(got, np.load(os.path.join(f32dir, f"{label}-{kind}.npy")))
+        idx = transforms.kinetics_clip_indices(10, 3 * label - 1, 4)
+        want = transforms.kinetics_val_transform(frames[label][idx], 256, 32)
+        np.testing.assert_array_equal(np.load(os.path.join(u8dir, f"{label}-ori.npy")), want)
+
+
+def test_ucf101_clis_read_frame_jpegs_for_data_kinetics(opt_path, monkeypatch):
+    """The UCF-101 CLIs read ``--data kinetics`` as ``ucf101``, as the JAX
+    CLIs do: BIM over Pillow-written frame JPEGs, the -ori the host
+    transform of those frames."""
+    from PIL import Image
+
+    from i2v_tpu_torch.cli import image_main, image_main_ucf101
+    from i2v_tpu_torch.data import ucf101
+
+    for c in range(2):
+        d = opt_path / "frames" / f"v_C{c}_g01_c01"
+        d.mkdir(parents=True)
+        for i in range(1, 7):
+            Image.fromarray(np.random.RandomState(10 * c + i).randint(0, 256, (40, 52, 3), np.uint8)
+                            ).save(str(d / f"image_{i:05d}.jpg"))
+    (opt_path / "setting.txt").write_text("v_C0_g01_c01 6 4\nv_C1_g01_c01 9 7\n")
+    monkeypatch.setenv("I2V_TPU_UCF_SETTING", str(opt_path / "setting.txt"))
+    monkeypatch.setenv("I2V_TPU_UCF_IMAGE_ROOT", str(opt_path / "frames"))
+    monkeypatch.setenv("I2V_TPU_UCF_USED_IDXS", str(opt_path / "absent.pkl"))
+    argv = ["--attack_method", "BIM", "--step", "2", "--tiny", "--data", "kinetics",
+            "--clip_len", "4", "--crop_size", "32", "--device", "cpu", "--u8_ingress"]
+    run_dir = attack_ucf101.main(argv)
+    assert os.path.basename(run_dir) == "UCF101_Video_i3d_resnet50-BIM-2-"
+    ds = ucf101.UCF101AttackDataset(str(opt_path / "setting.txt"), str(opt_path / "frames"),
+                                    clip_len=4, crop_size=32)
+    for i, label in enumerate((4, 7)):
+        np.testing.assert_array_equal(np.load(os.path.join(run_dir, f"{label}-ori.npy")),
+                                      ds[i][0])
+    seen = {}
+    monkeypatch.setattr(image_main, "run", lambda args: seen.setdefault("data", args.data))
+    image_main_ucf101.main(["--data", "kinetics", "--tiny"])
+    assert seen["data"] == "ucf101"

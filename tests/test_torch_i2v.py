@@ -185,3 +185,66 @@ def test_cli_rejects_methods_not_ported_yet(tmp_path, monkeypatch, capsys, flags
     assert vars(image_main.arg_parse(ported)).items() >= {
         "sharded": True, "frame_chunk": "auto", "param_dtype": "bfloat16", "multigrid": 12,
         "multigrid_scale": 4}.items()
+
+
+def _kinetics_sidecars(root, monkeypatch, n=2):
+    """``n`` seeded uint8 (10, 256, 340, 3) sidecars at the decode size and
+    their manifest, one clip with clip_index -1 and one seeded."""
+    rows = ["path,gt_label,clip_index"]
+    for v in range(n):
+        np.save(os.path.join(root, f"vid{v}.npy"),
+                np.random.RandomState(30 + v).randint(0, 256, (10, 256, 340, 3), np.uint8))
+        rows.append(f"vid{v}.npy,{v},{2 * v - 1}")
+    with open(os.path.join(root, "anno.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    monkeypatch.setenv("I2V_TPU_KINETICS_ANNO", os.path.join(root, "anno.csv"))
+    monkeypatch.setenv("I2V_TPU_KINETICS_DATA", root)
+
+
+def test_cli_kinetics_u8_prefetch_matches_jax_cli(tmp_path, monkeypatch):
+    """ENS-I2V from Kinetics sidecars with --u8_ingress --prefetch 1: the
+    costs match the JAX CLI's over the same clips and weights (the JAX CLI
+    is handed the port's seeded surrogates through ``to_jax_params``), and
+    the port's uint8 and float32 paths write the same bytes."""
+    from i2v_tpu.cli import common as jcommon
+    from i2v_tpu.cli import image_main as jimage_main
+    from i2v_tpu.models import ImageModel as JImageModel
+    from i2v_tpu.models import registry as jregistry
+    from i2v_tpu_torch.cli import image_main
+    from i2v_tpu_torch.models import get_image_models
+    from i2v_tpu_torch.models.convert import to_jax_params
+
+    monkeypatch.setenv("I2V_TPU_OPT_PATH", str(tmp_path / "out"))
+    _kinetics_sidecars(str(tmp_path), monkeypatch)
+
+    def jax_twins(names, depths, *, tiny, input_hw):
+        ported = get_image_models(names, depths, device="cpu", tiny=tiny, input_hw=input_hw)
+        out = []
+        for b in ported:
+            module, taps = jregistry.build_image_model(
+                b.name, depths[b.name], truncate=True, tiny=tiny)
+            out.append(JImageModel(b.name, module, {"params": to_jax_params(b.module)}, taps))
+        return out
+
+    monkeypatch.setattr(jcommon, "get_image_models", jax_twins)
+    argv = ["--attack_method", "ImageGuidedFML2_Adam_MultiModels", "--step", "3", "--tiny",
+            "--data", "kinetics", "--clip_len", "4", "--crop_size", "32"]
+    fast = ["--u8_ingress", "--prefetch", "1"]
+    jdir = jimage_main.main(argv + fast + ["--file_prefix", "jax"])
+    u8dir = image_main.main(argv + fast + ["--device", "cpu"])
+    f32dir = image_main.main(argv + ["--device", "cpu", "--file_prefix", "f32"])
+    assert os.path.basename(u8dir) == "Image-ImageGuidedFML2_Adam_MultiModels-3-"
+    runs = {}
+    for key, d in (("jax", jdir), ("u8", u8dir), ("f32", f32dir)):
+        assert jartifacts.list_adv_files(d) == ["0-adv.npy", "1-adv.npy"]
+        with open(os.path.join(d, "loss_info_1.json")) as f:
+            info = json.load(f)
+        assert sorted(info) == ["vid0", "vid1"]
+        runs[key] = (np.float32([[float(c[str(i)]["cost"]) for i in range(3)]
+                                 for _, c in sorted(info.items())]),
+                     jartifacts.load_adv_batch(d, ["0-adv.npy", "1-adv.npy"])[0])
+    np.testing.assert_allclose(runs["u8"][0], runs["jax"][0], rtol=2e-4)
+    np.testing.assert_array_equal(runs["u8"][0], runs["f32"][0])
+    np.testing.assert_array_equal(runs["u8"][1], runs["f32"][1])
+    assert runs["u8"][1].shape == (2, 3, 4, 32, 32)
+    assert (runs["u8"][0][:, -1] < runs["u8"][0][:, 0]).all()

@@ -1,5 +1,6 @@
 """The port stands alone: every module of ``i2v_tpu_torch`` imports with JAX,
-Flax, Optax and the JAX package made unimportable."""
+Flax, Optax and the JAX package made unimportable, and with pandas, msgpack
+and Pillow too (a machine with a card need not have them)."""
 
 import os
 import subprocess
@@ -13,16 +14,27 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "i2v_tpu"):
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "i2v_tpu", "pandas", "msgpack", "PIL")
+for name in BLOCKED:
     sys.modules[name] = None
 import i2v_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(i2v_tpu_torch.__path__, "i2v_tpu_torch."))
 for name in names:
     importlib.import_module(name)
 leaked = sorted(k for k in sys.modules
-                if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "i2v_tpu")
-                and sys.modules[k] is not None)
+                if k.split(".")[0] in BLOCKED and sys.modules[k] is not None)
 assert not leaked, leaked
+# the card's Kinetics path runs without them: the manifest, a checkpoint,
+# the crop at the decode size
+import os, numpy as np
+from i2v_tpu_torch.data import kinetics, transforms
+from i2v_tpu_torch.models import checkpoint
+from i2v_tpu_torch.utils import paths
+rows = kinetics.read_manifest(os.path.join(paths.MANIFEST_DIR, "kinetics400_attack_samples.csv"))
+assert len(rows) == 400
+tree = {"params": {"w": np.arange(6, dtype=np.float32).reshape(2, 3)}}
+assert (checkpoint.restore(checkpoint.serialize(tree))["params"]["w"] == tree["params"]["w"]).all()
+assert transforms.kinetics_val_frames_u8(np.zeros((1, 256, 340, 3), np.uint8)).shape == (1, 224, 224, 3)
 print(len(names))
 """
 

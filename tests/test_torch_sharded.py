@@ -32,6 +32,7 @@ from i2v_tpu.ops import pixel as jpixel  # noqa: E402
 from i2v_tpu.parallel import attack_mesh, shard_clips  # noqa: E402
 from i2v_tpu.parallel import sharded as jsharded  # noqa: E402
 from i2v_tpu_torch import attacks  # noqa: E402
+from i2v_tpu_torch.data.transforms import u8_clip_to_normalized  # noqa: E402
 from i2v_tpu_torch.models import ImageModel, build_image_model  # noqa: E402
 from i2v_tpu_torch.models import convert  # noqa: E402
 from i2v_tpu_torch.ops import pixel  # noqa: E402
@@ -357,9 +358,12 @@ def test_sharded_attack_records_costs_and_returns_normalized_clips(aens_pair):
 
 
 def test_sharded_attack_refuses_uint8_and_aens_multigrid(i2v_pair):
+    """uint8 batches are no longer refused: a raw (B,T,H,W,3) batch gives the
+    float32 path's output, bit for bit. AENS with --multigrid still is."""
     atk = sharded.ShardedImageGuidedAttack(i2v_pair[1], steps=1, step_size=0.005)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
-        atk(np.zeros((1, T, HW, HW, 3), np.uint8))
+    u8 = np.random.RandomState(5).randint(0, 256, (1, T, HW, HW, 3), np.uint8)
+    videos = np.stack([u8_clip_to_normalized(c) for c in u8])
+    np.testing.assert_array_equal(_np(atk(u8)), _np(atk(videos)))
     with pytest.raises(ValueError) as port_err:
         sharded.ShardedImageGuidedAttack(i2v_pair[1], steps=4, step_size=0.005, adaptive=True,
                                          multigrid=2)
