@@ -84,13 +84,23 @@ raises and the script exits non-zero:
                  where Pillow writes JPEGs, cli.attack_ucf101 --data ucf101 over
                  frame JPEGs. Host decode ms a clip, bytes and upload time a
                  batch, uint8 against float32
+ 26. zoo + gradcam — 5-step I2V on DenseNet-161 (depth 3) and DR on ViT-B/16
+                 (depth 4) over one clip through image_main, each run twice (the
+                 second warm), K1/K2 6/5 a run; cli.gradcam with the five CAM
+                 models at full width over the I2V clip (float16 masks in [0,1],
+                 a PNG, no kernel launch); tiny DenseNet/ViT step-0 cost and
+                 gradient and tiny grad_cam card vs CPU; densenet.msgpack and
+                 vit.msgpack written by save_params and loaded through the
+                 registry, logits bit for bit; cli.evaluate -> cli.report on the
+                 I2V run; cli.run_grid layer_ablation --limit 1 --step 2
 
 Phase 3 also holds K1/K2 to their plain versions at the chunked runner's
 shapes: a 512-frame call (B=16), a 128-frame chunk that starts 128 frames
 into a 512-frame modifier, and a 112² call (multigrid's coarse phase).
 Each path (slice, eval, whitebox, sf whitebox, aens, dr, fused, ilaf, wb
-family, tt, remat, ucf101, chunked aens, chunk equality, multigrid, and real
-data's ENS, twin, BIM and UCF-101 runs) is
+family, tt, remat, ucf101, chunked aens, chunk equality, multigrid, real
+data's ENS, twin, BIM and UCF-101 runs, and zoo + gradcam's DenseNet and ViT
+runs, Grad-CAM, evaluation and grid) is
 driven with the launch counters set to 0 just before it and read just
 after.
 The line before the last is a JSON object with each kernel's launches over
@@ -1780,6 +1790,253 @@ def phase_real_data(kernels, image_main, attack_cli, attack_ucf101, evaluate_cli
     return totals
 
 
+ZOO_STEPS = 5             # I2V on DenseNet-161 and DR on ViT-B/16, one clip each
+ZOO_RUNS = (("I2V on DenseNet-161", "densenet", "ImageGuidedFMDirection_Adam", 3),
+            ("DR on ViT-B/16", "vit", "ImageGuidedStd_Adam", 4))
+# tiny Grad-CAM card vs CPU, TF32 off: maps are min-max scaled into [0, 1], and
+# the card and the CPU differ only in the order of their float32 sums
+CAM_ATOL = 1e-4
+ZOO_FILE_SEED = 11        # the densenet/vit checkpoint files' weights
+GRID_STEPS = 2
+
+
+def _zoo_parity(image_main) -> list:
+    """Tiny DenseNet I2V and ViT DR on the card and on the CPU from the same
+    seed: step-0 cost and gradient at a generic modifier; then tiny grad_cam
+    (DenseNet and ResNet at 64², untruncated) card vs CPU."""
+    from i2v_tpu_torch.attacks import i2v
+    from i2v_tpu_torch.data import synthetic
+    from i2v_tpu_torch.eval import gradcam
+    from i2v_tpu_torch.models import get_image_models
+    from i2v_tpu_torch.ops import kernels, pixel
+
+    facts = []
+    clip01 = synthetic.SyntheticAttackDataset(n_samples=1, clip_len=4, size=32).clip01(0)
+    mod = ((np.random.RandomState(9).rand(4, 3, 32, 32) * 2 - 1) * EPS).astype(np.float32)
+    for label, name, method, depth in ZOO_RUNS:
+        args = image_main.arg_parse(["--attack_method", method, "--direction_image_model", name,
+                                     "--depth", str(depth), "--tiny", "--clip_len", "4",
+                                     "--matmul_precision", "float32",
+                                     "--file_prefix", f"zoo-parity-{name}"])
+        image_main.common.apply_matmul_precision(args)
+        step0 = {}
+        for device in ("cuda", "cpu"):
+            atk = image_main.common.build_image_guided_attack(args, torch.device(device))
+            frames = pixel.flatten_clip_to_frames(torch.from_numpy(clip01[None]).to(device))
+            with torch.no_grad():
+                loss_fn = atk._make_loss(i2v._collect_taps(atk.models, frames))
+            m = torch.from_numpy(mod).to(device).requires_grad_(True)
+            cost, _ = loss_fn(kernels.rebuild_adv(frames, m, EPS), atk._state0())
+            (g,) = torch.autograd.grad(cost, m)
+            step0[device] = (float(cost.detach()), g.cpu().numpy())
+        (c_k, g_k), (c_c, g_c) = step0["cuda"], step0["cpu"]
+        cost_rel = abs(c_k / c_c - 1)
+        grad_err = float(np.abs(g_k - g_c).max() / np.abs(g_c).max())
+        facts.append(f"tiny {label.split(' on ')[0]} {name} step-0 cost card {c_k:.7f} vs CPU "
+                     f"{c_c:.7f} (relative {cost_rel:.3g}, limit {ENS_COST_RTOL}), gradient "
+                     f"{grad_err:.3g}·max|g| (limit {ENS_GRAD_ATOL})")
+        if cost_rel > ENS_COST_RTOL or grad_err > ENS_GRAD_ATOL or not np.abs(g_c).max() > 0:
+            raise RuntimeError(f"card and CPU disagree on the tiny {name} cost or gradient: "
+                               + facts[-1])
+    x = np.random.RandomState(10).rand(4, 3, 64, 64).astype(np.float32)
+    for name in ("densenet", "resnet"):
+        cams = {}
+        for device in ("cuda", "cpu"):
+            (b,) = get_image_models([name], 4, device=device, tiny=True, truncate=False,
+                                    input_hw=64)
+            cams[device] = gradcam.grad_cam(b, torch.from_numpy(x).to(device),
+                                            upsample_to=64).cpu().numpy()
+        err = float(np.abs(cams["cuda"] - cams["cpu"]).max())
+        facts.append(f"tiny {name} grad_cam card vs CPU max|diff| {err:.3g} (limit {CAM_ATOL})")
+        if not err <= CAM_ATOL or not cams["cpu"].max() > 0:
+            raise RuntimeError(f"card and CPU disagree on the tiny {name} Grad-CAM: {err}")
+    return facts
+
+
+def _zoo_checkpoints(ckpt_dir: str) -> list:
+    """densenet.msgpack and vit.msgpack written from seeded full-width weights
+    by save_params, reloaded through the registry: logits bit for bit."""
+    import warnings
+
+    from i2v_tpu_torch.models import get_image_models
+    from i2v_tpu_torch.models.convert import save_params, to_jax_params
+
+    facts, saved = [], os.environ.get("I2V_TPU_CKPTS")
+    x = torch.from_numpy(np.random.RandomState(12).rand(2, 3, 224, 224).astype(np.float32))
+    try:
+        for name in ("densenet", "vit"):
+            os.environ["I2V_TPU_CKPTS"] = os.path.join(ckpt_dir, "none")
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # no file yet, and it says so
+                (direct,) = get_image_models([name], 4, device="cuda", truncate=False,
+                                             seed=ZOO_FILE_SEED)
+            t0 = time.time()
+            path = save_params(to_jax_params(direct.module), name, ckpt_dir)
+            write_s = time.time() - t0
+            os.environ["I2V_TPU_CKPTS"] = ckpt_dir
+            t0 = time.time()
+            (loaded, msgs) = _recorded(lambda: get_image_models([name], 4, device="cuda",
+                                                                truncate=False))
+            load_s = time.time() - t0
+            if msgs:
+                raise RuntimeError(f"{name}: loading {path} warned {msgs}")
+            with torch.no_grad():
+                want, got = direct.apply01(x.cuda()), loaded[0].apply01(x.cuda())
+            if not torch.equal(got, want):
+                raise RuntimeError(f"{name}: the loaded file's logits are not its seed's: max "
+                                   f"|diff| {float((got - want).abs().max())}")
+            facts.append(f"{name}.msgpack {os.path.getsize(path) / 1e6:.1f} MB written in "
+                         f"{write_s:.2f} s, loaded through the registry in {load_s:.2f} s, "
+                         "logits bit-identical")
+            os.remove(path)
+            del direct, loaded
+    finally:
+        if saved is None:
+            os.environ.pop("I2V_TPU_CKPTS", None)
+        else:
+            os.environ["I2V_TPU_CKPTS"] = saved
+    return facts
+
+
+def phase_zoo_gradcam(kernels, image_main, synthetic, get_bundle, pixel_mean_std,
+                      tmp: str) -> dict:
+    """DenseNet-161 and ViT-B/16 as surrogates, Grad-CAM, the report and the
+    grid, at full width: 5-step I2V on DenseNet-161 (depth 3) and DR on
+    ViT-B/16 (depth 4, all 12 blocks) over one clip through image_main, each
+    twice (the second warm), K1/K2 6/5 a run; cli.gradcam with the five CAM
+    models over the I2V clip; tiny card-vs-CPU parity; checkpoint files of
+    the two new surrogates; cli.evaluate → cli.report on the I2V run; and
+    cli.run_grid layer_ablation --limit 1. Returns the launch counts of its
+    paths."""
+    from i2v_tpu_torch.cli import evaluate as evaluate_cli
+    from i2v_tpu_torch.cli import gradcam as gradcam_cli
+    from i2v_tpu_torch.cli import report as report_cli
+    from i2v_tpu_torch.cli import run_grid
+
+    t0 = time.time()
+    totals = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
+    facts = []
+
+    def add(counts):
+        for k in totals:
+            totals[k] += counts[k]
+
+    try:
+        ds = synthetic.SyntheticAttackDataset(n_samples=1)
+        runs = {}
+        for label, name, method, depth in ZOO_RUNS:
+            timing = []
+            for twin in ("", "-warm"):
+                args = image_main.arg_parse([
+                    "--attack_method", method, "--direction_image_model", name, "--depth",
+                    str(depth), "--data", "synthetic", "--n_synthetic", "1", "--batch_size", "1",
+                    "--step", str(ZOO_STEPS), "--device", "cuda", "--matmul_precision", "float32",
+                    "--file_prefix", name + twin])
+                _, counts, peak = _run_counted(kernels, label, _want(1, ZOO_STEPS),
+                                               lambda: image_main.run(args))
+                add(counts)
+                _check_clip(args.adv_path, 0, "adv", ds, pixel_mean_std)
+                costs = _costs(args.adv_path)
+                _descends(label, costs, 1, ZOO_STEPS)
+                timing.append((ZOO_STEPS / args.throughput["last_call_s"], peak, costs))
+                runs.setdefault(name, args.adv_path)
+            (cold, _, costs), (warm, peak, _) = timing
+            c = costs["synthetic_0"]
+            facts.append(f"{label} (depth {depth}), 1 clip of 32x224^2, {ZOO_STEPS} steps, TF32 "
+                         f"off: warm {warm:.3f} steps/s (cold {cold:.3f}), peak {peak:.2f} GiB, "
+                         f"launches {counts} a run; step-0 cost {c[0]:.6f} -> {c[-1]:.6f}")
+
+        # -- Grad-CAM with the five CAM models at full width over the I2V clip
+        cam_dir = runs["densenet"] + "-cam"
+        try:
+            import PIL  # noqa: F401
+            png = ["--save_png", "1"]
+        except ImportError:
+            png = []
+        built = {}
+        get_models = gradcam_cli.get_image_models
+
+        def capture(*a, **k):  # the CLI's bundles, for a warm timing after it
+            built["bundles"] = get_models(*a, **k)
+            return built["bundles"]
+
+        gradcam_cli.get_image_models = capture
+        try:
+            gargv = ["--used_adv", runs["densenet"], "--device", "cuda",
+                     "--matmul_precision", "float32", "--out", cam_dir, *png]
+            t1 = time.time()
+            _, counts, cam_peak = _run_counted(kernels, "gradcam", {k: 0 for k in totals},
+                                               lambda: gradcam_cli.main(gargv))
+            cam_wall = time.time() - t1
+        finally:
+            gradcam_cli.get_image_models = get_models
+        mask = np.load(os.path.join(cam_dir, "0-cam.npy"))
+        if (mask.shape != (32, 224, 224) or mask.dtype != np.float16
+                or not np.isfinite(mask).all() or mask.min() < 0 or mask.max() > 1
+                or not mask.max() > 0):
+            raise RuntimeError(f"0-cam.npy: {mask.dtype} {mask.shape}, range "
+                               f"[{mask.min()}, {mask.max()}]")
+        if png and not os.path.exists(os.path.join(cam_dir, "0-f0.png")):
+            raise RuntimeError("cli.gradcam --save_png 1 wrote no 0-f0.png")
+        clips, _ = gradcam_cli.artifacts.load_adv_batch(runs["densenet"], ["0-adv.npy"])
+        fns = gradcam_cli._cam_fns(built["bundles"])
+        torch.cuda.synchronize()
+        t1 = time.time()
+        gradcam_cli.average_cam_for_clips(clips, fns, 224, "cuda")
+        torch.cuda.synchronize()
+        warm_s = time.time() - t1
+        del fns, built["bundles"]
+        facts.append(f"cli.gradcam, {len(gradcam_cli.CAM_MODELS)} full-width CAM models at "
+                     f"depth 4, batch 1: {cam_wall:.2f} s with the model builds, warm "
+                     f"{1 / warm_s:.4f} clips/s ({warm_s:.3f} s a clip), peak {cam_peak:.2f} "
+                     f"GiB; mask (32, 224, 224) float16 in [{float(mask.min())}, "
+                     f"{float(mask.max())}], mean {float(mask.astype(np.float32).mean()):.4f}; "
+                     f"{'0-f0.png written' if png else 'no Pillow: no PNG'}; launches {counts}")
+
+        facts += _zoo_parity(image_main)
+        facts += _zoo_checkpoints(os.path.join(tmp, "zoo-ckpts"))
+
+        # -- cli.evaluate -> cli.report on the I2V run
+        ev = evaluate_cli.arg_parse(["--adv_path", runs["densenet"], "--device", "cuda",
+                                     "--matmul_precision", "float32"])
+        acc, counts, _ = _run_counted(kernels, "evaluate", {k: 0 for k in totals},
+                                      lambda: evaluate_cli.run(ev, get_bundle=get_bundle))
+        table = report_cli.main(["--runs", runs["densenet"], "--format", "markdown"])
+        lines = table.split("\n")
+        names = sorted(acc)
+        row = [os.path.basename(runs["densenet"])] + [str(round(100.0 - acc[n], 2))
+                                                     for n in names]
+        if lines[0] != "| run | " + " | ".join(names) + " |" or lines[2] != \
+                "| " + " | ".join(row) + " |" or len(lines) != 3:
+            raise RuntimeError(f"cli.report's table is off: {table!r}")
+        facts.append(f"cli.evaluate (six full-width video models) -> cli.report: {lines[2]}")
+
+        # -- cli.run_grid layer_ablation --limit 1, its evaluation on the phase's models
+        main_eval = evaluate_cli.main
+        evaluate_cli.main = lambda argv: evaluate_cli.run(evaluate_cli.arg_parse(argv),
+                                                          get_bundle=get_bundle)
+        try:
+            _, counts, _ = _run_counted(kernels, "run_grid", _want(1, GRID_STEPS), lambda: (
+                run_grid.main(["layer_ablation", "--limit", "1", "--step", str(GRID_STEPS),
+                               "--n_synthetic", "1", "--device", "cuda",
+                               "--matmul_precision", "float32"])))
+        finally:
+            evaluate_cli.main = main_eval
+        add(counts)
+        grid_dir = os.path.join(os.environ["I2V_TPU_OPT_PATH"],
+                                f"Image-ImageGuidedFMDirection_Adam-{GRID_STEPS}"
+                                "-synthetic-layers_resnet_1")
+        for f in ("0-adv.npy", REPORT_CSV, REPORT_JSON):
+            if not os.path.exists(os.path.join(grid_dir, f)):
+                raise RuntimeError(f"cli.run_grid wrote no {f} in {grid_dir}")
+        facts.append(f"cli.run_grid layer_ablation --limit 1 --step {GRID_STEPS}: "
+                     f"{os.path.basename(grid_dir)} generated and evaluated, launches {counts}")
+    finally:
+        print("[zoo+gradcam] " + "; ".join(facts) + f"; launches over the phase's paths "
+              f"{totals}; phase wall {time.time() - t0:.2f} s")
+    return totals
+
+
 def main() -> None:
     name, card = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1839,8 +2096,10 @@ def main() -> None:
         phase_runner_parity(image_main)
         real = phase_real_data(kernels, image_main, attack_cli, attack_ucf101, evaluate_cli,
                                pixel, card, tmp)
+        zoo = phase_zoo_gradcam(kernels, image_main, synthetic, get_bundle, (mean, std), tmp)
+        video_models.clear()
         for k in counts:
-            counts[k] += real[k]
+            counts[k] += real[k] + zoo[k]
     print(f"[done] every phase passed in {time.time() - t0:.2f} s after the device check")
 
     where = {"rebuild_fwd": ("i2v_tpu_torch/csrc/rebuild_adv.cu",

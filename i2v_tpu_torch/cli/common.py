@@ -39,9 +39,8 @@ IMAGE_GUIDED_METHODS = (
     "ImageGuidedFML2_Adam_MultiModels",
     "AENS_I2V_MF",
 )
-# the JAX CLI's surrogates for DR and I2V; densenet and vit are refused
-DIRECTION_IMAGE_MODELS = ("resnet", "vgg", "alexnet", "squeezenet")
-UNPORTED_IMAGE_MODELS = ("densenet", "vit")
+# the JAX CLI's surrogates for DR and I2V (i2v_tpu/cli/image_main.py:48-52)
+DIRECTION_IMAGE_MODELS = ("resnet", "vgg", "alexnet", "squeezenet", "densenet", "vit")
 # the JAX image CLI's runner flags, refused with the work item named
 UNPORTED_RUNNER_FLAGS = {
     "model_parallel": "item 9 (multi-device)",
@@ -50,16 +49,6 @@ WHITEBOX_METHODS = (
     "FGSM", "BIM", "MIFGSM", "DIFGSM", "TIFGSM", "TIFGSM3D", "SGM", "SIM",
     "TAP", "TemporalTranslation",
 )
-
-
-def direction_image_model(name: str) -> str:
-    """argparse ``type`` of --direction_image_model: names the ROADMAP item of
-    a surrogate that is not ported yet."""
-    if name in UNPORTED_IMAGE_MODELS:
-        raise argparse.ArgumentTypeError(
-            f"{name} is not ported yet (ROADMAP Queue 1, item 9: models/densenet.py, "
-            "models/vit.py); ported: " + ", ".join(DIRECTION_IMAGE_MODELS))
-    return name
 
 
 def add_unported_runner_args(p: argparse.ArgumentParser) -> None:

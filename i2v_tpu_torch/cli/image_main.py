@@ -53,7 +53,6 @@ def arg_parse(argv=None, kind: str = "Image", default_step: int = 60):
     p.add_argument("--depth", type=int, default=1, help="tap depth 1-4")
     p.add_argument("--step_size", type=float, default=0.004)
     p.add_argument("--direction_image_model", default="resnet",
-                   type=common.direction_image_model,
                    choices=common.DIRECTION_IMAGE_MODELS)
     p.add_argument("--aens_momentum", type=float, default=0.0)
     p.add_argument("--coef_CE", action="store_true")

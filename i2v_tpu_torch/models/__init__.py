@@ -1,5 +1,6 @@
-"""Image backbones with explicit feature taps (the ENS surrogates) and the
-video backbones the white-box attacks target."""
+"""Image backbones with explicit feature taps (the ENS surrogates,
+DenseNet-161 and ViT-B/16) and the video backbones the white-box attacks
+target."""
 
 from .api import ImageModel, VideoModel  # noqa: F401
 from .registry import (  # noqa: F401

@@ -9,7 +9,10 @@ PyTorch counterpart of :mod:`i2v_tpu.models.common`:
     tap: no parameters, no compute (image_attacks.py:318,334 runs the full
     network and hooks the middle; the taps are identical).
   - BatchNorm is folded into the preceding conv (:func:`.convert.fold_bn`),
-    so the convs carry a bias and there is no BN module.
+    so the convs carry a bias and there is no BN module (DenseNet, which is
+    pre-activation, keeps a frozen affine instead).
+  - Every image module's forward takes ``tap_offset`` ({tap: tensor}),
+    added to the tap activation in-flow (Grad-CAM's exact ∂/∂tap).
 """
 
 from __future__ import annotations
@@ -32,6 +35,14 @@ def max_pool(x: torch.Tensor, kernel: int, stride: int, padding: int = 0,
     for every window shape used here (kernel ≥ stride) that is the JAX
     package's extra right/bottom −inf padding (tests pin the sizes)."""
     return F.max_pool2d(x, kernel, stride, padding, ceil_mode=ceil_mode)
+
+
+def add_offset(x: torch.Tensor, tap_offset, depth: int) -> torch.Tensor:
+    """``x + tap_offset[depth]`` where the caller passed one (Grad-CAM's
+    in-flow offset, differentiated at 0), else ``x`` itself."""
+    if tap_offset is not None and depth in tap_offset:
+        return x + tap_offset[depth]
+    return x
 
 
 def collect_tap(taps: dict, want: Sequence[int], depth: int, value) -> None:

@@ -3,8 +3,10 @@
 ``from_jax_params`` loads the JAX package's Flax parameter tree
 (``{"params": {...}}`` of numpy arrays) into a port module: the module names
 its submodules as the Flax tree names them, so a parameter ``a.b.weight``
-comes from ``params["a"]["b"]["kernel"]`` and ``a.b.bias`` from
-``params["a"]["b"]["bias"]``. Layouts change on the way:
+comes from ``params["a"]["b"]["kernel"]`` (``["scale"]`` for a LayerNorm)
+and ``a.b.bias`` from ``params["a"]["b"]["bias"]``; any other name passes
+through (DenseNet's ``scale``, ViT's top-level ``cls_token`` and
+``pos_embed``). Layouts change on the way:
 
   conv kernel  (kH, kW, I, O) → (O, I, kH, kW)
   3-D conv kernel (kT, kH, kW, I, O) → (O, I, kT, kH, kW)
@@ -12,6 +14,8 @@ comes from ``params["a"]["b"]["kernel"]`` and ``a.b.bias`` from
   dense kernel fed by a flatten: the input index runs over H·W·C in the JAX
   package and over C·H·W here (the inverse of
   ``i2v_tpu.models.convert.dense_kernel_from_flatten``).
+  1-D and 3-D leaves (biases, scales, ViT's token and position embeddings)
+  pass through untransposed.
 
 By default every port parameter must get a value and every Flax leaf must
 be used. ``mode="subset"`` lets the file hold more than the module (a
@@ -96,9 +100,18 @@ def _to_port_layout(name: str, w: np.ndarray, flatten_fed: Mapping[str, tuple]) 
     return w
 
 
-def _flax_key(name: str) -> str:
+def _scale_owners(module: nn.Module) -> frozenset:
+    """The submodules whose ``weight`` Flax names ``scale``: LayerNorms."""
+    return frozenset(n for n, m in module.named_modules() if isinstance(m, nn.LayerNorm))
+
+
+def _flax_key(name: str, scale_owners: frozenset = frozenset()) -> str:
+    if "." not in name:
+        return name  # a parameter of the module itself (ViT's cls_token, pos_embed)
     owner, kind = name.rsplit(".", 1)
-    return f"{owner}.{'kernel' if kind == 'weight' else kind}"
+    if kind == "weight":
+        kind = "scale" if owner in scale_owners else "kernel"
+    return f"{owner}.{kind}"
 
 
 def from_jax_params(module: nn.Module, flax_params: Mapping, mode: str = "strict") -> nn.Module:
@@ -112,10 +125,11 @@ def from_jax_params(module: nn.Module, flax_params: Mapping, mode: str = "strict
     tree = flax_params["params"] if "params" in flax_params else flax_params
     leaves = _flatten_leaves(tree)
     flatten_fed = getattr(module, "flatten_fed", {})
+    scale_owners = _scale_owners(module)
     used = set()
     with torch.no_grad():
         for name, p in module.named_parameters():
-            key = _flax_key(name)
+            key = _flax_key(name, scale_owners)
             if key not in leaves:
                 if mode == "overlay":
                     continue
@@ -153,9 +167,10 @@ def to_jax_params(module: nn.Module) -> dict:
     wrapper), float32 numpy leaves in Flax's layouts: what
     :func:`from_jax_params` reads back into the same module."""
     flatten_fed = getattr(module, "flatten_fed", {})
+    scale_owners = _scale_owners(module)
     tree: dict = {}
     for name, p in module.named_parameters():
-        *path, leaf = _flax_key(name).split(".")
+        *path, leaf = _flax_key(name, scale_owners).split(".")
         node = tree
         for k in path:
             node = node.setdefault(k, {})

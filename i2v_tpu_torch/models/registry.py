@@ -1,12 +1,19 @@
 """Image-model registry: names, depth→tap tables, construction, weights.
 
-PyTorch counterpart of :mod:`i2v_tpu.models.registry` for the four ENS
-surrogates. Depth indices map onto explicit tap keys:
+PyTorch counterpart of :mod:`i2v_tpu.models.registry`: the four ENS
+surrogates, DenseNet-161 and ViT-B/16. Depth indices map onto explicit tap
+keys:
 
   resnet      depth d → stage d output            (layer{d}[-1])
   alexnet     {1:1, 2:4, 3:7, 4:11}               (features[i] ReLU)
   vgg         {1:1, 2:11, 3:20, 4:29}             (features[i] ReLU)
   squeezenet  {1:3, 2:6, 3:9, 4:12}               (Fire expand3x3 ReLU)
+  densenet    depth d → dense block d output
+  vit         {1:2, 2:5, 3:8, 4:11}               (transformer block outputs)
+
+The tiny DenseNet has two dense blocks and the tiny ViT two transformer
+blocks: their taps are clamped into range and deduplicated, as in the JAX
+registry.
 
 Weights: a full-width model loads ``{I2V_TPU_CKPTS}/{name}.msgpack``, the
 JAX package's converted checkpoint (Flax msgpack, read by
@@ -27,8 +34,10 @@ from typing import Mapping, Sequence
 import torch
 import torch.nn as nn
 
+from . import densenet as _densenet
 from . import resnet as _resnet
 from . import vgg as _vgg
+from . import vit as _vit
 from .api import ImageModel
 from .convert import checkpoint_path, from_jax_params, load_params
 
@@ -48,6 +57,17 @@ DEPTH_TO_TAP: Mapping[str, Mapping[int, int]] = {
 _TRUNC_STD_CORRECTION = 0.87962566103423978
 
 
+def _clamped_taps(tap_keys, hi: int, lo: int = 1) -> tuple:
+    """Tap keys clamped into [lo, hi] and deduplicated in order, for the tiny
+    variants with fewer stages than the full-size tap tables."""
+    out: list = []
+    for t in tap_keys:
+        c = max(lo, min(t, hi))
+        if c not in out:
+            out.append(c)
+    return tuple(out)
+
+
 def build_image_model(name: str, depths: int | Sequence[int], *, truncate: bool = True,
                       tiny: bool = False, input_hw: int = 224):
     """Construct the module + ordered tap keys for reference-style (model
@@ -56,9 +76,6 @@ def build_image_model(name: str, depths: int | Sequence[int], *, truncate: bool 
     list_depths = not isinstance(depths, int)
     if isinstance(depths, int):
         depths = [depths]
-    if name in ("densenet", "vit"):
-        raise NotImplementedError(
-            f"{name!r} is not ported yet (ROADMAP Queue 1, 'Rest')")
     if name not in DEPTH_TO_TAP:
         raise ValueError(f"unknown image model {name!r}; have {IMAGE_MODEL_NAMES}")
     tap_keys = tuple(sorted(DEPTH_TO_TAP[name][d] for d in depths))
@@ -69,6 +86,20 @@ def build_image_model(name: str, depths: int | Sequence[int], *, truncate: bool 
         module = _vgg.VGG16(width_mult=0.125 if tiny else 1.0, input_hw=input_hw, **kw)
     elif name == "alexnet":
         module = _vgg.AlexNet(width_mult=0.125 if tiny else 1.0, input_hw=input_hw, **kw)
+    elif name == "densenet":
+        if tiny:
+            # two dense blocks: depth-3/4 taps clamp onto block 2
+            tap_keys = kw["taps"] = _clamped_taps(tap_keys, len(_densenet.TINY_BLOCKS))
+            module = _densenet.densenet_tiny(**kw)
+        else:
+            module = _densenet.densenet161(**kw)
+    elif name == "vit":
+        if tiny:
+            # clamp AND dedupe: distinct depths must not weigh one block twice
+            tap_keys = kw["taps"] = _clamped_taps(tap_keys, _vit.TINY_DEPTH - 1, lo=0)
+            module = _vit.vit_tiny(**kw)
+        else:
+            module = _vit.vit_base_patch16_224(**kw)
     else:
         # list depths (AENS) hook the whole Fire module — concat(e1,e3) —
         # where scalar depths hook the expand3x3 ReLU (TPAMI_attack.py:197-200
@@ -81,7 +112,10 @@ def build_image_model(name: str, depths: int | Sequence[int], *, truncate: bool 
 def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every conv/linear weight from a truncated normal of variance
     1/fan_in (fan_in = I·kH·kW, or I·kT·kH·kW for a 3-D conv), in
-    registration order, from ``generator``; zero the biases."""
+    registration order, from ``generator``; zero the biases. Norms (DenseNet's
+    frozen BN, LayerNorm) get ones and zeros, ViT's class token zeros and its
+    position embedding a normal of std 0.02 from the same generator (Flax's
+    initializers)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
@@ -90,6 +124,15 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
                                       generator=generator)
                 nn.init.zeros_(m.bias)
+            elif isinstance(m, _densenet.FrozenBN):
+                nn.init.ones_(m.scale)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.LayerNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, _vit.ViT):
+                nn.init.zeros_(m.cls_token)
+                nn.init.normal_(m.pos_embed, std=0.02, generator=generator)
     return module
 
 

@@ -17,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import pixel
-from .common import collect_tap, conv, deepest, max_pool
+from .common import add_offset, collect_tap, conv, deepest, max_pool
 
 
 class Bottleneck(nn.Module):
@@ -59,7 +59,10 @@ class ResNet(nn.Module):
         self.headless = truncate and bool(self.taps)
         self.fc = None if self.headless else nn.Linear(in_ch, num_classes)
 
-    def forward(self, x01):
+    def forward(self, x01, tap_offset=None):
+        """→ (logits or None, {stage: activation}). ``tap_offset`` ({stage:
+        tensor}) is added to the stage output in-flow: the gradient with
+        respect to it at 0 is the exact ∂/∂(tap) that Grad-CAM needs."""
         taps = {}
         x = pixel.normalize(x01, channel_axis=1)
         x = F.relu(self.stem(x))
@@ -67,6 +70,7 @@ class ResNet(nn.Module):
         for stage in range(self.n_stages):
             for block in range(self.stage_sizes[stage]):
                 x = getattr(self, f"layer{stage + 1}_{block}")(x)
+            x = add_offset(x, tap_offset, stage + 1)
             collect_tap(taps, self.taps, stage + 1, x)
         if self.headless:
             return None, taps

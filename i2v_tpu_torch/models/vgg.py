@@ -10,6 +10,8 @@ PyTorch counterpart of :mod:`i2v_tpu.models.vgg`, NCHW. Submodules are named
 as the JAX parameter tree names them (``conv{i}``, ``fire{i}.squeeze``,
 ``fc1``...). The classifier heads of VGG and AlexNet are fed by a flatten;
 ``flatten_fed`` records the (C, H, W) of that flatten for the converter.
+Each forward takes ``tap_offset`` ({index: tensor}), added to the tap in-flow
+(Grad-CAM).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import pixel
-from .common import collect_tap, conv, deepest, max_pool
+from .common import add_offset, collect_tap, conv, deepest, max_pool
 
 _VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
               512, 512, 512, "M", 512, 512, 512, "M")
@@ -75,14 +77,14 @@ class VGG16(nn.Module):
         if not self.headless:
             _add_mlp_head(self, in_ch * s * s, num_classes)
 
-    def forward(self, x01):
+    def forward(self, x01, tap_offset=None):
         taps = {}
         x = pixel.normalize(x01, channel_axis=1)
         for kind, idx in self.plan:
             if kind == "pool":
                 x = max_pool(x, 2, 2)
             else:
-                x = F.relu(getattr(self, f"conv{idx}")(x))
+                x = add_offset(F.relu(getattr(self, f"conv{idx}")(x)), tap_offset, idx + 1)
                 collect_tap(taps, self.taps, idx + 1, x)
         if self.headless:
             return None, taps
@@ -117,11 +119,12 @@ class AlexNet(nn.Module):
         if not self.headless:
             _add_mlp_head(self, in_ch * s * s, num_classes)
 
-    def forward(self, x01):
+    def forward(self, x01, tap_offset=None):
         taps = {}
         x = pixel.normalize(x01, channel_axis=1)
         for conv_idx, pool_after in self.plan:
-            x = F.relu(getattr(self, f"conv{conv_idx}")(x))
+            x = add_offset(F.relu(getattr(self, f"conv{conv_idx}")(x)), tap_offset,
+                           conv_idx + 1)
             collect_tap(taps, self.taps, conv_idx + 1, x)
             if pool_after:
                 x = max_pool(x, 3, 2)
@@ -137,13 +140,20 @@ class Fire(nn.Module):
         self.expand1x1 = conv(squeeze, expand, 1)
         self.expand3x3 = conv(squeeze, expand, 3, 1, 1)
 
-    def forward(self, x):
+    def forward(self, x, offset=None, offset_on_concat: bool = False):
         """Returns (concat output, expand3x3 ReLU) — the second value is the
-        reference's scalar-depth SqueezeNet tap (``expand3x3_activation``)."""
+        reference's scalar-depth SqueezeNet tap (``expand3x3_activation``).
+        ``offset`` is added in-flow to whichever tensor is the tap: e3 by
+        default, the concat when ``offset_on_concat`` (list-depth taps)."""
         s = F.relu(self.squeeze(x))
         e1 = F.relu(self.expand1x1(s))
         e3 = F.relu(self.expand3x3(s))
-        return torch.cat([e1, e3], dim=1), e3
+        if offset is not None and not offset_on_concat:
+            e3 = e3 + offset
+        out = torch.cat([e1, e3], dim=1)
+        if offset is not None and offset_on_concat:
+            out = out + offset
+        return out, e3
 
 
 class SqueezeNet11(nn.Module):
@@ -176,7 +186,7 @@ class SqueezeNet11(nn.Module):
         self.headless = truncate and bool(self.taps)
         self.classifier = None if self.headless else conv(in_ch, num_classes, 1)
 
-    def forward(self, x01):
+    def forward(self, x01, tap_offset=None):
         taps = {}
         x = pixel.normalize(x01, channel_axis=1)
         x = F.relu(self.conv0(x))
@@ -184,7 +194,8 @@ class SqueezeNet11(nn.Module):
         for idx, pool_before in self.plan:
             if pool_before:
                 x = max_pool(x, 3, 2, ceil_mode=True)
-            x, e3 = getattr(self, f"fire{idx}")(x)
+            off = tap_offset.get(idx) if tap_offset is not None else None
+            x, e3 = getattr(self, f"fire{idx}")(x, off, self.fire_taps)
             collect_tap(taps, self.taps, idx, x if self.fire_taps else e3)
         if self.headless:
             return None, taps

@@ -160,7 +160,16 @@ def opt_path(tmp_path, monkeypatch):
     return tmp_path
 
 
-def test_cli_evaluates_a_tiny_generation_run_on_the_cpu(opt_path, capsys):
+@pytest.fixture
+def tf32_flags_restored(monkeypatch):
+    """``--matmul_precision`` sets torch's process-wide TF32 flags; they are
+    put back after the test."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", torch.backends.cudnn.allow_tf32)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32",
+                        torch.backends.cuda.matmul.allow_tf32)
+
+
+def test_cli_evaluates_a_tiny_generation_run_on_the_cpu(opt_path, capsys, tf32_flags_restored):
     run_dir = image_main.main(["--attack_method", "ImageGuidedFML2_Adam_MultiModels", "--tiny",
                                "--n_synthetic", "2", "--step", "2", "--device", "cpu"])
     # a bare run name resolves under I2V_TPU_OPT_PATH

@@ -163,13 +163,11 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags,item", [
     (["--model_parallel", "2"], "item 9"),
-    (["--direction_image_model", "densenet"], "item 9"),
-    (["--direction_image_model", "vit"], "item 9"),
 ])
 def test_cli_rejects_methods_not_ported_yet(tmp_path, monkeypatch, capsys, flags, item):
-    """The JAX image CLI's --model_parallel and its densenet/vit surrogates
-    are refused, naming the ROADMAP item; its four methods are all accepted,
-    and so are its other runner flags."""
+    """The JAX image CLI's --model_parallel is refused, naming the ROADMAP
+    item; its four methods are all accepted, and so are its other runner
+    flags and its six surrogates."""
     from i2v_tpu.cli import image_main as jimage_main
     from i2v_tpu_torch.cli import image_main
 
@@ -185,6 +183,50 @@ def test_cli_rejects_methods_not_ported_yet(tmp_path, monkeypatch, capsys, flags
     assert vars(image_main.arg_parse(ported)).items() >= {
         "sharded": True, "frame_chunk": "auto", "param_dtype": "bfloat16", "multigrid": 12,
         "multigrid_scale": 4}.items()
+    for name in ("resnet", "vgg", "alexnet", "squeezenet", "densenet", "vit"):
+        argv = ["--direction_image_model", name]
+        assert image_main.arg_parse(argv).direction_image_model == \
+            jimage_main.arg_parse(argv).direction_image_model == name
+
+
+@pytest.mark.parametrize("name,method,depth", [
+    ("densenet", "ImageGuidedFMDirection_Adam", 3),
+    ("vit", "ImageGuidedStd_Adam", 4),
+])
+def test_cli_runs_densenet_and_vit_like_the_jax_cli(tmp_path, monkeypatch, name, method, depth):
+    """I2V on the tiny DenseNet and DR on the tiny ViT, one step through the
+    port's ``cli.image_main`` and the JAX CLI's over the same clip, the JAX
+    CLI handed the port's seeded surrogate (``to_jax_params``): the same
+    (clamped) tap and the same step-0 cost."""
+    from i2v_tpu.cli import common as jcommon
+    from i2v_tpu.cli import image_main as jimage_main
+    from i2v_tpu.models import ImageModel as JImageModel
+    from i2v_tpu.models import registry as jregistry
+    from i2v_tpu_torch.cli import image_main
+    from i2v_tpu_torch.models import get_image_models
+    from i2v_tpu_torch.models.convert import to_jax_params
+
+    monkeypatch.setenv("I2V_TPU_OPT_PATH", str(tmp_path))
+    seen = {}
+
+    def jax_twins(names, depths, *, tiny, input_hw):
+        (b,) = get_image_models(names, depths, device="cpu", tiny=tiny, input_hw=input_hw)
+        module, taps = jregistry.build_image_model(b.name, depths, truncate=True, tiny=tiny)
+        seen["taps"] = (taps, b.tap_keys)
+        return [JImageModel(b.name, module, {"params": to_jax_params(b.module)}, taps)]
+
+    monkeypatch.setattr(jcommon, "get_image_models", jax_twins)
+    argv = ["--attack_method", method, "--direction_image_model", name, "--depth", str(depth),
+            "--step", "1", "--tiny", "--n_synthetic", "1", "--clip_len", "4"]
+    costs = []
+    for run in (jimage_main.main(argv + ["--file_prefix", "jax"]),
+                image_main.main(argv + ["--device", "cpu"])):
+        assert jartifacts.list_adv_files(run) == ["0-adv.npy"]
+        with open(os.path.join(run, "loss_info_1.json")) as f:
+            costs.append(float(json.load(f)["synthetic_0"]["0"]["cost"]))
+    taps, port_taps = seen["taps"]
+    assert taps == port_taps == ((2,) if name == "densenet" else (1,))
+    np.testing.assert_allclose(costs[1], costs[0], rtol=1e-5)
 
 
 def _kinetics_sidecars(root, monkeypatch, n=2):

@@ -173,6 +173,10 @@ def test_registry_seeded_init_and_unported_names():
         other = registry.get_image_models(["squeezenet"], 2, device="cpu", seed=5)[0]
     assert not torch.equal(full.module.conv0.weight, other.module.conv0.weight)
 
-    for name in ("densenet", "vit"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.build_image_model(name, 2)
+    # densenet and vit build with the JAX tap tables;
+    # an unknown name is still refused
+    for name, taps in (("densenet", (2,)), ("vit", (5,))):
+        module, got = registry.build_image_model(name, 2, tiny=False)
+        assert got == taps and module.taps == taps and module.headless
+    with pytest.raises(ValueError, match="unknown image model"):
+        registry.build_image_model("inception", 2)
