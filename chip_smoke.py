@@ -93,14 +93,28 @@ raises and the script exits non-zero:
                  vit.msgpack written by save_params and loaded through the
                  registry, logits bit for bit; cli.evaluate -> cli.report on the
                  I2V run; cli.run_grid layer_ablation --limit 1 --step 2
+ 27. bf16      — 3-step ENS-I2V at B=16 x 32 x 224^2 with the four surrogates
+                 in bf16 (compute and storage) through the runner's library
+                 call: "auto" = the whole batch, K1/K2 = steps+1/steps, the cost
+                 falls, steps/s and peak; its step-0 cost at B=2 and a generic
+                 modifier within 1e-2 of float32's; the six full-width video
+                 models over its 16 artifacts through cli.evaluate --bf16
+                 --single_pass and the float32 twin (TF32 off): clips/s, peaks,
+                 each model's bf16 logits and stage outputs within 5% (relative
+                 L2) of float32's (I3D past its non-local blocks: 50%), top-1
+                 agreement printed; ViT-B/16's bf16 logits against
+                 float32's with cuBLAS's bf16 reduced-precision reductions off
+                 and on; 3-step AENS-I2V-MF at B=16 with a bf16 first moment
+                 (mu_dtype): its peak beside a float32 moment's
 
 Phase 3 also holds K1/K2 to their plain versions at the chunked runner's
 shapes: a 512-frame call (B=16), a 128-frame chunk that starts 128 frames
 into a 512-frame modifier, and a 112² call (multigrid's coarse phase).
 Each path (slice, eval, whitebox, sf whitebox, aens, dr, fused, ilaf, wb
 family, tt, remat, ucf101, chunked aens, chunk equality, multigrid, real
-data's ENS, twin, BIM and UCF-101 runs, and zoo + gradcam's DenseNet and ViT
-runs, Grad-CAM, evaluation and grid) is
+data's ENS, twin, BIM and UCF-101 runs, zoo + gradcam's DenseNet and ViT
+runs, Grad-CAM, evaluation and grid, and bf16's ENS, evaluations and
+mu_dtype AENS) is
 driven with the launch counters set to 0 just before it and read just
 after.
 The line before the last is a JSON object with each kernel's launches over
@@ -2037,6 +2051,250 @@ def phase_zoo_gradcam(kernels, image_main, synthetic, get_bundle, pixel_mean_std
     return totals
 
 
+# The "bf16" phase. Bounds, from the CPU tests (tests/test_torch_bf16.py): a
+# tiny video model in bfloat16 is 0.45-0.93% (relative L2) off its float32
+# twin's logits through ~20 convs, ~0.2% a conv as the roundings add up in
+# quadrature; ResNet-101 depth puts ~100 convs in a model, so ~2% is
+# expected at full width, and twice that is held: for the logits and every
+# stage of SlowFast and TPN, and for I3D's first stage. I3D's later stages
+# follow its five non-local blocks, whose softmax over T·H·W tokens takes
+# logits θφᵀ that random weights without BN make large, so bf16's rounding
+# of θ and φ moves the attention weights far more than it moves a conv's
+# output (the JAX block computes in the same dtypes; the CPU tests hold the
+# port's to it bit for bit). On an H100 80GB HBM3 at 700 W, I3D-R50's bf16
+# logits are 10.2% off (res_layer1 0.49%, res_layer2 5.4%, res_layer3 17.6%;
+# PERF.md §6). Past those blocks the phase holds the output only
+# against a broken path: two unrelated outputs are ~√2 apart, a zeroed one 1.
+BF16_CLIPS, BF16_STEPS = 16, 3
+BF16_LOGITS_L2 = 0.05     # relative L2 of a bf16 output vs float32, as above
+BF16_NL_L2 = 0.5          # I3D's logits and stages after a non-local block
+I3D_PRE_NL = ("res_layer1",)
+BF16_COST_RTOL = 1e-2     # bf16 ENS step-0 cost vs f32 at B=2 and a generic modifier;
+                          # the tiny CPU runner's differ by 1.2e-5 at the flat start
+# AENS-I2V-MF at B=16, the 256-frame auto chunk, TF32 off, with a float32 first
+# moment: the peak `tools/torch_eval_profile.py --attacks --frame_chunk 256`
+# measured on an H100 80GB HBM3 at 700 W (PERF.md §5)
+F32_MU_PEAK_GIB = 44.87
+
+
+def _nl_logit_scale(bundle, clip) -> list:
+    """(max |θφᵀ|, std) of each non-local block's attention logits in one
+    forward of ``bundle`` over ``clip``, recomputed from the block's input."""
+    from i2v_tpu_torch.models.video_common import NonLocal3D, max_pool_hw2
+
+    out = []
+
+    def hook(mod, inp, _):
+        x = inp[0]
+        theta, phi = mod.theta(x), mod.phi(x)
+        if mod.sub_sample:
+            phi = max_pool_hw2(phi)
+        b, c = theta.shape[:2]
+        a = torch.matmul(theta.reshape(b, c, -1).transpose(1, 2).float(),
+                         phi.reshape(b, c, -1).float())
+        out.append((float(a.abs().max()), float(a.std())))
+
+    hooks = [m.register_forward_hook(hook) for m in bundle.module.modules()
+             if isinstance(m, NonLocal3D)]
+    try:
+        with torch.inference_mode():
+            bundle.apply_norm(clip)
+    finally:
+        for h in hooks:
+            h.remove()
+    return out
+
+
+def phase_bf16(kernels, evaluate_cli, synthetic, pixel, card: str, tmp: str) -> dict:
+    """bfloat16 at full width: 3-step ENS-I2V at B=16 x 32 x 224^2 with the four
+    surrogates computing and storing their weights in bf16 (the runner's
+    library call; "auto" resolves to the whole batch), its step-0 cost held to
+    the float32 runner's at B=2; the six video models in bf16 over its 16
+    artifacts through cli.evaluate --bf16 --single_pass, then the float32 twin
+    (TF32 off), their logits compared; 3-step AENS-I2V-MF at B=16 with a bf16
+    first moment (mu_dtype). Returns the launch counts of the runner calls."""
+    import argparse
+
+    from i2v_tpu_torch.cli import common as cli_common
+    from i2v_tpu_torch.models import get_image_models, get_video_model, video_zoo
+    from i2v_tpu_torch.parallel import sharded
+    from i2v_tpu_torch.utils import artifacts
+
+    t0 = time.time()
+    bf16, f32 = torch.bfloat16, torch.float32
+    facts, totals = [], {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
+    tf32_off = argparse.Namespace(matmul_precision="float32")
+    cli_common.apply_matmul_precision(tf32_off)
+    ds = synthetic.SyntheticAttackDataset(n_samples=BF16_CLIPS)
+    clean01 = torch.from_numpy(np.stack([ds.clip01(i) for i in range(BF16_CLIPS)])).cuda()
+    t, hw = ds.clip_len, ds.size
+    ens = {"resnet": 2, "vgg": 3, "squeezenet": 2, "alexnet": 3}
+
+    # -- ENS-I2V at B=16 in bf16, and its step-0 cost against float32's at B=2
+    tb = time.time()
+    surr16 = get_image_models(list(ens), ens, device="cuda", dtype=bf16)
+    surr32 = get_image_models(list(ens), ens, device="cuda")
+    build_s = time.time() - tb
+    dt = sharded.compute_dtype_of(surr16)
+    chunk = sharded.resolve_frame_chunk("auto", BF16_CLIPS * t, (hw, hw), dt)
+    if dt != bf16 or chunk is not None:
+        raise RuntimeError(f"a bf16 ensemble resolves to {dt}, chunk {chunk}: expected whole")
+    runner = sharded.make_sharded_i2v_runner(surr16, steps=BF16_STEPS, step_size=0.005,
+                                             frame_chunk="auto", param_dtype=bf16)
+    runner(clean01)                                  # first use of the shapes
+    torch.cuda.synchronize()
+    want = {"rebuild_fwd": BF16_STEPS * 1 + 1, "rebuild_bwd": BF16_STEPS * 1, "sign_step": 0}
+
+    def timed_call():
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = runner(clean01)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - ts
+
+    ((adv01, costs), wall), counts, peak = _run_counted(kernels, "bf16 ENS", want, timed_call)
+    for k in totals:
+        totals[k] += counts[k]
+    costs = costs.cpu().numpy()
+    if not (np.isfinite(costs).all() and costs[-1] < costs[0]):
+        raise RuntimeError(f"bf16 ENS: the cost did not fall after step 0: {costs}")
+    if float((adv01 - clean01).abs().max()) > EPS + 1e-5 or adv01.min() < 0 or adv01.max() > 1:
+        raise RuntimeError("bf16 ENS: an adversarial clip left the ε-ball or [0,1]")
+    gen = torch.Generator().manual_seed(21)
+    mod = ((torch.rand(2 * t, 3, hw, hw, generator=gen) * 2 - 1) * 0.9 * EPS).cuda()
+    c16, _ = sharded.make_sharded_i2v_runner(surr16, steps=1, param_dtype=bf16) \
+        .value_and_grad(clean01[:2], mod)
+    c32, _ = sharded.make_sharded_i2v_runner(surr32, steps=1).value_and_grad(clean01[:2], mod)
+    c16, c32 = float(c16), float(c32)
+    if not abs(c16 - c32) <= BF16_COST_RTOL * abs(c32):
+        raise RuntimeError(f"bf16 ENS step-0 cost {c16} vs float32's {c32} at B=2: beyond "
+                           f"rtol {BF16_COST_RTOL}")
+    facts.append(
+        f"ENS-I2V bf16 (compute and storage) at B={BF16_CLIPS} x {t} x {hw}^2, {BF16_STEPS} "
+        f"steps, frame_chunk auto = whole ({dt}): {BF16_STEPS / wall:.4f} steps/s and "
+        f"{BF16_CLIPS / wall:.4f} clips/s ({wall:.3f} s for the warm call, the clean taps and "
+        f"the final rebuild included), peak {peak:.2f} GiB, launches {counts} = steps·chunks+1"
+        f"/steps·chunks; costs {np.round(costs, 4).tolist()}; step-0 cost at B=2 and a "
+        f"generic modifier {c16:.6f} vs float32's {c32:.6f} (rel "
+        f"{abs(c16 - c32) / abs(c32):.2e}, bound {BF16_COST_RTOL}); surrogates built in "
+        f"{build_s:.2f} s")
+    del surr16, surr32, runner
+    torch.cuda.empty_cache()
+    run_dir = os.path.join(tmp, "bf16_ens")
+    adv = pixel.normalize(adv01, channel_axis=1).cpu().numpy()
+    for label in range(BF16_CLIPS):
+        artifacts.save_adv_clip(run_dir, label, adv[label])
+    del adv01, adv
+
+    # -- the six video models, bf16 and float32, through cli.evaluate --single_pass
+    tb = time.time()
+    models = {d: {n: get_video_model(n, device="cuda", dtype=d)
+                  for n in video_zoo.VIDEO_BUILDERS} for d in (bf16, f32)}
+    build_s = time.time() - tb
+    tp, reports = {}, {}
+    for d, flags in ((bf16, ["--bf16"]), (f32, ["--matmul_precision", "float32"])):
+        argv = ["--adv_path", run_dir, "--device", "cuda", "--single_pass"] + flags
+        evaluate_cli.run(evaluate_cli.arg_parse(argv), get_bundle=models[d].get)  # warm-up
+        args = evaluate_cli.arg_parse(argv)
+        _, counts, peak = _run_counted(kernels, f"evaluate {d}", {k: 0 for k in totals},
+                                       lambda: evaluate_cli.run(args, get_bundle=models[d].get))
+        tp[d] = (args.throughput["single_pass"], peak)
+        with open(os.path.join(run_dir, REPORT_CSV)) as f:
+            reports[d] = [row.split(",") for row in f.read().split("\n")[1:1 + BF16_CLIPS]]
+    names = list(video_zoo.VIDEO_BUILDERS)
+    agree = {n: sum(r16[i + 1] == r32[i + 1] for r16, r32 in zip(reports[bf16], reports[f32]))
+             / BF16_CLIPS for i, n in enumerate(names)}
+    clips, _ = artifacts.load_adv_batch(run_dir, artifacts.list_adv_files(run_dir))
+    clips = torch.from_numpy(clips).cuda()
+    cli_common.apply_matmul_precision(tf32_off)
+    rel, rel_taps = {}, {}
+    with torch.inference_mode():
+        for n in names:
+            l16, t16 = models[bf16][n].module(clips, normalize=False)
+            l32, t32 = models[f32][n].module(clips, normalize=False)
+            rel[n] = float((l16 - l32).norm() / l32.norm())
+            rel_taps[n] = {k: float((t16[k].float() - t32[k]).norm() / t32[k].norm())
+                           for k in t32}
+        del l16, t16, l32, t32
+        scale = _nl_logit_scale(models[f32]["i3d_resnet50"], clips[:1])
+    print("[bf16] relative L2, bf16 vs float32, of each stage's output: " + "; ".join(
+        f"{n}: " + ", ".join(f"{k} {v:.3e}" for k, v in r.items()) for n, r in rel_taps.items())
+        + "; I3D-R50's non-local attention logits θφᵀ on one clip, max |·| (std) a block: "
+        + ", ".join(f"{m:.3e} ({sd:.3e})" for m, sd in scale))
+    for n in names:
+        for k, v in [("logits", rel[n])] + list(rel_taps[n].items()):
+            bound = BF16_NL_L2 if n.startswith("i3d") and k not in I3D_PRE_NL \
+                else BF16_LOGITS_L2
+            if not v <= bound:
+                raise RuntimeError(f"{n} {k}: bf16 off float32 by {v} (relative L2), beyond "
+                                   f"{bound}")
+    facts.append(
+        f"six video models at full width ({BF16_CLIPS} artifacts, B=16, single pass, built "
+        f"in {build_s:.2f} s): bf16 {tp[bf16][0]['clips_per_sec']:.3f} clips/s, peak "
+        f"{tp[bf16][1]:.2f} GiB; float32 (TF32 off) {tp[f32][0]['clips_per_sec']:.3f} "
+        f"clips/s, peak {tp[f32][1]:.2f} GiB; logits relative L2 bf16 vs float32 "
+        + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
+        + f" (bound {BF16_LOGITS_L2}, I3D's {BF16_NL_L2}); top-1 agreement (printed, random "
+        "weights) "
+        + ", ".join(f"{n} {v:.3f}" for n, v in agree.items()))
+    del models, clips
+    torch.cuda.empty_cache()
+
+    # -- ViT-B/16's bf16 logits with and without cuBLAS's bf16 reduced-precision
+    # reductions (the CLIs turn them off), each against float32 (TF32 off)
+    vit = {d: get_image_models(["vit"], 4, device="cuda", truncate=False, dtype=d)[0]
+           for d in (bf16, f32)}
+    frames = clean01[0].transpose(0, 1)                    # the 32 frames of clip 0
+    vit_rel = {}
+    with torch.inference_mode():
+        cli_common.apply_matmul_precision(tf32_off)
+        l32 = vit[f32].apply01(frames)
+        for reduced in (False, True):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+            vit_rel[reduced] = float((vit[bf16].apply01(frames) - l32).norm() / l32.norm())
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    facts.append(f"ViT-B/16 bf16 logits over {t} frames, relative L2 vs float32: "
+                 f"{vit_rel[False]:.4e} with bf16 reduced-precision reductions off (the "
+                 f"CLIs' setting), {vit_rel[True]:.4e} with them on (torch's default)")
+    del vit, l32
+
+    # -- AENS-I2V-MF at B=16 with a bf16 first moment (mu_dtype), float32 compute
+    cli_common.apply_matmul_precision(tf32_off)
+    aens = {n: [2, 3] for n in ens}
+    surr = get_image_models(list(aens), aens, device="cuda")
+    runner = sharded.make_sharded_i2v_runner(surr, steps=BF16_STEPS, step_size=0.005,
+                                             adaptive=True, aens_momentum=AENS_MOMENTUM,
+                                             frame_chunk="auto", mu_dtype=bf16,
+                                             opt_state_io=True)
+    n_chunks = BF16_CLIPS * t // sharded.snap_frame_chunk(
+        sharded.resolve_frame_chunk("auto", BF16_CLIPS * t, (hw, hw)), BF16_CLIPS * t)
+    want = {"rebuild_fwd": BF16_STEPS * n_chunks + 1, "rebuild_bwd": BF16_STEPS * n_chunks,
+            "sign_step": 0}
+    ts = time.perf_counter()
+    (adv01, costs, (count, mu, _)), counts, peak = _run_counted(
+        kernels, "mu_dtype AENS", want, lambda: runner(clean01))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - ts
+    for k in totals:
+        totals[k] += counts[k]
+    costs = costs.cpu().numpy()
+    if mu.dtype != bf16 or int(count) != BF16_STEPS or not costs[-1] < costs[0]:
+        raise RuntimeError(f"mu_dtype AENS: mu {mu.dtype}, count {count}, costs {costs}")
+    if float((adv01 - clean01).abs().max()) > EPS + 1e-5:
+        raise RuntimeError("mu_dtype AENS: an adversarial clip left the ε-ball")
+    facts.append(
+        f"AENS-I2V-MF float32 (TF32 off) with mu_dtype bf16 at B={BF16_CLIPS}, "
+        f"{BF16_STEPS} steps, {n_chunks} chunks a step: peak {peak:.2f} GiB (with a float32 "
+        f"moment: {F32_MU_PEAK_GIB} GiB), {BF16_STEPS / wall:.4f} steps/s ({wall:.3f} s, "
+        f"cold, the clean taps included), launches {counts}; costs "
+        f"{np.round(costs, 4).tolist()}; the first moment stored in {mu.dtype}")
+    del surr, runner, adv01, mu
+    torch.cuda.empty_cache()
+    print(f"[bf16] on {card}: " + "; ".join(facts) + f"; launches {totals}; phase wall "
+          f"{time.time() - t0:.2f} s")
+    return totals
+
+
 def main() -> None:
     name, card = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2098,8 +2356,9 @@ def main() -> None:
                                pixel, card, tmp)
         zoo = phase_zoo_gradcam(kernels, image_main, synthetic, get_bundle, (mean, std), tmp)
         video_models.clear()
+        bf16 = phase_bf16(kernels, evaluate_cli, synthetic, pixel, card, tmp)
         for k in counts:
-            counts[k] += real[k] + zoo[k]
+            counts[k] += real[k] + zoo[k] + bf16[k]
     print(f"[done] every phase passed in {time.time() - t0:.2f} s after the device check")
 
     where = {"rebuild_fwd": ("i2v_tpu_torch/csrc/rebuild_adv.cu",

@@ -90,7 +90,8 @@ def add_data_args(p: argparse.ArgumentParser) -> None:
                    help="float32 convs and matmuls on the card: 'float32' turns "
                         "TF32 off for cuDNN and cuBLAS; 'high' allows TF32 for "
                         "both; unset/'default' keeps torch's defaults (TF32 "
-                        "convs, full-float32 matmuls)")
+                        "convs, full-float32 matmuls). No mode touches bfloat16 "
+                        "work, whose GEMMs always reduce in float32")
     p.add_argument("--device", default="cuda",
                    help="torch device to attack on (cuda, cuda:N or cpu)")
 
@@ -115,14 +116,23 @@ def resolve_device(args) -> torch.device:
 
 def apply_matmul_precision(args) -> str:
     """Set the float32 precision of cuDNN convs and cuBLAS matmuls from
-    --matmul_precision and return a description of the mode in force."""
+    --matmul_precision and return a description of the mode in force.
+
+    The TF32 flags touch float32 work only. bfloat16 GEMMs (the heads, ViT's
+    linears) are held to float32 reductions in every mode: torch lets cuBLAS
+    reduce them in bfloat16 by default
+    (``allow_bf16_reduced_precision_reduction``), while the JAX modules
+    accumulate a bfloat16 product in float32. cuDNN's bfloat16 convs
+    accumulate in float32 either way."""
     prec = getattr(args, "matmul_precision", None) or "default"
     conv_tf32, matmul_tf32 = {"float32": (False, False), "high": (True, True),
                               "default": (True, False)}[prec]
     torch.backends.cudnn.allow_tf32 = conv_tf32
     torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return (f"{prec} (cudnn.allow_tf32={conv_tf32}, "
-            f"cuda.matmul.allow_tf32={matmul_tf32})")
+            f"cuda.matmul.allow_tf32={matmul_tf32}, "
+            "bf16 reduced-precision reduction off)")
 
 
 def build_dataset(args):

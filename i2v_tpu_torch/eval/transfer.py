@@ -18,7 +18,9 @@ and uploaded with ``non_blocking=True``; forwards run under
 predictions and the accuracy come back. The serial mode swaps models as the
 reference does (reference.py:124-125: ``del`` and ``empty_cache``); the
 single-pass mode keeps every model resident and runs each uploaded batch
-through all of them.
+through all of them. ``dtype=torch.bfloat16`` builds the models to compute
+in bfloat16 (``cli.evaluate --bf16``); top-1 can then differ from float32's
+on borderline clips.
 """
 
 from __future__ import annotations
@@ -41,7 +43,10 @@ MULTI_DEVICE_ITEM = "ROADMAP Queue 1, item 9 (multi-device)"
 
 def accuracy_and_preds(logits: torch.Tensor, labels: torch.Tensor):
     """Top-1 accuracy (%) and predictions, on the logits' device (reference:
-    reference.py:28-36): the float32 mean of the hits, times 100."""
+    reference.py:28-36): the float32 mean of the hits, times 100. The argmax
+    is taken of the logits as the model gives them (a bfloat16 model's
+    logits are bfloat16 values in float32) and picks the first index on a
+    tie, as ``jnp.argmax`` does; ties are far more common in bfloat16."""
     preds = torch.argmax(logits, dim=-1)
     acc = 100.0 * (preds == labels).to(torch.float32).mean()
     return acc, preds
@@ -188,6 +193,7 @@ def evaluate_run(
     n_classes: int = 400,
     ucf101: bool = False,
     tiny: bool = False,
+    dtype: torch.dtype = torch.float32,
     get_bundle: Optional[Callable] = None,
     device: torch.device | str = "cuda",
     mesh=None,
@@ -199,9 +205,11 @@ def evaluate_run(
     """Evaluate a run directory against the video models (default: all six)
     and write the two reports into it. Returns ``{model: top1}``.
 
-    ``get_bundle(name)`` supplies a model in place of
-    ``get_video_model(name, device=device, ...)``. ``single_pass=True`` keeps
-    all models resident and reads and uploads each batch once. A
+    ``dtype`` is the models' compute dtype. ``get_bundle(name)`` supplies a
+    model in place of ``get_video_model(name, device=device, dtype=dtype,
+    ...)``, and a model of another compute dtype than ``dtype`` is refused,
+    so that the reports say what they were computed in. ``single_pass=True``
+    keeps all models resident and reads and uploads each batch once. A
     ``throughput`` dict is filled with the clips/s of each model's
     evaluation (serial) or of the whole pass (``"single_pass"``), each timed
     on the host's clock around work that ends in a device synchronize."""
@@ -218,9 +226,12 @@ def evaluate_run(
     throughput = {} if throughput is None else throughput
 
     def build(name):
-        if get_bundle is not None:
-            return get_bundle(name)
-        return get_video_model(name, device=device, tiny=tiny, ucf101=ucf101)
+        if get_bundle is None:
+            return get_video_model(name, device=device, tiny=tiny, ucf101=ucf101, dtype=dtype)
+        bundle = get_bundle(name)
+        if bundle.dtype != dtype:
+            raise ValueError(f"{name} computes in {bundle.dtype}, the evaluation in {dtype}")
+        return bundle
 
     def timed(key: str, dev: torch.device, fn):
         _sync(dev)

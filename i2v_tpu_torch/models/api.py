@@ -4,6 +4,8 @@ PyTorch counterparts of :class:`i2v_tpu.models.api.ImageModel` and
 :class:`i2v_tpu.models.api.VideoModel`. The module holds its own weights.
 Image bundles take NCHW frames ``(N, C, H, W)`` in the [0,1] domain; video
 bundles take clips ``(B, C, T, H, W)``, the artifact-protocol layout.
+Both expose their module's compute dtype (``dtype``), which the runner reads
+to size its frame chunks, as the JAX runner reads ``m.module.dtype``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,10 @@ class ImageModel:
     @property
     def device(self) -> torch.device:
         return next(self.module.parameters()).device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(self.module, "dtype", torch.float32)
 
     def apply01(self, frames01_nchw: torch.Tensor) -> torch.Tensor:
         logits, _ = self.module(frames01_nchw)
@@ -53,6 +59,10 @@ class VideoModel:
     @property
     def device(self) -> torch.device:
         return next(self.module.parameters()).device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(self.module, "dtype", torch.float32)
 
     def _run(self, clip, normalize: bool):
         return self.module(clip, normalize=normalize, relu_grad_scale=self.relu_grad_scale)

@@ -13,6 +13,15 @@ PyTorch counterpart of :mod:`i2v_tpu.models.common`:
     pre-activation, keeps a frozen affine instead).
   - Every image module's forward takes ``tap_offset`` ({tap: tensor}),
     added to the tap activation in-flow (Grad-CAM's exact ∂/∂tap).
+  - Every image and video module takes a compute ``dtype`` (float32 by
+    default), in the JAX modules' order: ImageNet normalization runs in
+    float32 on the [0,1] input and the cast to ``dtype`` comes after it;
+    convs and linears compute in ``dtype`` on weights cast to it (Flax's
+    ``nn.Conv(dtype=...)``, whose output is ``dtype``); the logits come back
+    as float32. The conv and linear weights are held in ``dtype`` (Flax casts
+    its float32 parameters at every call; the values are the same), while
+    norms and embeddings keep float32 and are cast where they are used, as
+    the JAX modules cast them.
 """
 
 from __future__ import annotations
@@ -24,9 +33,61 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in its weight's dtype: the input is cast
+    to it first, as Flax's ``nn.Conv(dtype=...)`` promotes its input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        return self._conv_forward(x.to(w.dtype), w, self.bias)
+
+
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` that computes in its weight's dtype (see :class:`Conv2d`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        return self._conv_forward(x.to(w.dtype), w, self.bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in its weight's dtype, as Flax's
+    ``nn.Dense(dtype=...)``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        return F.linear(x.to(w.dtype), w, self.bias)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype = torch.float32) -> nn.Module:
+    """Cast the weights and biases of every conv and linear layer of
+    ``module`` to ``dtype``, record ``dtype`` as its compute dtype
+    (``module.dtype``) and return it. Norms and embeddings keep their
+    dtype. Casting float32 weights rounds them once, to the values Flax's
+    modules compute with; a float32 model cast to bfloat16 and one built
+    and loaded in bfloat16 hold the same weights."""
+    if not dtype.is_floating_point:
+        raise ValueError(f"a compute dtype must be floating, got {dtype}")
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
+            m.to(dtype)
+    module.dtype = dtype
+    return module
+
+
+def check_dtype_on_device(dtype: torch.dtype, device) -> None:
+    """Raise where ``device`` cannot compute in ``dtype``: a bfloat16 model
+    on a CUDA card without bfloat16 support is refused, not run in float32."""
+    device = torch.device(device)
+    if (dtype == torch.bfloat16 and device.type == "cuda"
+            and not torch.cuda.is_bf16_supported()):
+        raise RuntimeError(f"{torch.cuda.get_device_name(device)} does not compute in "
+                           "bfloat16; build the model in float32")
+
+
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, padding: int = 0) -> nn.Conv2d:
     """2-D conv with symmetric integer padding and bias."""
-    return nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding, bias=True)
+    return Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding, bias=True)
 
 
 def max_pool(x: torch.Tensor, kernel: int, stride: int, padding: int = 0,

@@ -35,7 +35,10 @@ Runner state crosses too, both ways, exactly: the frame-batch modifier
 against the port's (B·T, 3, H, W)) and the Adam state
 (``adam_state_from_jax``/``adam_state_to_jax``: optax's ``(count int32, mu,
 nu)`` against torch Adam's ``(step float32, exp_avg, exp_avg_sq)``), so that
-a segment of one package's runner can seed the other's.
+a segment of one package's runner can seed the other's. numpy has no
+bfloat16 (without ``ml_dtypes``), so a bfloat16 tensor (a model's weights, a
+``mu_dtype`` first moment) goes out as a float32 array that holds its
+bfloat16 values, exactly, and comes back as float32 for the caller to cast.
 """
 
 from __future__ import annotations
@@ -174,7 +177,7 @@ def to_jax_params(module: nn.Module) -> dict:
         node = tree
         for k in path:
             node = node.setdefault(k, {})
-        w = p.detach().cpu().numpy().astype(np.float32)
+        w = p.detach().cpu().float().numpy().astype(np.float32)
         node[leaf] = np.ascontiguousarray(_to_jax_layout(name, w, flatten_fed))
     return _sorted(tree)
 
@@ -225,8 +228,9 @@ def modifier_from_jax(mod_nhwc) -> torch.Tensor:
 
 
 def modifier_to_jax(mod_nchw: torch.Tensor) -> np.ndarray:
-    """The port's (N, 3, H, W) modifier → the JAX runner's (N, H, W, 3)."""
-    return np.ascontiguousarray(mod_nchw.detach().cpu().numpy().transpose(0, 2, 3, 1))
+    """The port's (N, 3, H, W) modifier → the JAX runner's (N, H, W, 3), in
+    float32 (a bfloat16 moment's values, exactly)."""
+    return np.ascontiguousarray(mod_nchw.detach().cpu().float().numpy().transpose(0, 2, 3, 1))
 
 
 def adam_state_from_jax(count, mu, nu) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -21,11 +21,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import pixel
-from .common import add_offset, conv, max_pool
+from .common import Linear, add_offset, conv, max_pool, set_compute_dtype
 
 
 class FrozenBN(nn.Module):
-    """Inference BN as an affine: y = x·scale + bias over the channel axis."""
+    """Inference BN as an affine: y = x·scale + bias over the channel axis.
+    ``scale`` and ``bias`` stay float32 and are cast to the input's dtype,
+    as the JAX module casts them."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -33,7 +35,8 @@ class FrozenBN(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        return x * self.scale.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        return (x * self.scale.to(x.dtype).view(1, -1, 1, 1)
+                + self.bias.to(x.dtype).view(1, -1, 1, 1))
 
 
 class DenseLayer(nn.Module):
@@ -62,11 +65,12 @@ class Transition(nn.Module):
 
 class DenseNet(nn.Module):
     """``taps`` are dense-block indices (1..4); ``truncate`` builds and runs
-    no block, transition or head past the deepest tap."""
+    no block, transition or head past the deepest tap; ``dtype`` is the
+    compute dtype (:mod:`.common`)."""
 
     def __init__(self, block_config: Sequence[int] = (6, 12, 36, 24), growth: int = 48,
                  init_features: int = 96, num_classes: int = 1000, taps: Sequence[int] = (),
-                 truncate: bool = False):
+                 truncate: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.taps = tuple(taps)
         self.block_config = tuple(block_config)
@@ -87,14 +91,15 @@ class DenseNet(nn.Module):
                 feats //= 2
         if not self.headless:
             self.norm5 = FrozenBN(feats)
-            self.classifier = nn.Linear(feats, num_classes)
+            self.classifier = Linear(feats, num_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x01, tap_offset=None):
         """→ (logits or None, {block: activation}). ``tap_offset`` ({block:
         tensor}) is added to the tap activation in-flow: the gradient with
         respect to it at 0 is the exact ∂/∂(tap) that Grad-CAM needs."""
         taps = {}
-        x = pixel.normalize(x01, channel_axis=1)
+        x = pixel.normalize(x01, channel_axis=1).to(self.dtype)
         x = F.relu(self.norm0(self.conv0(x)))
         x = max_pool(x, 3, 2, 1)
         for i in range(self.n_blocks):
@@ -106,7 +111,7 @@ class DenseNet(nn.Module):
             if hasattr(self, f"transition{i + 1}"):
                 x = getattr(self, f"transition{i + 1}")(x)
         x = F.relu(self.norm5(x))
-        return self.classifier(torch.mean(x, dim=(2, 3))), taps
+        return self.classifier(torch.mean(x, dim=(2, 3))).float(), taps
 
 
 def densenet161(**kw) -> DenseNet:

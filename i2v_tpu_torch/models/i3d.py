@@ -20,8 +20,9 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from ..ops.pixel import normalize as _normalize
-from .video_common import Bottleneck3D, NonLocal3D, conv3d, max_pool3d, relu, remat_call
+from .common import Linear, set_compute_dtype
+from .video_common import (Bottleneck3D, NonLocal3D, conv3d, max_pool3d, relu, remat_call,
+                           to_compute)
 
 # '3x1x1' inflation frequency per stage (mmaction i3d defaults)
 _INFLATE_R50 = ((1, 1, 1), (1, 0, 1, 0), (1, 0, 1, 0, 1, 0), (0, 1, 0))
@@ -35,7 +36,7 @@ class I3DResNet(nn.Module):
                  inflate_freq: Sequence[Sequence[int]] = _INFLATE_R50,
                  nonlocal_pos: Sequence[Sequence[int]] = _NL5, nl_sub_sample: bool = True,
                  nl_type: str = "gaussian", width: int = 64, num_classes: int = 400,
-                 remat: bool = False):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         # remat the stem too: its pre-pool activation is the model's largest
         self.remat = remat
@@ -54,7 +55,8 @@ class I3DResNet(nn.Module):
                 if block in self.nonlocal_pos[stage]:
                     self.add_module(f"layer{stage + 1}_{block}_nl",
                                     NonLocal3D(in_ch, sub_sample=nl_sub_sample, nl_type=nl_type))
-        self.fc = nn.Linear(in_ch, num_classes)
+        self.fc = Linear(in_ch, num_classes)
+        set_compute_dtype(self, dtype)
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
         return max_pool3d(relu(self.conv1(x)), (1, 3, 3), (1, 2, 2), (0, 1, 1))
@@ -67,7 +69,7 @@ class I3DResNet(nn.Module):
         an already normalized one). ``relu_grad_scale`` scales the backward
         of every ReLU but the stem's and those of each stage's block 0, as
         the reference's name-filtered SGM hooks do (base_attacks.py:509-511)."""
-        x = _normalize(clip_bcthw, channel_axis=1) if normalize else clip_bcthw
+        x = to_compute(clip_bcthw, normalize, self.dtype)
         x = remat_call(self.remat, self._stem, x)
         taps = {}
         for stage, n_blocks in enumerate(self.stage_sizes):
@@ -79,7 +81,7 @@ class I3DResNet(nn.Module):
             taps[f"res_layer{stage + 1}"] = x
             if stage == 0:
                 x = max_pool3d(x, (2, 1, 1), (2, 1, 1))
-        return self.fc(x.mean(dim=(2, 3, 4))), taps
+        return self.fc(x.mean(dim=(2, 3, 4))).float(), taps
 
 
 def i3d_resnet50(**kw) -> I3DResNet:

@@ -22,6 +22,9 @@ whole network; the module, truncated at its deepest tap, takes the subset it
 has. Underneath, every weight is first drawn on the CPU from a seeded
 ``torch.Generator`` (the same seed gives the same weights on every device),
 and without a file a warning says that the model keeps those random weights.
+The weights are drawn and loaded in float32 whatever the compute ``dtype``,
+and rounded to it once: a bfloat16 model holds its float32 twin's weights,
+rounded.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from . import resnet as _resnet
 from . import vgg as _vgg
 from . import vit as _vit
 from .api import ImageModel
+from .common import check_dtype_on_device
 from .convert import checkpoint_path, from_jax_params, load_params
 
 IMAGE_MODEL_NAMES = ("resnet", "vgg", "alexnet", "squeezenet", "densenet", "vit")
@@ -69,17 +73,18 @@ def _clamped_taps(tap_keys, hi: int, lo: int = 1) -> tuple:
 
 
 def build_image_model(name: str, depths: int | Sequence[int], *, truncate: bool = True,
-                      tiny: bool = False, input_hw: int = 224):
+                      tiny: bool = False, input_hw: int = 224,
+                      dtype: torch.dtype = torch.float32):
     """Construct the module + ordered tap keys for reference-style (model
     name, depth(s)). ``tiny=True`` builds a width-reduced variant for
-    checkpoint-free tests."""
+    checkpoint-free tests; ``dtype`` is the module's compute dtype."""
     list_depths = not isinstance(depths, int)
     if isinstance(depths, int):
         depths = [depths]
     if name not in DEPTH_TO_TAP:
         raise ValueError(f"unknown image model {name!r}; have {IMAGE_MODEL_NAMES}")
     tap_keys = tuple(sorted(DEPTH_TO_TAP[name][d] for d in depths))
-    kw = dict(taps=tap_keys, truncate=truncate)
+    kw = dict(taps=tap_keys, truncate=truncate, dtype=dtype)
     if name == "resnet":
         module = _resnet.resnet_tiny(**kw) if tiny else _resnet.resnet101(**kw)
     elif name == "vgg":
@@ -115,14 +120,16 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     registration order, from ``generator``; zero the biases. Norms (DenseNet's
     frozen BN, LayerNorm) get ones and zeros, ViT's class token zeros and its
     position embedding a normal of std 0.02 from the same generator (Flax's
-    initializers)."""
+    initializers). The draws are float32 whatever the weights' dtype, so
+    that a bfloat16 module gets its float32 twin's weights, rounded."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 std = math.sqrt(1.0 / fan_in) / _TRUNC_STD_CORRECTION
-                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
-                                      generator=generator)
+                w = torch.empty(m.weight.shape, dtype=torch.float32, device=m.weight.device)
+                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+                m.weight.copy_(w)
                 nn.init.zeros_(m.bias)
             elif isinstance(m, _densenet.FrozenBN):
                 nn.init.ones_(m.scale)
@@ -138,16 +145,17 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def get_image_models(names: Sequence[str], depths: Mapping[str, int | Sequence[int]] | int,
                      *, device: torch.device | str, truncate: bool = True,
-                     tiny: bool = False, input_hw: int = 224,
-                     seed: int = 0) -> list[ImageModel]:
+                     tiny: bool = False, input_hw: int = 224, seed: int = 0,
+                     dtype: torch.dtype = torch.float32) -> list[ImageModel]:
     """Build bundles for the reference's ``get_models(model_name_lists)`` call
     sites (image_attacks.py:110-115), with depth selection attached, in eval
-    mode with frozen weights, on ``device``."""
+    mode with frozen weights, on ``device``, computing in ``dtype``."""
+    check_dtype_on_device(dtype, device)
     bundles = []
     for i, name in enumerate(names):
         d = depths if isinstance(depths, int) else depths[name]
         module, tap_keys = build_image_model(name, d, truncate=truncate, tiny=tiny,
-                                             input_hw=input_hw)
+                                             input_hw=input_hw, dtype=dtype)
         random_init_(module, torch.Generator().manual_seed(seed + i))
         if not tiny:
             if os.path.exists(checkpoint_path(name)):

@@ -17,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import pixel
-from .common import add_offset, collect_tap, conv, deepest, max_pool
+from .common import Linear, add_offset, collect_tap, conv, deepest, max_pool, set_compute_dtype
 
 
 class Bottleneck(nn.Module):
@@ -38,10 +38,12 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """ResNet-50/101 family. ``taps`` are stage depths (1..4) to expose;
-    ``truncate`` builds and runs no stage past the deepest tap."""
+    ``truncate`` builds and runs no stage past the deepest tap; ``dtype`` is
+    the compute dtype (:mod:`.common`)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 23, 3), width: int = 64,
-                 num_classes: int = 1000, taps: Sequence[int] = (), truncate: bool = False):
+                 num_classes: int = 1000, taps: Sequence[int] = (), truncate: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.taps = tuple(taps)
         self.truncate = truncate
@@ -57,14 +59,15 @@ class ResNet(nn.Module):
                 in_ch = feats * 4
         self.stage_sizes = tuple(stage_sizes)
         self.headless = truncate and bool(self.taps)
-        self.fc = None if self.headless else nn.Linear(in_ch, num_classes)
+        self.fc = None if self.headless else Linear(in_ch, num_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x01, tap_offset=None):
         """→ (logits or None, {stage: activation}). ``tap_offset`` ({stage:
         tensor}) is added to the stage output in-flow: the gradient with
         respect to it at 0 is the exact ∂/∂(tap) that Grad-CAM needs."""
         taps = {}
-        x = pixel.normalize(x01, channel_axis=1)
+        x = pixel.normalize(x01, channel_axis=1).to(self.dtype)
         x = F.relu(self.stem(x))
         x = max_pool(x, 3, 2, 1)
         for stage in range(self.n_stages):
@@ -74,7 +77,7 @@ class ResNet(nn.Module):
             collect_tap(taps, self.taps, stage + 1, x)
         if self.headless:
             return None, taps
-        return self.fc(torch.mean(x, dim=(2, 3))), taps
+        return self.fc(torch.mean(x, dim=(2, 3))).float(), taps
 
 
 def resnet101(**kw) -> ResNet:

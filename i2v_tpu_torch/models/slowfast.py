@@ -27,8 +27,8 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from ..ops.pixel import normalize as _normalize
-from .video_common import conv3d, max_pool3d, relu, remat_call
+from .common import Linear, set_compute_dtype
+from .video_common import conv3d, max_pool3d, relu, remat_call, to_compute
 
 
 class SFBottleneck(nn.Module):
@@ -56,7 +56,7 @@ class SlowFast(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), fast_stride: int = 2,
                  slow_stride: int = 8, beta_inv: int = 8, width: int = 64,
                  num_classes: int = 400, slow_temporal_stages: Sequence[int] = (2, 3),
-                 remat: bool = False):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.remat = remat
         self.stage_sizes = tuple(stage_sizes)
@@ -95,7 +95,8 @@ class SlowFast(nn.Module):
                 lat = 2 * (fast_w * 2**stage) * 4
                 self.add_module(f"lateral_res{stage + 2}", lateral(fast_in, lat))
                 slow_in += lat
-        self.fc = nn.Linear(slow_in + fast_in, num_classes)
+        self.fc = Linear(slow_in + fast_in, num_classes)
+        set_compute_dtype(self, dtype)
 
     def _stage(self, x: torch.Tensor, pathway: str, stage: int, scale: float) -> torch.Tensor:
         for block in range(self.stage_sizes[stage]):
@@ -113,7 +114,7 @@ class SlowFast(nn.Module):
         the laterals' and those of each stage's block 0 (gluoncv's stem and
         lateral activations are not named '*relu*', so the reference's SGM
         hooks never reach them)."""
-        x = _normalize(clip_bcthw, channel_axis=1) if normalize else clip_bcthw
+        x = to_compute(clip_bcthw, normalize, self.dtype)
         fast = relu(self.fast_conv1(x[:, :, ::self.fast_stride]))
         fast = max_pool3d(fast, (1, 3, 3), (1, 2, 2), (0, 1, 1))
         slow = relu(self.slow_conv1(x[:, :, ::self.slow_stride]))
@@ -129,7 +130,7 @@ class SlowFast(nn.Module):
                 lat = relu(getattr(self, f"lateral_res{stage + 2}")(fast))
                 slow = torch.cat([slow, lat], dim=1)
         pooled = torch.cat([slow.mean(dim=(2, 3, 4)), fast.mean(dim=(2, 3, 4))], dim=1)
-        return self.fc(pooled), taps
+        return self.fc(pooled).float(), taps
 
 
 def slowfast_resnet50(**kw) -> SlowFast:

@@ -32,8 +32,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.pixel import normalize as _normalize
-from .video_common import conv3d, max_pool3d, relu, remat_call
+from .common import Linear, set_compute_dtype
+from .video_common import conv3d, max_pool3d, relu, remat_call, to_compute
 
 
 class TPNBottleneck(nn.Module):
@@ -66,7 +66,7 @@ class TPN(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
                  num_classes: int = 400, temporal_stages: Sequence[int] = (2, 3),
                  temporal_scales: Sequence[int] = (32, 32), upsample_scale: int = 1,
-                 neck_groups: int = 32, remat: bool = False):
+                 neck_groups: int = 32, remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.remat = remat
         self.stage_sizes = tuple(stage_sizes)
@@ -94,7 +94,8 @@ class TPN(nn.Module):
             self.add_module(f"{prefix}_fusion", conv3d(2 * out_c, planes, (1, 1, 1)))
         self.down_0 = conv3d(out_c, out_c, (3, 1, 1))
         self.pyramid = conv3d(2 * planes, planes, (1, 1, 1))
-        self.fc = nn.Linear(planes, num_classes)
+        self.fc = Linear(planes, num_classes)
+        set_compute_dtype(self, dtype)
 
     def _level_fusion(self, prefix: str, levels, scale: float) -> torch.Tensor:
         # under the reference's SGM name filter only `ops.1.relu` matches
@@ -114,7 +115,7 @@ class TPN(nn.Module):
         Block-0 ReLUs and the neck's, but for the coarse level fusion's, stay
         unscaled."""
         s = relu_grad_scale
-        x = _normalize(clip_bcthw, channel_axis=1) if normalize else clip_bcthw
+        x = to_compute(clip_bcthw, normalize, self.dtype)
         x = max_pool3d(relu(self.conv1(x), s), (1, 3, 3), (1, 2, 2), (0, 1, 1))
         taps, feats = {}, []
         for stage, n_blocks in enumerate(self.stage_sizes):
@@ -135,7 +136,7 @@ class TPN(nn.Module):
         coarse = coarse + self.down_0(fine)   # on the top-down-mutated fine
         bottomup = self._level_fusion("lf1", [fine, coarse], s)
         y = relu(self.pyramid(torch.cat([topdown, bottomup], dim=1)))
-        return self.fc(y.mean(dim=(2, 3, 4))), taps
+        return self.fc(y.mean(dim=(2, 3, 4))).float(), taps
 
 
 def tpn_resnet50(**kw) -> TPN:

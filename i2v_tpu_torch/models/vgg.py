@@ -11,7 +11,7 @@ as the JAX parameter tree names them (``conv{i}``, ``fire{i}.squeeze``,
 ``fc1``...). The classifier heads of VGG and AlexNet are fed by a flatten;
 ``flatten_fed`` records the (C, H, W) of that flatten for the converter.
 Each forward takes ``tap_offset`` ({index: tensor}), added to the tap in-flow
-(Grad-CAM).
+(Grad-CAM); each module takes a compute ``dtype`` (:mod:`.common`).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import pixel
-from .common import add_offset, collect_tap, conv, deepest, max_pool
+from .common import Linear, add_offset, collect_tap, conv, deepest, max_pool, set_compute_dtype
 
 _VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
               512, 512, 512, "M", 512, 512, 512, "M")
@@ -36,16 +36,16 @@ def _width(ch: int, mult: float) -> int:
 
 
 def _add_mlp_head(module: nn.Module, in_features: int, num_classes: int) -> None:
-    module.fc1 = nn.Linear(in_features, 4096)
-    module.fc2 = nn.Linear(4096, 4096)
-    module.fc3 = nn.Linear(4096, num_classes)
+    module.fc1 = Linear(in_features, 4096)
+    module.fc2 = Linear(4096, 4096)
+    module.fc3 = Linear(4096, num_classes)
 
 
 def _run_mlp_head(module: nn.Module, x):
     x = torch.flatten(x, 1)
     x = F.relu(module.fc1(x))
     x = F.relu(module.fc2(x))
-    return module.fc3(x)
+    return module.fc3(x).float()
 
 
 class VGG16(nn.Module):
@@ -53,7 +53,8 @@ class VGG16(nn.Module):
     7×7 at 224²); it is unused when the module is truncated."""
 
     def __init__(self, num_classes: int = 1000, taps: Sequence[int] = (),
-                 truncate: bool = False, width_mult: float = 1.0, input_hw: int = 224):
+                 truncate: bool = False, width_mult: float = 1.0, input_hw: int = 224,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.taps = tuple(taps)
         last = deepest(self.taps, truncate, _ALL)
@@ -76,10 +77,11 @@ class VGG16(nn.Module):
         self.flatten_fed = {} if self.headless else {"fc1": (in_ch, s, s)}
         if not self.headless:
             _add_mlp_head(self, in_ch * s * s, num_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x01, tap_offset=None):
         taps = {}
-        x = pixel.normalize(x01, channel_axis=1)
+        x = pixel.normalize(x01, channel_axis=1).to(self.dtype)
         for kind, idx in self.plan:
             if kind == "pool":
                 x = max_pool(x, 2, 2)
@@ -98,7 +100,8 @@ class AlexNet(nn.Module):
              (10, 256, 3, 1, 1, True))
 
     def __init__(self, num_classes: int = 1000, taps: Sequence[int] = (),
-                 truncate: bool = False, width_mult: float = 1.0, input_hw: int = 224):
+                 truncate: bool = False, width_mult: float = 1.0, input_hw: int = 224,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.taps = tuple(taps)
         last = deepest(self.taps, truncate, _ALL)
@@ -118,10 +121,11 @@ class AlexNet(nn.Module):
         self.flatten_fed = {} if self.headless else {"fc1": (in_ch, s, s)}
         if not self.headless:
             _add_mlp_head(self, in_ch * s * s, num_classes)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x01, tap_offset=None):
         taps = {}
-        x = pixel.normalize(x01, channel_axis=1)
+        x = pixel.normalize(x01, channel_axis=1).to(self.dtype)
         for conv_idx, pool_after in self.plan:
             x = add_offset(F.relu(getattr(self, f"conv{conv_idx}")(x)), tap_offset,
                            conv_idx + 1)
@@ -168,7 +172,8 @@ class SqueezeNet11(nn.Module):
              (11, 64, 256, False), (12, 64, 256, False))
 
     def __init__(self, num_classes: int = 1000, taps: Sequence[int] = (),
-                 truncate: bool = False, width_mult: float = 1.0, fire_taps: bool = False):
+                 truncate: bool = False, width_mult: float = 1.0, fire_taps: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.taps = tuple(taps)
         self.fire_taps = fire_taps
@@ -185,10 +190,11 @@ class SqueezeNet11(nn.Module):
             in_ch = 2 * _width(ex, width_mult)
         self.headless = truncate and bool(self.taps)
         self.classifier = None if self.headless else conv(in_ch, num_classes, 1)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x01, tap_offset=None):
         taps = {}
-        x = pixel.normalize(x01, channel_axis=1)
+        x = pixel.normalize(x01, channel_axis=1).to(self.dtype)
         x = F.relu(self.conv0(x))
         x = max_pool(x, 3, 2, ceil_mode=True)
         for idx, pool_before in self.plan:
@@ -200,4 +206,4 @@ class SqueezeNet11(nn.Module):
         if self.headless:
             return None, taps
         x = F.relu(self.classifier(x))
-        return torch.mean(x, dim=(2, 3)), taps
+        return torch.mean(x, dim=(2, 3)).float(), taps

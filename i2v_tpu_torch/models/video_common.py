@@ -12,6 +12,9 @@ PyTorch counterpart of :mod:`i2v_tpu.models.video_common`:
     weights.
   - ``remat`` (:func:`remat_call`) recomputes a block in the backward pass
     instead of keeping its activations, as the JAX package's ``nn.remat``.
+  - every model takes a compute ``dtype`` (:mod:`.common`): the clip is
+    normalized in float32 and then cast (:func:`to_compute`), the convs and
+    the head compute in ``dtype``, and the logits come back as float32.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.activations import grad_scaled_relu
+from ..ops.pixel import normalize as _normalize
+from .common import Conv3d
 
 
 def conv3d(in_ch: int, out_ch: int, kernel: Sequence[int], stride: Sequence[int] = (1, 1, 1),
@@ -33,8 +38,8 @@ def conv3d(in_ch: int, out_ch: int, kernel: Sequence[int], stride: Sequence[int]
     default) and bias; ``groups`` is Flax's ``feature_group_count``."""
     if padding is None:
         padding = tuple((k - 1) // 2 for k in kernel)
-    return nn.Conv3d(in_ch, out_ch, tuple(kernel), stride=tuple(stride),
-                     padding=tuple(padding), groups=groups, bias=True)
+    return Conv3d(in_ch, out_ch, tuple(kernel), stride=tuple(stride),
+                  padding=tuple(padding), groups=groups, bias=True)
 
 
 def max_pool3d(x: torch.Tensor, kernel: Sequence[int], stride: Sequence[int],
@@ -119,8 +124,16 @@ class NonLocal3D(nn.Module):
         theta = theta.reshape(b, inter, t * h * w).transpose(1, 2)  # (B, N, C')
         phi = phi.reshape(b, inter, m)                                # (B, C', M)
         g = g.reshape(b, inter, m).transpose(1, 2)                    # (B, M, C')
-        attn = torch.matmul(theta, phi)
+        attn = torch.matmul(theta.float(), phi.float())
         attn = torch.softmax(attn, dim=-1) if self.nl_type == "gaussian" else attn / m
-        y = torch.matmul(attn, g)                                     # (B, N, C')
-        y = y.transpose(1, 2).reshape(b, inter, t, h, w)
+        y = torch.matmul(attn.to(g.dtype).float(), g.float())        # (B, N, C')
+        y = y.transpose(1, 2).reshape(b, inter, t, h, w).to(x.dtype)
         return x + self.out(y)
+
+
+def to_compute(clip_bcthw: torch.Tensor, normalize: bool, dtype: torch.dtype) -> torch.Tensor:
+    """ImageNet normalization of a [0,1] clip in float32 (where asked), then
+    the cast to the compute dtype (``video_common.to_channel_last`` of the
+    JAX package, without its transpose)."""
+    x = _normalize(clip_bcthw, channel_axis=1) if normalize else clip_bcthw
+    return x.to(dtype)

@@ -10,6 +10,10 @@ that is drawn first, on the CPU from a seeded ``torch.Generator`` (the same
 seed gives the same weights on every device): a file that covers only part
 of the model loads, and a warning names the modules it left at random init.
 Without a file a warning says that the model keeps its random weights.
+A model of another compute ``dtype`` is drawn and loaded in float32 and then
+cast (:func:`.common.set_compute_dtype`): checkpoint files hold float32
+arrays only, and the bfloat16 model holds its float32 twin's weights,
+rounded.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from . import i3d, slowfast, tpn
 from .api import VideoModel
+from .common import check_dtype_on_device, set_compute_dtype
 from .convert import checkpoint_path, from_jax_params, load_params, missing_modules
 from .registry import random_init_
 
@@ -61,15 +66,17 @@ def tap_keys_for(model_name: str, purpose: str = "tap") -> tuple:
 
 
 def get_video_model(name: str, *, device: torch.device | str, tiny: bool = False,
-                    ucf101: bool = False, remat: bool = False, seed: int = 0) -> VideoModel:
+                    ucf101: bool = False, remat: bool = False, seed: int = 0,
+                    dtype: torch.dtype = torch.float32) -> VideoModel:
     """Build a video-model bundle for a reference model name, in eval mode
-    with frozen weights (no weight gradient ever runs), on ``device``.
-    ``ucf101=True`` gives the 101-class head of the fine-tuned models at full
-    width (reference_ucf101.py:107-117); the tiny models keep 10 classes.
-    ``remat=True`` recomputes the bottlenecks (and I3D's stem) in backward
-    passes instead of keeping their activations."""
+    with frozen weights (no weight gradient ever runs), on ``device``,
+    computing in ``dtype``. ``ucf101=True`` gives the 101-class head of the
+    fine-tuned models at full width (reference_ucf101.py:107-117); the tiny
+    models keep 10 classes. ``remat=True`` recomputes the bottlenecks (and
+    I3D's stem) in backward passes instead of keeping their activations."""
     if name not in VIDEO_BUILDERS:
         raise ValueError(f"unknown video model {name!r}; have {sorted(VIDEO_BUILDERS)}")
+    check_dtype_on_device(dtype, device)
     kw = {"remat": remat}
     if ucf101 and not tiny:
         kw["num_classes"] = 101
@@ -77,7 +84,7 @@ def get_video_model(name: str, *, device: torch.device | str, tiny: bool = False
     random_init_(module, torch.Generator().manual_seed(seed))
     if not tiny:
         _load_checkpoint(module, name, ucf101)
-    module = module.to(device).eval().requires_grad_(False)
+    module = set_compute_dtype(module, dtype).to(device).eval().requires_grad_(False)
     return VideoModel(name=name, module=module, tap_keys=tap_keys_for(name, "tap"))
 
 

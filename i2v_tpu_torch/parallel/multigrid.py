@@ -14,7 +14,10 @@ downsampled clips that returns its final modifier; the fine phase is another
 one, warm-started through ``mod_init``. The Adam moments restart at the
 switch: the coarse ones live on another grid. Adaptive AENS is refused, as
 in the JAX package: its per-tap signal changes magnitude with the frame
-area.
+area. Surrogates built to compute in bfloat16 run both phases in it, with
+``param_dtype`` cast once and shared (``i2v_tpu/parallel/multigrid.py:93-111``),
+and ``"auto"`` chunks each phase by their dtype: the coarse 112² phase of a
+bfloat16 ensemble fits 2048 frames a chunk.
 """
 
 from __future__ import annotations

@@ -17,6 +17,12 @@ hand-written kernel pair (:func:`i2v_tpu_torch.ops.kernels.rebuild_adv`), so
 a step launches K1 and K2 once a chunk, and the final rebuild K1 once over
 the whole batch.
 
+The surrogates compute in their own dtype (``get_image_models(...,
+dtype=torch.bfloat16)``); the frames, the modifier, the kernels' rebuild and
+the gradient stay float32, and the cast to bfloat16 happens inside each
+surrogate, after its normalization. ``mu_dtype`` keeps Adam's first moment
+in a narrower dtype, as the JAX runner's optax ``scale_by_adam`` does.
+
 The JAX runner's ``unroll``, ``chunk_unroll`` and ``donate`` steer XLA's
 scheduling and buffers, and ``runner.jitted``/``example_args`` are hooks for
 ahead-of-time lowering; none has a meaning here (ROADMAP Queue 1, item 5).
@@ -28,6 +34,7 @@ import copy
 import dataclasses
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 from torch.nn.utils import parametrize
@@ -38,9 +45,11 @@ from ..attacks.i2v import MODIFIER_INIT, _collect_taps
 from ..models.api import ImageModel
 from ..ops import kernels, losses, pixel
 
-# The byte budget of ``frame_chunk="auto"``: the float32 input frames of one
-# chunk. The JAX package sized its budget on a 16 GB TPU chip (float32 at
-# 224² resolved to 128 frames there); that measurement does not carry over.
+# The byte budget of ``frame_chunk="auto"``: one chunk's input frames in the
+# surrogates' compute dtype, whose activations scale with it (float32: 256
+# frames at 224²; bfloat16: 512, so B=16 x 32 frames runs whole). The JAX
+# package sized its budget on a 16 GB TPU chip (float32 at 224² resolved to
+# 128 frames there); that measurement does not carry over.
 # Here it is 256 frames at 224², the fastest chunk of the sweep of
 # ``tools/torch_eval_profile.py --attacks --frame_chunk 64,128,256,none`` at
 # B=16 on an H100 80GB HBM3 at 700 W (PERF.md §5): AENS-I2V-MF with TF32 off
@@ -50,21 +59,34 @@ from ..ops import kernels, losses, pixel
 AUTO_CHUNK_BYTES = 256 * 4 * 224 * 224
 
 
-def resolve_frame_chunk(frame_chunk, n_frames: int, hw) -> Optional[int]:
+def resolve_frame_chunk(frame_chunk, n_frames: int, hw,
+                        compute_dtype: torch.dtype = torch.float32) -> Optional[int]:
     """Resolve a ``frame_chunk`` setting against the frame batch's shape.
 
     ``int`` and ``None`` pass through untouched; ``"auto"`` gives the chunk
-    of ``AUTO_CHUNK_BYTES`` of float32 frames at ``hw`` (the surrogates
-    compute in float32 whatever their storage), or ``None`` (unchunked) when
-    the whole batch fits that budget. The runner then snaps a chunk that
-    does not divide the batch (:func:`snap_frame_chunk`)."""
+    of ``AUTO_CHUNK_BYTES`` of frames at ``hw`` in the surrogates' compute
+    dtype (``i2v_tpu/parallel/sharded.py:36-55``; their storage dtype does
+    not count), or ``None`` (unchunked) when the whole batch fits that
+    budget. The runner then snaps a chunk that does not divide the batch
+    (:func:`snap_frame_chunk`)."""
     if frame_chunk != "auto":
         if isinstance(frame_chunk, str):
             raise ValueError(f"frame_chunk must be an int, None, or 'auto'; got {frame_chunk!r}")
         return frame_chunk
     h, w = int(hw[0]), int(hw[1])
-    target = max(1, AUTO_CHUNK_BYTES // (4 * h * w))
+    itemsize = torch.empty((), dtype=compute_dtype).element_size()
+    target = max(1, AUTO_CHUNK_BYTES // (itemsize * h * w))
     return None if n_frames <= target else target
+
+
+def compute_dtype_of(models: Sequence[ImageModel]) -> torch.dtype:
+    """The ensemble's activation dtype, on which the chunk budget is spent:
+    the widest compute dtype of its surrogates (a float32/bfloat16 mix
+    budgets as float32), as the JAX runner's ``_compute_dtype``."""
+    out = models[0].dtype
+    for m in models[1:]:
+        out = torch.promote_types(out, m.dtype)
+    return out
 
 
 def snap_frame_chunk(chunk: Optional[int], n_frames: int) -> int:
@@ -81,14 +103,16 @@ def snap_frame_chunk(chunk: Optional[int], n_frames: int) -> int:
 
 class _StoredAs(nn.Module):
     """Parametrization: the tensor is stored in ``storage_dtype`` and read
-    as float32, so that a conv runs in float32 on the rounded weights."""
+    in ``read_dtype``, the module's compute dtype: a float32 conv runs on
+    the rounded weights, a bfloat16 one reads them as they are stored."""
 
-    def __init__(self, storage_dtype: torch.dtype):
+    def __init__(self, storage_dtype: torch.dtype, read_dtype: torch.dtype):
         super().__init__()
         self.storage_dtype = storage_dtype
+        self.read_dtype = read_dtype
 
     def forward(self, stored: torch.Tensor) -> torch.Tensor:
-        return stored.float()
+        return stored.to(self.read_dtype)
 
     def right_inverse(self, weight: torch.Tensor):
         # a one-tensor sequence may change the dtype; a bare tensor may not
@@ -98,16 +122,18 @@ class _StoredAs(nn.Module):
 def cast_param_storage(models: Sequence[ImageModel], dtype: torch.dtype) -> list[ImageModel]:
     """Copies of ``models`` whose floating parameters (the BN-folded conv
     weights and biases, the tensors the JAX package rounds) are stored in
-    ``dtype`` and cast to float32 at each forward: the JAX runner's
-    ``param_dtype``, whose surrogates compute in float32 on bf16-rounded
-    weights. The callers' modules are left as they are."""
+    ``dtype`` and read into each surrogate's compute dtype at each forward:
+    the JAX runner's ``param_dtype``, whose Flax modules cast the stored
+    parameters to their compute dtype (a float32 surrogate computes on
+    bf16-rounded weights; a bfloat16 one holds no float32 copy). The
+    callers' modules are left as they are."""
     out = []
     for m in models:
         module = copy.deepcopy(m.module)
         for sub in list(module.modules()):
             for name, p in list(sub.named_parameters(recurse=False)):
                 if p.is_floating_point():
-                    parametrize.register_parametrization(sub, name, _StoredAs(dtype))
+                    parametrize.register_parametrization(sub, name, _StoredAs(dtype, m.dtype))
         out.append(dataclasses.replace(m, module=module))
     return out
 
@@ -159,6 +185,58 @@ def _adam_state(opt: torch.optim.Adam, param: torch.Tensor):
     return st["step"].clone(), st["exp_avg"].clone(), st["exp_avg_sq"].clone()
 
 
+class _AdamMu:
+    """``optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8, mu_dtype=...)``, the JAX
+    runner's optimizer when ``mu_dtype`` is set (optax's ``scale_by_adam``,
+    which ``torch.optim.Adam`` does not match: the bias corrections divide
+    the moments, and ε is added after the square root of the corrected
+    second moment). Each step:
+
+      mu = (1 − b1)·g + b1·mu_stored    (b1·mu_stored is taken in mu_dtype,
+                                         b1 rounded to it too: JAX casts the
+                                         weakly typed Python float to the
+                                         array's dtype)
+      nu = (1 − b2)·g² + b2·nu           float32
+      modifier += −lr · (mu / (1 − b1ᵗ)) / (√(nu / (1 − b2ᵗ)) + ε)
+
+    from the float32 ``mu``; only then is ``mu`` rounded to ``mu_dtype`` to
+    be stored. ``opt_init = (count, mu, nu)`` resumes a saved state."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, param: torch.Tensor, lr: float, mu_dtype: torch.dtype, opt_init):
+        self.param, self.lr = param, lr
+        if opt_init is None:
+            self.count = 0
+            self.mu = torch.zeros_like(param.detach(), dtype=mu_dtype)
+            self.nu = torch.zeros_like(param.detach())
+        else:
+            count, mu, nu = opt_init
+            self.count = int(torch.as_tensor(count))
+            self.mu = mu.detach().to(param.device, mu_dtype).clone()
+            self.nu = nu.detach().to(param).clone()
+
+    @torch.no_grad()
+    def step(self) -> None:
+        g = self.param.grad
+        self.count += 1
+        b1 = torch.tensor(self.B1, dtype=self.mu.dtype, device=self.mu.device)
+        mu = (1 - self.B1) * g + (b1 * self.mu).float()
+        self.nu = (1 - self.B2) * (g * g) + self.B2 * self.nu
+        # optax takes decay**count in float32
+        bc1 = float(np.float32(1) - np.float32(self.B1) ** np.float32(self.count))
+        bc2 = float(np.float32(1) - np.float32(self.B2) ** np.float32(self.count))
+        update = (mu / bc1) / (torch.sqrt(self.nu / bc2) + self.EPS)
+        self.param.add_(update * -self.lr)
+        self.mu = mu.to(self.mu.dtype)
+
+    def io_state(self):
+        """``(count, mu, nu)``: the count as a float32 scalar, as
+        :func:`_adam_state` gives torch Adam's step, and ``mu`` in
+        ``mu_dtype``."""
+        return (torch.tensor(float(self.count)), self.mu.clone(), self.nu.clone())
+
+
 def make_sharded_i2v_runner(
     models: Sequence[ImageModel],
     *,
@@ -196,18 +274,22 @@ def make_sharded_i2v_runner(
     - AENS's coefficients persist across runner calls, as the reference's
       instance state does; the previous per-tap loss resets on each call.
     - ``param_dtype=torch.bfloat16`` stores the surrogates' weights in bf16
-      (:func:`cast_param_storage`); the convs stay float32.
+      (:func:`cast_param_storage`); each surrogate computes in its own
+      dtype (``get_image_models(..., dtype=)``), which also sizes the
+      ``"auto"`` chunk (:func:`compute_dtype_of`).
     - ``remat`` recomputes the surrogates' forward in the backward
       (``torch.utils.checkpoint``), holding only the taps.
-    - ``mu_dtype`` (a bf16 first moment) is not ported (ROADMAP Queue 1,
-      item 10).
+    - ``mu_dtype=torch.bfloat16`` stores Adam's first moment in bf16 and
+      steps as the JAX runner's optax Adam does (:class:`_AdamMu`), not as
+      ``torch.optim.Adam``; ``opt_init``/``opt_state_io`` then carry
+      ``(count, mu, nu)`` with ``mu`` in ``mu_dtype``.
 
     ``runner.value_and_grad(clean01, modifier, n_real=None)`` gives the
     first step's cost and its gradient w.r.t. ``modifier``, chunked as the
     runner chunks, without a step."""
-    if mu_dtype is not None:
-        raise NotImplementedError("mu_dtype (a bf16 first Adam moment) is not ported yet "
-                                  "(ROADMAP Queue 1, item 10: the bf16 levers)")
+    if mu_dtype is not None and not (isinstance(mu_dtype, torch.dtype)
+                                     and mu_dtype.is_floating_point):
+        raise ValueError(f"mu_dtype must be a floating torch dtype, got {mu_dtype!r}")
     if isinstance(frame_chunk, str) and frame_chunk != "auto":
         raise ValueError(f"frame_chunk must be an int, None, or 'auto'; got {frame_chunk!r}")
     models = list(models)
@@ -215,6 +297,7 @@ def make_sharded_i2v_runner(
         models = cast_param_storage(models, param_dtype)
     device = torch.device(device) if device is not None else models[0].device
     n_taps = sum(len(m.tap_keys) for m in models)
+    compute_dtype = compute_dtype_of(models)
 
     def collect(frames01):
         return _collect_taps(models, frames01)
@@ -238,7 +321,8 @@ def make_sharded_i2v_runner(
         frames = pixel.flatten_clip_to_frames(clean01)
         del clean01
         n = frames.shape[0]
-        chunk = snap_frame_chunk(resolve_frame_chunk(frame_chunk, n, frames.shape[2:]), n)
+        chunk = snap_frame_chunk(
+            resolve_frame_chunk(frame_chunk, n, frames.shape[2:], compute_dtype), n)
         bounds = [(i, i + chunk) for i in range(0, n, chunk)]
         with torch.no_grad():
             # chunk by chunk: a full-batch clean forward would set the very
@@ -285,7 +369,8 @@ def make_sharded_i2v_runner(
         frames = batch.frames
         modifier = (torch.full_like(frames, MODIFIER_INIT) if mod_init is None
                     else torch.as_tensor(mod_init).to(frames).clone()).requires_grad_(True)
-        opt = _adam(modifier, step_size, opt_init)
+        opt = (_adam(modifier, step_size, opt_init) if mu_dtype is None
+               else _AdamMu(modifier, step_size, mu_dtype, opt_init))
         state, costs = state0(), []
         for _ in range(steps):
             cost, grad, state = grad_and_state(batch, modifier, state)
@@ -302,7 +387,7 @@ def make_sharded_i2v_runner(
         if return_modifier:
             out = out + (final,)
         if opt_state_io:
-            out = out + (_adam_state(opt, modifier),)
+            out = out + (_adam_state(opt, modifier) if mu_dtype is None else opt.io_state(),)
         return out
 
     def value_and_grad(clean01, modifier, n_real=None):

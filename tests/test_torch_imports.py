@@ -1,6 +1,7 @@
-"""The port stands alone: every module of ``i2v_tpu_torch`` imports with JAX,
-Flax, Optax and the JAX package made unimportable, and with pandas, msgpack
-and Pillow too (a machine with a card need not have them)."""
+"""The port stands alone: every module of ``i2v_tpu_torch``, and the port's
+ASR-proxy tool ``tools/torch_asr_proxy.py``, imports with JAX, Flax, Optax
+and the JAX package made unimportable, and with pandas, msgpack and Pillow
+too (a machine with a card need not have them)."""
 
 import os
 import subprocess
@@ -21,6 +22,7 @@ import i2v_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(i2v_tpu_torch.__path__, "i2v_tpu_torch."))
 for name in names:
     importlib.import_module(name)
+import tools.torch_asr_proxy
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in BLOCKED and sys.modules[k] is not None)
 assert not leaked, leaked

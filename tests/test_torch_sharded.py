@@ -336,8 +336,14 @@ def test_bad_settings_are_refused(i2v_pair):
         sharded.make_sharded_i2v_runner(pb, steps=1, frame_chunk="all")
     with pytest.raises(ValueError, match="at least 1"):
         sharded.snap_frame_chunk(0, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 10"):
-        sharded.make_sharded_i2v_runner(pb, steps=1, mu_dtype=torch.bfloat16)
+    # mu_dtype is ported (item 10): a bfloat16 first moment is taken and
+    # stored, a non-floating one refused
+    with pytest.raises(ValueError, match="mu_dtype must be a floating torch dtype"):
+        sharded.make_sharded_i2v_runner(pb, steps=1, mu_dtype=torch.int32)
+    runner = sharded.make_sharded_i2v_runner(pb, steps=1, mu_dtype=torch.bfloat16,
+                                             opt_state_io=True)
+    count, mu, nu = runner(_clips(5, b=1))[2]
+    assert int(count) == 1 and mu.dtype == torch.bfloat16 and nu.dtype == torch.float32
 
 
 # -- the attack adapter ---------------------------------------------------------------

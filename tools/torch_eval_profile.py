@@ -45,6 +45,21 @@ at every chunk listed (an int, ``auto``, or ``none`` for no chunking), over
 (``i2v_tpu_torch/parallel/sharded.py``). A chunk that does not fit is
 recorded as such.
 
+    python tools/torch_eval_profile.py --dtype bfloat16 [--out outputs/eval_profile_bf16.json]
+
+profiles the same evaluations with the six models computing in bfloat16
+(``cli.evaluate --bf16``), once: the TF32 flags do not touch bfloat16 work.
+
+    python tools/torch_eval_profile.py --attacks --dtype bfloat16 \
+        [--out outputs/bf16_runner_profile.json]
+
+profiles the frame-chunked runner (``parallel.sharded.make_sharded_i2v_runner``,
+the library call: no CLI flag builds bfloat16 surrogates) at the reference's
+B=16 with ``frame_chunk="auto"``, 3 steps a call, in both precision modes:
+ENS-I2V with float32 surrogates, ENS-I2V and AENS-I2V-MF with bfloat16
+surrogates and bfloat16 weight storage, and AENS-I2V-MF with float32
+surrogates and a bfloat16 first moment (``mu_dtype``).
+
     python tools/torch_eval_profile.py --whitebox [--out outputs/whitebox_profile.json]
 
 profiles the white-box paths on full-width I3D-R50 with TF32 off, the same
@@ -75,7 +90,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from i2v_tpu_torch.cli import common  # noqa: E402
 from i2v_tpu_torch.data.synthetic import SyntheticAttackDataset  # noqa: E402
 from i2v_tpu_torch.eval.transfer import reference_eval, single_pass_eval  # noqa: E402
-from i2v_tpu_torch.models import get_video_model, video_zoo  # noqa: E402
+from i2v_tpu_torch.models import get_image_models, get_video_model, video_zoo  # noqa: E402
 from i2v_tpu_torch.utils import artifacts  # noqa: E402
 
 MODES = ("float32", "default")
@@ -273,6 +288,40 @@ def chunked_paths(chunks):
     return paths
 
 
+ENS_DEPTHS = {"resnet": 2, "vgg": 3, "squeezenet": 2, "alexnet": 3}
+AENS_DEPTHS = {n: [2, 3] for n in ENS_DEPTHS}
+
+
+def runner_paths(tmp: str):
+    """(name, batch, steps, make) of the runner at B=16 with
+    ``frame_chunk="auto"``, as :func:`attack_paths`: float32 and bfloat16
+    ENS-I2V, bfloat16 AENS-I2V-MF, and float32 AENS-I2V-MF with a bfloat16
+    first moment. Each builds its own surrogates."""
+    import numpy as np
+
+    from i2v_tpu_torch.parallel import sharded
+
+    ds = SyntheticAttackDataset(n_samples=AENS_PEAK_BATCH)
+    clean01 = torch.from_numpy(np.stack([ds.clip01(i) for i in range(AENS_PEAK_BATCH)]))
+
+    def make(depths, dtype, adaptive=False, mu_dtype=None):
+        models = get_image_models(list(depths), depths, device="cuda", dtype=dtype)
+        runner = sharded.make_sharded_i2v_runner(
+            models, steps=CHUNK_STEPS, step_size=0.005, adaptive=adaptive, aens_momentum=0.5,
+            frame_chunk="auto", mu_dtype=mu_dtype,
+            param_dtype=torch.bfloat16 if dtype == torch.bfloat16 else None)
+        clips = clean01.cuda()
+        return lambda: runner(clips)
+
+    bf16 = torch.bfloat16
+    return [(f"{name}, frame_chunk auto", AENS_PEAK_BATCH, CHUNK_STEPS, fn) for name, fn in (
+        ("ENS-I2V float32", lambda: make(ENS_DEPTHS, torch.float32)),
+        ("ENS-I2V bfloat16 (compute and storage)", lambda: make(ENS_DEPTHS, bf16)),
+        ("AENS-I2V-MF bfloat16 (compute and storage)", lambda: make(AENS_DEPTHS, bf16, True)),
+        ("AENS-I2V-MF float32, mu_dtype bfloat16",
+         lambda: make(AENS_DEPTHS, torch.float32, True, bf16)))]
+
+
 def whitebox_paths(tmp: str):
     """(name, batch, steps, make) of each white-box path, as
     :func:`attack_paths`: each through the attack CLI's dispatch on its own
@@ -419,6 +468,9 @@ def main(argv=None) -> dict:
     p.add_argument("--attacks", action="store_true", help="profile the attack paths")
     p.add_argument("--whitebox", action="store_true",
                    help="profile the white-box paths and the new attacks' transforms")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="the evaluated models' compute dtype; with --attacks, 'bfloat16' "
+                        "profiles the runner at B=16 with bfloat16 surrogates and mu_dtype")
     p.add_argument("--frame_chunk", default=None, metavar="C,C,...",
                    help="with --attacks: profile the frame-chunked runner at B=16 at each of "
                         "these chunks (ints, 'auto', 'none') instead")
@@ -434,7 +486,10 @@ def main(argv=None) -> dict:
     result = {"card": card, "torch": torch.__version__, "batch": BATCH, "rows": []}
     if args.attacks or args.whitebox:
         with tempfile.TemporaryDirectory() as tmp:
-            if args.attacks and args.frame_chunk:
+            if args.attacks and args.dtype == "bfloat16":
+                out = args.out or "outputs/bf16_runner_profile.json"
+                profile_attacks(result, tmp, runner_paths)
+            elif args.attacks and args.frame_chunk:
                 out = args.out or "outputs/chunk_profile.json"
                 profile_attacks(result, tmp, chunked_paths(args.frame_chunk.split(",")))
             elif args.attacks:
@@ -448,17 +503,21 @@ def main(argv=None) -> dict:
         with open(out, "w") as f:
             json.dump(result, f, indent=1)
         return result
-    args.out = args.out or "outputs/eval_profile.json"
+    bf16 = args.dtype == "bfloat16"
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    args.out = args.out or f"outputs/eval_profile{'_bf16' if bf16 else ''}.json"
+    result["dtype"] = args.dtype
     with tempfile.TemporaryDirectory() as tmp:
         ds = SyntheticAttackDataset(n_samples=BATCH)
         for label in range(BATCH):
             artifacts.save_adv_clip(tmp, label, ds[label][0])
         batches = artifacts.batch_files(artifacts.list_adv_files(tmp), BATCH)
-        for mode in MODES:
+        # the TF32 flags touch float32 work only
+        for mode in ("default",) if bf16 else MODES:
             prec = common.apply_matmul_precision(argparse.Namespace(matmul_precision=mode))
-            print(f"[precision] {prec}")
+            print(f"[precision] {prec}; models in {args.dtype}")
             for name in video_zoo.VIDEO_BUILDERS:
-                bundle = get_video_model(name, device="cuda")
+                bundle = get_video_model(name, device="cuda", dtype=dtype)
                 warm_s, preds = timed_eval(bundle, batches, tmp)
                 torch.cuda.reset_peak_memory_stats()
                 wall_s, _ = timed_eval(bundle, batches, tmp)
@@ -496,7 +555,7 @@ def main(argv=None) -> dict:
                       + "; ".join(f"{n[:60]} {s:.1%}" for n, s in row["top_kernels"][:3]))
                 del bundle
                 torch.cuda.empty_cache()
-            bundles = {name: get_video_model(name, device="cuda")
+            bundles = {name: get_video_model(name, device="cuda", dtype=dtype)
                        for name in video_zoo.VIDEO_BUILDERS}
 
             def one_pass():
