@@ -107,16 +107,36 @@ raises and the script exits non-zero:
                  and on; 3-step AENS-I2V-MF at B=16 with a bf16 first moment
                  (mu_dtype): its peak beside a float32 moment's
 
+ 28. multi-device — on the real cards when there are four or more, else on
+                 one card four times (the JAX suite's fake devices), float32,
+                 TF32 off: ENS-I2V at B=2 through the mesh runner over
+                 attack_mesh(data=2, frames=2), each position's slice of the
+                 step-0 gradient held to the mesh-free runner at frame_chunk 16
+                 (one position's frames), two 3-step batches with K1/K2 =
+                 steps·4 + 4 / steps·4 each, steps/s and each card's peak (and,
+                 on four cards, K1/K2 on the last card against their plain
+                 versions); image_main ENS and AENS with --model_parallel N (N the
+                 card count, 5 steps); the model-axis runner over
+                 ensemble_mesh(model=4) against the sequential ensemble (step-0
+                 cost and gradient; AENS's coefficients after 3 steps); the six
+                 full-width video models over the mesh runner's four clips, whole
+                 and cut over attack_mesh (logits, and the reports of serial,
+                 mesh, mesh single-pass and cli.evaluate --data_parallel); two
+                 processes of image_main under the launcher's variables (gloo),
+                 each on its half of four clips into one run directory, their
+                 launch counts printed and checked, and cli.evaluate over the
+                 merged run
 Phase 3 also holds K1/K2 to their plain versions at the chunked runner's
 shapes: a 512-frame call (B=16), a 128-frame chunk that starts 128 frames
 into a 512-frame modifier, and a 112² call (multigrid's coarse phase).
 Each path (slice, eval, whitebox, sf whitebox, aens, dr, fused, ilaf, wb
 family, tt, remat, ucf101, chunked aens, chunk equality, multigrid, real
 data's ENS, twin, BIM and UCF-101 runs, zoo + gradcam's DenseNet and ViT
-runs, Grad-CAM, evaluation and grid, and bf16's ENS, evaluations and
-mu_dtype AENS) is
-driven with the launch counters set to 0 just before it and read just
-after.
+runs, Grad-CAM, evaluation and grid, bf16's ENS, evaluations and
+mu_dtype AENS, and multi-device's mesh runner, --model_parallel runs,
+model-axis AENS and evaluations) is driven with the launch counters set to
+0 just before it and read just after; the two launched processes count
+their own and print them, and their counts join the kernels line.
 The line before the last is a JSON object with each kernel's launches over
 those paths, its error, times and bound; the last line is
 {"ok": true, "device": {...}}.
@@ -126,6 +146,7 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -2295,6 +2316,303 @@ def phase_bf16(kernels, evaluate_cli, synthetic, pixel, card: str, tmp: str) -> 
     return totals
 
 
+MD_CLIPS, MD_STEPS, MD_CHUNK = 2, 3, 16   # a batch of 2 clips: 64 frames, 16 a position
+MD_MP_STEPS, MD_AENS_STEPS = 5, 3
+MD_COST_RTOL = 1e-6       # mesh (or model axis) against mesh-free step-0 cost
+MD_GRAD_ATOL = 5e-5       # a slice's step-0 gradient against the mesh-free runner's over the
+                          # same frames, times max|g| (EQ_GRAD_ATOL: cuDNN's input-gradient
+                          # sums vary run to run)
+MD_COEF_ATOL = 1e-5       # AENS's coefficients after 3 steps, model axis vs mesh-free
+MD_LOGIT_RTOL = 1e-4      # a video model's logits cut over the mesh vs whole, times max|logit|
+MD_CHILD = """
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+from i2v_tpu_torch.cli import image_main
+from i2v_tpu_torch.ops import kernels
+from i2v_tpu_torch.parallel import dist
+image_main.main(sys.argv[1:])
+print(json.dumps({"rank": dist.process_index(), "world": dist.process_count(),
+                  "launches": dict(kernels.launches)}))
+"""
+
+
+def _mesh_devices() -> list:
+    """The real cards when there are four or more, else one card four times
+    (the JAX suite's fake devices, on the card)."""
+    n = torch.cuda.device_count()
+    if n >= 4:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * 4
+
+
+def _sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _peaks(devices) -> str:
+    return ", ".join(f"{d} {torch.cuda.max_memory_allocated(d) / 2**30:.2f} GiB"
+                     for d in dict.fromkeys(devices))
+
+
+def phase_multi_device(kernels, image_main, evaluate_cli, synthetic, pixel_mean_std,
+                       card: str, tmp: str) -> dict:
+    """The mesh paths at full width, float32, TF32 off, on the real cards when
+    there are four, else on one card four times: (1) ENS-I2V at B=2 through
+    the mesh runner over attack_mesh(data=2, frames=2), held slice by slice
+    to the mesh-free runner at frame_chunk 16 (one position's frames), twice
+    (two batches: its clips are item 3's run); (2) --model_parallel N (N the
+    card count) through cli.image_main, ENS and AENS, and the model-axis
+    runner over ensemble_mesh(model=4) held to the sequential ensemble (the
+    step-0 cost and gradient; AENS's coefficients after 3 steps); (3) the six
+    full-width video models over (1)'s clips, serially and over the mesh:
+    logits and reports, and cli.evaluate --data_parallel; (4) two processes
+    of cli.image_main under the launcher's variables (gloo), each on its
+    half of four clips into one run, which cli.evaluate then reads. Returns
+    the launch counts of every path it drives, the children's included."""
+    import argparse
+
+    from i2v_tpu_torch.cli import common as cli_common
+    from i2v_tpu_torch.eval import transfer
+    from i2v_tpu_torch.models import get_image_models, get_video_model
+    from i2v_tpu_torch.ops import pixel
+    from i2v_tpu_torch.parallel import attack_mesh, ensemble, mesh as mesh_mod, sharded
+    from i2v_tpu_torch.utils import VIDEO_MODEL_NAMES, artifacts
+
+    t0 = time.time()
+    cli_common.apply_matmul_precision(argparse.Namespace(matmul_precision="float32"))
+    devices = _mesh_devices()
+    where = "four cards" if len(set(devices)) >= 4 else "one card four times"
+    totals, facts = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}, []
+
+    def add(counts):
+        for k in totals:
+            totals[k] += counts[k]
+
+    ds = synthetic.SyntheticAttackDataset(n_samples=2 * MD_CLIPS)
+    clean01 = torch.from_numpy(np.stack([ds.clip01(i) for i in range(2 * MD_CLIPS)])).cuda()
+    ens = {"resnet": 2, "vgg": 3, "squeezenet": 2, "alexnet": 3}
+    surr = get_image_models(list(ens), ens, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    mod = (torch.rand(MD_CLIPS * 32, 3, 224, 224, device="cuda", generator=gen) * 2 - 1) \
+        * 0.9 * EPS
+
+    # (1) the mesh runner, slice by slice against the mesh-free runner
+    mesh = attack_mesh(devices, data=2, frames=2)
+    per = MD_CLIPS * 32 // mesh.size
+    free = sharded.make_sharded_i2v_runner(surr, steps=MD_STEPS, frame_chunk=MD_CHUNK)
+    c_f, g_f = free.value_and_grad(clean01[:MD_CLIPS], mod)
+    runner = sharded.make_sharded_i2v_runner(surr, mesh, steps=MD_STEPS)
+    c_m, g_m = runner.value_and_grad(clean01[:MD_CLIPS], mod)
+    scale = float(g_f.abs().max())
+    cost_rel = abs(float(c_m) / float(c_f) - 1)
+    slice_err = max(float((g_m[p * per:(p + 1) * per] - g_f[p * per:(p + 1) * per].to(
+        g_m.device)).abs().max()) / scale for p in range(mesh.size))
+    if not (cost_rel <= MD_COST_RTOL and slice_err <= MD_GRAD_ATOL and scale > 0):
+        raise RuntimeError(f"mesh runner vs mesh-free: cost {float(c_m)} vs {float(c_f)} "
+                           f"(relative {cost_rel}), slice gradient {slice_err} of max|g|")
+    if len(set(devices)) > 1:
+        # K1/K2 on a card other than cuda:0: the device guard and its stream
+        d = devices[-1]
+        frames = pixel.flatten_clip_to_frames(clean01[:1]).to(d)
+        m = mod[:32].to(d).requires_grad_(True)
+        out = kernels.rebuild_adv(frames, m, EPS)
+        (g_k,) = torch.autograd.grad(out, m, out)
+        m_p = mod[:32].to(d).requires_grad_(True)
+        out_p = pixel.rebuild_adv(frames, m_p, float(np.float32(EPS)))
+        (g_p,) = torch.autograd.grad(out_p, m_p, out_p)
+        if not (torch.equal(out, out_p) and torch.equal(g_k, g_p)):
+            raise RuntimeError(f"K1/K2 on {d} differ from their plain versions")
+        facts.append(f"K1/K2 on {d} bit-identical to their plain versions")
+    _sync_all()
+    for d in dict.fromkeys(devices):
+        torch.cuda.reset_peak_memory_stats(d)
+    walls, advs = [], []
+    want = {"rebuild_fwd": 2 * (MD_STEPS * mesh.size + mesh.size),
+            "rebuild_bwd": 2 * MD_STEPS * mesh.size, "sign_step": 0}
+
+    def two_batches():
+        for k in range(2):
+            ts = time.perf_counter()
+            adv, costs = runner(clean01[k * MD_CLIPS:(k + 1) * MD_CLIPS])
+            _sync_all()
+            walls.append(time.perf_counter() - ts)
+            advs.append(adv)
+            c = costs.cpu().numpy()
+            if not (np.isfinite(c).all() and c[-1] < c[0]):
+                raise RuntimeError(f"mesh ENS batch {k}: the cost did not fall: {c}")
+
+    kernels.reset_launches()
+    two_batches()
+    counts = dict(kernels.launches)
+    if counts != want:
+        raise RuntimeError(f"mesh ENS: launch counts {counts}, expected {want}")
+    add(counts)
+    adv01 = torch.cat(advs)
+    if (float((adv01 - clean01).abs().max()) > EPS + 1e-5 or adv01.min() < 0
+            or adv01.max() > 1):
+        raise RuntimeError("mesh ENS: an adversarial clip left the ε-ball or [0,1]")
+    facts.append(
+        f"(1) ENS-I2V over attack_mesh(data=2, frames=2) on {where}, B={MD_CLIPS} x 32 x "
+        f"224^2 ({per} frames a position), {MD_STEPS} steps: step-0 cost vs the mesh-free "
+        f"runner at frame_chunk {MD_CHUNK} relative {cost_rel:.3g} (limit {MD_COST_RTOL}), "
+        f"each slice's gradient {slice_err:.3g} of max|g| (limit {MD_GRAD_ATOL}); "
+        f"{MD_STEPS / walls[0]:.4f} steps/s cold, {MD_STEPS / walls[1]:.4f} warm "
+        f"({walls[1]:.3f} s a batch); peaks {_peaks(devices)}; launches {counts}")
+    del runner, free, g_f, g_m
+
+    # (2) --model_parallel through the CLI, and the model-axis runner
+    n = torch.cuda.device_count()
+    for method, extra in (("ImageGuidedFML2_Adam_MultiModels", []),
+                          ("AENS_I2V_MF", ["--step_size", "0.005", "--aens_momentum",
+                                           str(AENS_MOMENTUM)])):
+        argv = ["--attack_method", method, "--data", "synthetic", "--n_synthetic", "1",
+                "--step", str(MD_MP_STEPS), "--model_parallel", str(n), "--device", "cuda",
+                "--matmul_precision", "float32", "--file_prefix", "mp"] + extra
+        args = image_main.arg_parse(argv)
+        # ensemble_mesh(model=n) over the n cards: n groups, one frame slice
+        want = {"rebuild_fwd": MD_MP_STEPS * n + 1, "rebuild_bwd": MD_MP_STEPS * n,
+                "sign_step": 0}
+        _, counts, _ = _run_counted(kernels, f"--model_parallel {n} {method}", want,
+                                    lambda: image_main.run(args))
+        add(counts)
+        _check_clip(args.adv_path, 0, "adv", synthetic.SyntheticAttackDataset(n_samples=1),
+                    pixel_mean_std)
+        (c,) = _costs(args.adv_path).values()
+        if len(c) != MD_MP_STEPS or not (np.isfinite(c).all() and c[-1] < c[0]):
+            raise RuntimeError(f"--model_parallel {method}: costs {c}")
+        facts.append(f"(2) image_main {method} --model_parallel {n}: "
+                     f"{MD_MP_STEPS / args.throughput['last_call_s']:.3f} steps/s with warm-up, "
+                     f"launches {counts}, costs {np.round(c, 4).tolist()}")
+    emesh = ensemble.ensemble_mesh(devices, model=4)
+    one = clean01[:1]
+    c_s, g_s = sharded.make_sharded_i2v_runner(surr, steps=1).value_and_grad(one, mod[:32])
+    c_e, g_e = ensemble.make_ensemble_parallel_runner(surr, emesh, steps=1).value_and_grad(
+        one, mod[:32])
+    scale = float(g_s.abs().max())
+    e_cost = abs(float(c_e) / float(c_s) - 1)
+    e_grad = float((g_e - g_s).abs().max()) / scale
+    aens = {n_: [2, 3] for n_ in ens}
+    surr_a = get_image_models(list(aens), aens, device="cuda")
+    kw = dict(steps=MD_AENS_STEPS, adaptive=True, aens_momentum=AENS_MOMENTUM)
+    seq = sharded.make_sharded_i2v_runner(surr_a, **kw)
+    par = ensemble.make_ensemble_parallel_runner(surr_a, emesh, **kw)
+    seq(one)
+    want = {"rebuild_fwd": MD_AENS_STEPS * emesh.size + emesh.shape["frames"],
+            "rebuild_bwd": MD_AENS_STEPS * emesh.size, "sign_step": 0}
+    (adv_e, costs_e), counts, _ = _run_counted(kernels, "model-axis AENS", want,
+                                               lambda: par(one))
+    add(counts)
+    coef_err = float((par.coefficients() - seq.coefficients()).abs().max())
+    if not (e_cost <= MD_COST_RTOL and e_grad <= MD_GRAD_ATOL and coef_err <= MD_COEF_ATOL
+            and scale > 0):
+        raise RuntimeError(f"model axis vs sequential: cost relative {e_cost}, gradient "
+                           f"{e_grad} of max|g|, AENS coefficients {coef_err}")
+    if float((adv_e - one).abs().max()) > EPS + 1e-5 or not torch.isfinite(costs_e).all():
+        raise RuntimeError("model-axis AENS: output off the ε-ball or costs not finite")
+    facts.append(
+        f"(2) model-axis runner over ensemble_mesh(model=4) on {where}, one clip: step-0 cost "
+        f"relative {e_cost:.3g} and gradient {e_grad:.3g} of max|g| against the sequential "
+        f"ensemble; AENS (8 taps, momentum {AENS_MOMENTUM}) coefficients after "
+        f"{MD_AENS_STEPS} steps {coef_err:.3g} from the sequential runner's (limit "
+        f"{MD_COEF_ATOL}); launches {counts}")
+    del surr, surr_a, seq, par
+
+    # (3) data-parallel evaluation over (1)'s clips
+    run_dir = os.path.join(tmp, "md_run")
+    artifacts.save_batch(run_dir, list(range(2 * MD_CLIPS)),
+                         pixel.normalize(adv01, channel_axis=1).cpu().numpy())
+    video = {name: get_video_model(name, device="cuda") for name in VIDEO_MODEL_NAMES}
+    dmesh = attack_mesh(devices)
+    clips = pixel.normalize(adv01, channel_axis=1)
+    pieces = mesh_mod.Sharding(dmesh, dmesh.axis_names).split(clips).pieces
+    logit_err = 0.0
+    with torch.inference_mode():
+        for name, bundle in video.items():
+            whole = bundle.apply_norm(clips)
+            cut = transfer._Replicas(bundle, dmesh).logits(pieces, dmesh.positions)
+            logit_err = max(logit_err, float((cut - whole).abs().max() / whole.abs().max()))
+    reports = {}
+    kernels.reset_launches()
+    for key, kw in (("serial", {}), ("mesh", {"mesh": dmesh}),
+                    ("mesh single pass", {"mesh": dmesh, "single_pass": True})):
+        transfer.evaluate_run(run_dir, batch_size=2 * MD_CLIPS, device="cuda",
+                              get_bundle=video.__getitem__, log=lambda *_: None, **kw)
+        with open(os.path.join(run_dir, REPORT_CSV), "rb") as f, \
+                open(os.path.join(run_dir, REPORT_JSON), "rb") as g:
+            reports[key] = (f.read(), g.read())
+    args = evaluate_cli.arg_parse(["--adv_path", run_dir, "--device", "cuda", "--batch_size",
+                                   str(2 * MD_CLIPS), "--data_parallel", "--matmul_precision",
+                                   "float32"])
+    evaluate_cli.run(args, get_bundle=video.__getitem__)
+    with open(os.path.join(run_dir, REPORT_CSV), "rb") as f, \
+            open(os.path.join(run_dir, REPORT_JSON), "rb") as g:
+        reports["cli --data_parallel"] = (f.read(), g.read())
+    if any(kernels.launches.values()):
+        raise RuntimeError(f"evaluation launched a kernel: {kernels.launches}")
+    if logit_err > MD_LOGIT_RTOL or len(set(reports.values())) != 1:
+        raise RuntimeError(f"data-parallel evaluation: logits {logit_err} of max|logit|, "
+                           f"reports equal: {[r == reports['serial'] for r in reports.values()]}")
+    facts.append(
+        f"(3) six full-width video models over (1)'s {2 * MD_CLIPS} clips cut over "
+        f"attack_mesh ({dmesh.size} positions): logits {logit_err:.3g} of max|logit| from the "
+        f"whole batch's (limit {MD_LOGIT_RTOL}); serial, mesh, mesh single-pass and "
+        f"cli.evaluate --data_parallel reports identical; cli clips/s "
+        + ", ".join(f"{k} {v['clips_per_sec']:.3f}" for k, v in args.throughput.items()))
+    del video
+
+    # (4) two processes under the launcher's variables, one run directory
+    out_dir = os.path.join(tmp, "md_two")
+    argv = ["--attack_method", "ImageGuidedFML2_Adam_MultiModels", "--data", "synthetic",
+            "--n_synthetic", "4", "--step", "2", "--device", "cuda", "--matmul_precision",
+            "float32", "--file_prefix", "two"]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in (0, 1):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), I2V_TPU_OPT_PATH=out_dir)
+        procs.append(subprocess.Popen([sys.executable, "-c", MD_CHILD] + argv, env=env,
+                                      cwd=os.path.dirname(os.path.abspath(__file__)),
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    children = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise RuntimeError(f"a launched process failed ({p.returncode}):\n{out}\n{err}")
+            children.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            p.kill()
+    want = {"rebuild_fwd": 2 * 3, "rebuild_bwd": 2 * 2, "sign_step": 0}   # 2 clips at B=1
+    for rank, child in enumerate(children):
+        if child["rank"] != rank or child["world"] != 2 or child["launches"] != want:
+            raise RuntimeError(f"process {rank} reported {child}, expected launches {want}")
+        add(child["launches"])
+    run_two = os.path.join(out_dir, "Image-ImageGuidedFML2_Adam_MultiModels-2-synthetic-two")
+    files = sorted(os.listdir(run_two))
+    if files != ["0-adv.npy", "1-adv.npy", "2-adv.npy", "3-adv.npy", "loss_info_1.json",
+                 "loss_info_2.json"]:
+        raise RuntimeError(f"the two processes left {files}")
+    ds4 = synthetic.SyntheticAttackDataset(n_samples=4)
+    for label in range(4):
+        _check_clip(run_two, label, "adv", ds4, pixel_mean_std)
+    args = evaluate_cli.arg_parse(["--adv_path", run_two, "--device", "cuda",
+                                   "--matmul_precision", "float32"])
+    acc = evaluate_cli.run(args)
+    if sorted(acc) != sorted(VIDEO_MODEL_NAMES):
+        raise RuntimeError(f"cli.evaluate over the merged run gave {acc}")
+    facts.append(f"(4) two processes (gloo, cuda:{{rank % {n}}}) of image_main ENS-I2V, 2 "
+                 f"steps, 2 clips each, one run directory ({', '.join(files)}); each child's "
+                 f"launches {want}; cli.evaluate over the merged run: top-1 {acc}")
+    print(f"[multi-device] on {card}, TF32 off: " + "; ".join(facts)
+          + f"; launches {totals}; phase wall {time.time() - t0:.2f} s")
+    return totals
+
+
 def main() -> None:
     name, card = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2357,8 +2675,10 @@ def main() -> None:
         zoo = phase_zoo_gradcam(kernels, image_main, synthetic, get_bundle, (mean, std), tmp)
         video_models.clear()
         bf16 = phase_bf16(kernels, evaluate_cli, synthetic, pixel, card, tmp)
+        multi = phase_multi_device(kernels, image_main, evaluate_cli, synthetic, (mean, std),
+                                   card, tmp)
         for k in counts:
-            counts[k] += real[k] + zoo[k] + bf16[k]
+            counts[k] += real[k] + zoo[k] + bf16[k] + multi[k]
     print(f"[done] every phase passed in {time.time() - t0:.2f} s after the device check")
 
     where = {"rebuild_fwd": ("i2v_tpu_torch/csrc/rebuild_adv.cu",

@@ -2,10 +2,13 @@
 device and precision, model and attack construction, resume, artifacts.
 
 PyTorch counterpart of :mod:`i2v_tpu.cli.common`. ``--sharded`` runs
-I2V / ENS-I2V / AENS-I2V-MF through the frame-chunked single-device runner
-(:mod:`i2v_tpu_torch.parallel`), with ``--frame_chunk``, ``--param_dtype``
-and ``--multigrid``; only ``--model_parallel`` is refused, naming its ROADMAP
-item.
+I2V / ENS-I2V / AENS-I2V-MF through the frame-chunked runner with the frame
+batch cut over a mesh of this process's cards (:mod:`i2v_tpu_torch.parallel`),
+with ``--frame_chunk``, ``--param_dtype`` and ``--multigrid``;
+``--model_parallel N`` splits the ENS / AENS surrogates over an N-wide model
+axis. Under a multi-process launch (:mod:`i2v_tpu_torch.parallel.dist`)
+each process takes its slice of the samples, its own card and its own
+``loss_info`` shard.
 ``--data`` reads Kinetics-400 clips, UCF-101 frame JPEGs or synthetic clips
 (the dataset-free smoke path); ``--u8_ingress`` ships the decoded uint8
 frames and normalizes them on the device, and ``--prefetch N`` decodes and
@@ -41,28 +44,10 @@ IMAGE_GUIDED_METHODS = (
 )
 # the JAX CLI's surrogates for DR and I2V (i2v_tpu/cli/image_main.py:48-52)
 DIRECTION_IMAGE_MODELS = ("resnet", "vgg", "alexnet", "squeezenet", "densenet", "vit")
-# the JAX image CLI's runner flags, refused with the work item named
-UNPORTED_RUNNER_FLAGS = {
-    "model_parallel": "item 9 (multi-device)",
-}
 WHITEBOX_METHODS = (
     "FGSM", "BIM", "MIFGSM", "DIFGSM", "TIFGSM", "TIFGSM3D", "SGM", "SIM",
     "TAP", "TemporalTranslation",
 )
-
-
-def add_unported_runner_args(p: argparse.ArgumentParser) -> None:
-    """The JAX image CLI's runner flags; :func:`refuse_unported_runner_args`
-    stops a run that passes one."""
-    for flag, item in UNPORTED_RUNNER_FLAGS.items():
-        p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
-                       help=f"not ported yet (ROADMAP Queue 1, {item})")
-
-
-def refuse_unported_runner_args(p: argparse.ArgumentParser, args) -> None:
-    for flag, item in UNPORTED_RUNNER_FLAGS.items():
-        if getattr(args, flag) is not None:
-            p.error(f"--{flag} is not ported yet (ROADMAP Queue 1, {item})")
 
 
 def add_data_args(p: argparse.ArgumentParser) -> None:
@@ -93,7 +78,8 @@ def add_data_args(p: argparse.ArgumentParser) -> None:
                         "convs, full-float32 matmuls). No mode touches bfloat16 "
                         "work, whose GEMMs always reduce in float32")
     p.add_argument("--device", default="cuda",
-                   help="torch device to attack on (cuda, cuda:N or cpu)")
+                   help="torch device to attack on (cuda, cuda:N or cpu); with --sharded or "
+                        "--model_parallel, 'cuda' spans every card of the process")
 
 
 def data_shape(args) -> tuple[int, int]:
@@ -106,12 +92,28 @@ def data_shape(args) -> tuple[int, int]:
 
 
 def resolve_device(args) -> torch.device:
-    """The attack device; ``SystemExit`` for a CUDA device without a card."""
+    """The attack device; ``SystemExit`` for a CUDA device without a card.
+    Under a multi-process launch, ``--device cuda`` is this process's card
+    (:func:`~i2v_tpu_torch.parallel.dist.local_device`)."""
+    from ..parallel import dist
+
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available "
                          "(pass --device cpu to run on the CPU)")
+    if device == torch.device("cuda") and dist.maybe_initialize_distributed():
+        return dist.local_device()
     return device
+
+
+def mesh_devices(args) -> list | None:
+    """The devices a mesh of this process spans: ``--device`` itself where
+    it names one device (``cpu``, ``cuda:N``) or under a multi-process
+    launch (each process its own card), else None: every local card."""
+    device = resolve_device(args)
+    if device.type == "cuda" and device.index is None:
+        return None
+    return [device]
 
 
 def apply_matmul_precision(args) -> str:
@@ -158,29 +160,38 @@ def build_dataset(args):
 
 
 def batch_iterator(args, dataset, iterate, left: int = 0, right=None,
-                   keep_host: bool = False):
+                   keep_host: bool = False, mesh=None):
     """The CLI's batch stream: in the loop's thread by default; with
     ``--prefetch N`` a decode thread and early uploads to ``args.device`` run
-    N batches ahead of the attack (``data.pipeline.make_input_pipeline``).
-    ``keep_host`` keeps the host clips under ``clips_host`` for the writers
-    of ``-ori`` artifacts."""
+    N batches ahead of the attack (``data.pipeline.make_input_pipeline``),
+    landing each batch over ``mesh`` (the ``--sharded`` attack's) as its
+    per-device pieces. ``keep_host`` keeps the host clips under
+    ``clips_host`` for the writers of ``-ori`` artifacts."""
     if args.prefetch <= 0:
         return iterate(dataset, args.batch_size, left, right)
     from ..data.pipeline import make_input_pipeline
 
     return make_input_pipeline(dataset, args.batch_size, iterate, left=left, right=right,
                                device=resolve_device(args), prefetch_depth=args.prefetch,
-                               keep_host=keep_host)
+                               keep_host=keep_host, mesh=mesh)
 
 
 def check_runner_args(args) -> None:
-    """The JAX CLI's checks of ``--sharded`` and ``--multigrid``, with its
-    conditions and messages (``i2v_tpu/cli/common.py:199-226,246-251``)."""
+    """The JAX CLI's checks of ``--sharded``, ``--model_parallel`` and
+    ``--multigrid``, with its conditions and messages
+    (``i2v_tpu/cli/common.py:199-226,246-251``)."""
     method = args.attack_method
     hw = 32 if args.tiny else data_shape(args)[1]
     sharded = getattr(args, "sharded", False)
+    model_parallel = getattr(args, "model_parallel", None)
     multigrid = getattr(args, "multigrid", 0) or 0
-    if multigrid and not sharded:
+    if model_parallel and method not in ("ImageGuidedFML2_Adam_MultiModels", "AENS_I2V_MF"):
+        raise SystemExit("--model_parallel splits the surrogate ensemble; it only applies to "
+                         "the ensemble methods (ENS/AENS)")
+    if model_parallel and sharded:
+        raise SystemExit("--model_parallel and --sharded are alternative parallelizations of "
+                         "the ensemble step; pick one")
+    if multigrid and not (sharded or model_parallel):
         raise SystemExit("--multigrid runs through the sharded or model-parallel runners; "
                          "add --sharded or --model_parallel N")
     if multigrid and method == "AENS_I2V_MF":
@@ -203,21 +214,29 @@ def check_runner_args(args) -> None:
 def build_image_guided_attack(args, device: torch.device):
     """Dispatch an image-guided method (reference: image_main.py:66-80), and
     AENS, which the reference defines but never wires to a CLI. ``--sharded``
-    routes I2V, ENS-I2V and AENS through the frame-chunked runner instead of
-    the attack class."""
+    routes I2V, ENS-I2V and AENS through the frame-chunked runner over
+    ``attack_mesh`` of this process's devices, and ``--model_parallel N``
+    ENS-I2V and AENS through the model-axis runner over ``ensemble_mesh``,
+    instead of the attack class."""
     check_runner_args(args)
     method = args.attack_method
     hw = 32 if args.tiny else data_shape(args)[1]
+    model_parallel = getattr(args, "model_parallel", None)
 
     def build(models, *, step_size, adaptive=False, momentum=0.0, coef_ce=False):
-        from ..parallel import ShardedImageGuidedAttack
+        from ..parallel import (EnsembleParallelAttack, ShardedImageGuidedAttack, attack_mesh,
+                                ensemble_mesh)
 
+        kw = dict(steps=args.step, step_size=step_size, adaptive=adaptive,
+                  aens_momentum=momentum, coef_ce=coef_ce, name=method,
+                  frame_chunk=args.frame_chunk, multigrid=args.multigrid,
+                  multigrid_scale=args.multigrid_scale)
+        if model_parallel:
+            return EnsembleParallelAttack(
+                models, ensemble_mesh(mesh_devices(args), model=model_parallel), **kw)
         return ShardedImageGuidedAttack(
-            models, steps=args.step, step_size=step_size, adaptive=adaptive,
-            aens_momentum=momentum, coef_ce=coef_ce, name=method,
-            frame_chunk=args.frame_chunk,
-            param_dtype=torch.bfloat16 if args.param_dtype == "bfloat16" else None,
-            multigrid=args.multigrid, multigrid_scale=args.multigrid_scale)
+            models, attack_mesh(mesh_devices(args)),
+            param_dtype=torch.bfloat16 if args.param_dtype == "bfloat16" else None, **kw)
 
     if method in ("ImageGuidedStd_Adam", "ImageGuidedFMDirection_Adam"):
         models = get_image_models([args.direction_image_model], args.depth,
@@ -229,13 +248,13 @@ def build_image_guided_attack(args, device: torch.device):
     if method == "ImageGuidedFML2_Adam_MultiModels":
         depths = {"resnet": 2, "vgg": 3, "squeezenet": 2, "alexnet": 3}
         models = get_image_models(names, depths, device=device, tiny=args.tiny, input_hw=hw)
-        if args.sharded:
+        if args.sharded or model_parallel:
             return build(models, step_size=0.005)
         return attacks.ImageGuidedFML2_Adam_MultiModels(models, steps=args.step)
     if method == "AENS_I2V_MF":
         depths = {n: [2, 3] for n in names}
         models = get_image_models(names, depths, device=device, tiny=args.tiny, input_hw=hw)
-        if args.sharded:
+        if args.sharded or model_parallel:
             return build(models, step_size=args.step_size, adaptive=True,
                          momentum=args.aens_momentum, coef_ce=args.coef_CE)
         return attacks.AENS_I2V_MF(models, step_size=args.step_size,
@@ -274,15 +293,19 @@ def build_whitebox_attack(args, bundle):
 
 def shard_bounds(args, n_samples: int) -> tuple[int, int]:
     """[left, right) of this shard under the reference's 1-based
-    --batch_nums/--batch_index contract (image_main.py:61-63)."""
-    n_shards, index = args.batch_nums, args.batch_index - 1
-    if n_shards < 1 or not 0 <= index < n_shards:
-        raise SystemExit(f"--batch_index/--batch_nums: shard index {index} out of range "
-                         f"for {n_shards} shards (the contract is 1-based)")
-    per = n_samples // n_shards
-    left = index * per
-    right = n_samples if index == n_shards - 1 else left + per
-    return left, right
+    --batch_nums/--batch_index contract (image_main.py:61-63). Under a
+    multi-process launch, with the flags at their defaults, each process
+    takes its rank's slice of the samples instead
+    (:func:`~i2v_tpu_torch.parallel.dist.process_shard_bounds`)."""
+    from ..parallel import dist
+
+    if (dist.maybe_initialize_distributed() and args.batch_nums == 1
+            and dist.process_count() > 1):
+        return dist.process_shard_bounds(n_samples)
+    try:
+        return dist.process_shard_bounds(n_samples, args.batch_nums, args.batch_index - 1)
+    except ValueError as e:
+        raise SystemExit(f"--batch_index/--batch_nums: {e}")
 
 
 def effective_file_prefix(args) -> str:
@@ -327,9 +350,12 @@ def resume_subset(dataset, done: set):
 
 def loss_shard_index(args) -> int:
     """``loss_info_{N}.json``'s shard id: ``--batch_index`` (the reference's
-    per-shard loss_info files, image_main.py:94). The JAX CLI's process
-    index under a multi-process launch waits for the port's multi-device
-    runner."""
+    per-shard loss_info files, image_main.py:94), or the 1-based rank under
+    a multi-process launch, so that each process writes its own."""
+    from ..parallel import dist
+
+    if getattr(args, "batch_nums", 1) == 1 and dist.process_count() > 1:
+        return dist.process_index() + 1
     return args.batch_index
 
 

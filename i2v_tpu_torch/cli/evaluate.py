@@ -6,8 +6,9 @@ Runs every ``*adv*.npy`` artifact of the run directory through the six video
 models (or ``--models``) and writes ``results_all_models_prediction.csv`` and
 ``top1_acc_all_models.json`` into it, with the JAX CLI's schemas. Attack
 success rate = 100 − top-1. ``--bf16`` builds the models to compute in
-bfloat16. ``--device`` defaults to ``cuda`` and stops without a card; it
-never carries on on the CPU.
+bfloat16. ``--data_parallel`` cuts each batch over every card of the process
+(with ``--device cpu``: over the CPU alone). ``--device`` defaults to
+``cuda`` and stops without a card; it never carries on on the CPU.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ import os
 import torch
 
 from ..eval import evaluate_run
-from ..eval.transfer import MULTI_DEVICE_ITEM
 from ..utils import get_paths
 from . import common
 
@@ -38,7 +38,8 @@ def arg_parse(argv=None, n_classes: int = 400):
                         "can differ on borderline clips — default stays float32 for report "
                         "parity)")
     p.add_argument("--data_parallel", action="store_true",
-                   help=f"not ported yet ({MULTI_DEVICE_ITEM})")
+                   help="cut each batch over every local card (data-parallel evaluation); a "
+                        "batch that does not divide over them runs on one card")
     p.add_argument("--single_pass", action="store_true",
                    help="keep all models resident and run each uploaded batch through "
                         "every model: one artifact read and upload in all instead of "
@@ -52,8 +53,6 @@ def arg_parse(argv=None, n_classes: int = 400):
     p.add_argument("--device", default="cuda",
                    help="torch device to evaluate on (cuda, cuda:N or cpu)")
     args = p.parse_args(argv)
-    if args.data_parallel:
-        p.error(f"--data_parallel is not ported yet ({MULTI_DEVICE_ITEM})")
     if args.n_classes is None:
         args.n_classes = 101 if args.ucf101 else n_classes
     if not os.path.isdir(args.adv_path):
@@ -74,7 +73,8 @@ def run(args, get_bundle=None) -> dict:
                        n_classes=args.n_classes, ucf101=args.ucf101, tiny=args.tiny,
                        dtype=torch.bfloat16 if args.bf16 else torch.float32,
                        get_bundle=get_bundle, device=device,
-                       single_pass=args.single_pass, throughput=args.throughput)
+                       data_parallel=args.data_parallel, single_pass=args.single_pass,
+                       throughput=args.throughput)
     print("[summary] " + "; ".join(
         f"{k}: {v['clips_per_sec']:.3f} clips/s ({v['clips']} clips in {v['elapsed_s']:.3f} s)"
         for k, v in args.throughput.items()))

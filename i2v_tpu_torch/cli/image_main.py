@@ -10,10 +10,19 @@ of the JAX CLI: DR, I2V, ENS-I2V and AENS-I2V-MF (which the reference
 defines but never wires to a CLI). ``--fused_eval`` evaluates each attacked
 batch on the video models in the same process (:mod:`..eval.fused`).
 ``--sharded`` runs I2V, ENS-I2V and AENS through the frame-chunked runner
-(:mod:`..parallel`), which fits AENS at the reference's B=16 on one card:
+(:mod:`..parallel`), which fits AENS at the reference's B=16 on one card and
+cuts the frame batch over every card of the process:
 
     python -m i2v_tpu_torch.cli.image_main --attack_method AENS_I2V_MF \
         --batch_size 16 --sharded --frame_chunk auto --device cuda
+
+``--model_parallel N`` splits the ENS / AENS surrogates over N groups of
+cards instead (:mod:`..parallel.ensemble`). Under a multi-process launch
+each process attacks its slice of the samples on its own card, into one run
+directory:
+
+    torchrun --nproc_per_node 2 -m i2v_tpu_torch.cli.image_main \
+        --attack_method ImageGuidedFML2_Adam_MultiModels --step 60
 """
 
 from __future__ import annotations
@@ -73,24 +82,27 @@ def arg_parse(argv=None, kind: str = "Image", default_step: int = 60):
                    help="run I2V/ENS/AENS through the frame-chunked runner "
                         "(parallel/sharded.py) instead of the attack class")
     p.add_argument("--frame_chunk", type=_int_or_auto, default=None,
-                   help="with --sharded: accumulate the gradient over chunks of this many "
-                        "frames (exact: the objective is a sum of per-frame terms), so that "
-                        "one chunk's activations are alive at a time; 'auto' picks the chunk "
-                        "for the resolution (parallel/sharded.resolve_frame_chunk)")
+                   help="with --sharded or --model_parallel: accumulate the gradient over "
+                        "chunks of this many frames (exact: the objective is a sum of per-frame "
+                        "terms), so that one chunk's activations are alive at a time; 'auto' "
+                        "picks the chunk for the resolution (parallel/sharded.resolve_frame_chunk)")
     p.add_argument("--param_dtype", default=None, choices=["bfloat16"],
                    help="with --sharded: store the surrogates' weights in bf16 (the convs "
                         "stay float32)")
+    p.add_argument("--model_parallel", type=int, default=None, metavar="N",
+                   help="split the ENS/AENS surrogate ensemble over an N-wide 'model' axis "
+                        "of the process's cards (parallel/ensemble.py): each card runs one "
+                        "group of the surrogates a step, the gradients (and AENS's per-tap "
+                        "signals) summed across the groups")
     p.add_argument("--multigrid", type=int, default=0, metavar="K",
-                   help="with --sharded (I2V/ENS only): run the first K of --step Adam steps "
-                        "on downsampled clips and warm-start the full-resolution phase from "
-                        "the upsampled modifier (parallel/multigrid.py); the trajectory "
-                        "differs from the reference's")
+                   help="with --sharded or --model_parallel (I2V/ENS only): run the first K of "
+                        "--step Adam steps on downsampled clips and warm-start the "
+                        "full-resolution phase from the upsampled modifier "
+                        "(parallel/multigrid.py); the trajectory differs from the reference's")
     p.add_argument("--multigrid_scale", type=int, default=2,
                    help="multigrid downsampling factor (must divide the spatial size)")
-    common.add_unported_runner_args(p)
     common.add_data_args(p)
     args = p.parse_args(argv)
-    common.refuse_unported_runner_args(p, args)
     args.kind = kind
     args.adv_path = os.path.join(
         get_paths().opt_path,
@@ -116,10 +128,14 @@ def run(args, get_bundle=None) -> str:
     if args.fused_eval:
         return _run_fused(args, device, dataset, iterate, attack, left, right, get_bundle)
     dtype = np.float16 if args.artifact_dtype == "float16" else np.float32
-    timer = StepTimer(steps_per_call=args.step, clips_per_call=args.batch_size, device=device)
+    mesh = getattr(attack, "mesh", None)
+    # per-card throughput: the mesh runners span the mesh's positions
+    timer = StepTimer(steps_per_call=args.step, clips_per_call=args.batch_size, device=device,
+                      n_chips=1 if mesh is None else mesh.size)
     with trace(args.profile):
         for step, batch in enumerate(
-                common.batch_iterator(args, dataset, iterate, left, right)):
+                common.batch_iterator(args, dataset, iterate, left, right,
+                                      mesh=mesh if args.sharded else None)):
             print(f"Running {args.attack_method}, {step + 1}")
             with timer(clips=len(batch["labels"])):
                 out = attack(batch["clips"], batch["labels"], batch["names"])
@@ -137,6 +153,7 @@ def _run_fused(args, device, dataset, iterate, attack, left, right, get_bundle) 
     video models on the device; artifacts go out from a writer thread."""
     from ..eval.fused import FusedGenerateEvaluate
     from ..models.video_zoo import VIDEO_BUILDERS, get_video_model
+    from ..parallel import dist
     from ..utils.paths import VIDEO_MODEL_NAMES
     from ..utils.profiling import trace
 
@@ -162,14 +179,17 @@ def _run_fused(args, device, dataset, iterate, attack, left, right, get_bundle) 
     n_clips = 0
     with trace(args.profile):
         for step, batch in enumerate(
-                common.batch_iterator(args, dataset, iterate, left, right)):
+                common.batch_iterator(args, dataset, iterate, left, right,
+                                      mesh=attack.mesh if args.sharded else None)):
             print(f"Running fused {args.attack_method}+eval, {step + 1}")
             fused.process_batch(batch)
             n_clips += len(batch["labels"])
-        # finalize drains the artifact writer: its files are part of the run
+        # finalize drains the artifact writer: its files are part of the run;
+        # the shards of a multi-process run suffix their reports, which
+        # cli.report --merge_shards merges
+        multi_shard = args.batch_nums > 1 or dist.process_count() > 1
         acc = fused.finalize(report_dir=args.adv_path,
-                             shard=common.loss_shard_index(args) if args.batch_nums > 1
-                             else None)
+                             shard=common.loss_shard_index(args) if multi_shard else None)
     dt = time.perf_counter() - t0
     artifacts.save_loss_info(args.adv_path, attack.loss_info, common.loss_shard_index(args))
     args.throughput = {"clips": n_clips, "elapsed_s": dt, "clips_per_sec": n_clips / dt}

@@ -5,7 +5,9 @@ DataLoader fork-workers (datasets.py:272-274); here a worker thread decodes
 ahead of the device through a bounded queue (:func:`threaded_prefetch`), and
 :func:`device_prefetch` starts each batch's upload early, from pinned memory
 on a side stream, so that decode and the host-to-device copy overlap the
-attack.
+attack. Over a device mesh each batch lands as its per-device pieces, laid
+out by the mesh's clip sharding (``i2v_tpu/cli/common.py:128-137``): no
+batch goes whole to one card only to be cut up there.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import Sharded, clip_sharding
 
 
 def threaded_prefetch(make_iter: Callable[[], Iterator], depth: int = 1) -> Iterator:
@@ -100,9 +104,44 @@ class _Upload:
         return self.clips
 
 
+class _ShardedUpload:
+    """One batch's clips on their way to a mesh, laid out by its clip
+    sharding: one :class:`_Upload` a distinct (piece, device)."""
+
+    def __init__(self, clips: np.ndarray, mesh, streams: dict):
+        self.sharding = clip_sharding(mesh)
+        per = len(clips) // self.sharding.n_pieces
+        uploads: dict = {}
+        self.uploads = []
+        for piece, dev in zip(self.sharding.piece_of(), mesh.positions):
+            if (piece, dev) not in uploads:
+                uploads[piece, dev] = _Upload(clips[piece * per:(piece + 1) * per], dev,
+                                              streams[dev])
+            self.uploads.append(uploads[piece, dev])
+
+    def take(self) -> Sharded:
+        taken: dict = {}
+        for u in self.uploads:
+            if id(u) not in taken:
+                taken[id(u)] = u.take()
+        return Sharded(self.sharding, [taken[id(u)] for u in self.uploads])
+
+
+def _divides(clips: np.ndarray, mesh) -> bool:
+    """Whether the batch lays out over the mesh: B over its data axis and
+    B·T over all its positions (a trailing batch may not; it lands whole on
+    the first device and the attack pads it)."""
+    b = clips.shape[0]
+    t = clips.shape[1] if clips.dtype == np.uint8 else clips.shape[2]
+    return b % mesh.shape["data"] == 0 and (b * t) % mesh.size == 0
+
+
 def device_prefetch(batches: Iterator[dict], device: torch.device | str, depth: int = 2,
-                    keep_host: bool = False) -> Iterator[dict]:
-    """Move 'clips' to ``device`` ahead of consumption.
+                    keep_host: bool = False, mesh=None) -> Iterator[dict]:
+    """Move 'clips' to ``device`` ahead of consumption; with a ``mesh``, to
+    its devices as the pieces of its clip sharding (a
+    :class:`~i2v_tpu_torch.parallel.mesh.Sharded`), or whole to its first
+    device where the batch does not divide over it.
 
     At most ``depth`` batches are resident beyond the one handed to the
     consumer (depth=2: double-buffered ahead of the batch in use; a B=16 f32
@@ -113,15 +152,17 @@ def device_prefetch(batches: Iterator[dict], device: torch.device | str, depth: 
     ``keep_host=True`` keeps the host array under ``clips_host``, so that a
     consumer that writes the clean clips (``cli.attack``'s ``-ori``) reads
     the host copy instead of pulling the clips back from the device."""
-    device = torch.device(device)
-    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    devices = [torch.device(device)] if mesh is None else mesh.distinct_devices
+    streams = {d: torch.cuda.Stream(d) if d.type == "cuda" else None for d in devices}
     buf: list[tuple[dict, _Upload]] = []
 
     def put(b):
         out = dict(b)
         if keep_host:
             out["clips_host"] = b["clips"]
-        return out, _Upload(b["clips"], device, stream)
+        if mesh is not None and _divides(b["clips"], mesh):
+            return out, _ShardedUpload(b["clips"], mesh, streams)
+        return out, _Upload(b["clips"], devices[0], streams[devices[0]])
 
     def take(entry):
         out, upload = entry
@@ -138,8 +179,10 @@ def device_prefetch(batches: Iterator[dict], device: torch.device | str, depth: 
 
 def make_input_pipeline(dataset, batch_size: int, iterate, *, left: int = 0,
                         right: Optional[int] = None, device: torch.device | str = "cuda",
-                        prefetch_depth: int = 2, keep_host: bool = False) -> Iterator[dict]:
-    """Decode thread → bounded queue → device upload, composed."""
+                        prefetch_depth: int = 2, keep_host: bool = False,
+                        mesh=None) -> Iterator[dict]:
+    """Decode thread → bounded queue → device upload (over ``mesh``, as its
+    clip sharding's pieces), composed."""
     host = threaded_prefetch(lambda: iterate(dataset, batch_size, left, right),
                              prefetch_depth)
-    return device_prefetch(host, device, prefetch_depth, keep_host=keep_host)
+    return device_prefetch(host, device, prefetch_depth, keep_host=keep_host, mesh=mesh)

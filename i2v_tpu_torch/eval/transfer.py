@@ -21,14 +21,24 @@ single-pass mode keeps every model resident and runs each uploaded batch
 through all of them. ``dtype=torch.bfloat16`` builds the models to compute
 in bfloat16 (``cli.evaluate --bf16``); top-1 can then differ from float32's
 on borderline clips.
+
+Data-parallel evaluation (``mesh=``, or ``data_parallel=True`` for a mesh
+over every local card; ``cli.evaluate --data_parallel``) cuts each batch
+over the mesh's positions, in row-major order: each distinct device runs its
+replica of the model over its pieces, and the logits are gathered in clip
+order on the first device, where top-1 is taken as in the serial loop. A
+batch that does not divide over the mesh runs whole on the first device,
+with one warning (``i2v_tpu/eval/transfer.py:70-96``).
 """
 
 from __future__ import annotations
 
+import copy
 import csv
 import json
 import os
 import time
+import warnings
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -36,9 +46,8 @@ import torch
 
 from ..data.pipeline import threaded_prefetch
 from ..models.video_zoo import VIDEO_BUILDERS, get_video_model
+from ..parallel.mesh import Mesh, Sharding, attack_mesh, move
 from ..utils import AverageMeter, artifacts
-
-MULTI_DEVICE_ITEM = "ROADMAP Queue 1, item 9 (multi-device)"
 
 
 def accuracy_and_preds(logits: torch.Tensor, labels: torch.Tensor):
@@ -77,26 +86,74 @@ def order_predictions_by_label(labels, preds, n_classes: int) -> np.ndarray:
     return ordered
 
 
+def _make_uploader(mesh: Optional[Mesh], device: torch.device):
+    """Host clips and labels → (the clips on the device, or a list of one
+    piece a mesh position; the labels on the first device). A batch that
+    does not divide over the mesh goes whole to its first device, with one
+    warning for the run."""
+    sharding = None if mesh is None else Sharding(mesh, tuple(mesh.axis_names))
+    home = device if mesh is None else mesh.positions[0]
+    pin = home.type == "cuda"
+    warned: list = []
+
+    def upload(clips: np.ndarray, labels: np.ndarray):
+        clips_t = torch.from_numpy(clips)
+        labels_t = torch.from_numpy(labels.astype(np.int64))
+        if pin:
+            clips_t, labels_t = clips_t.pin_memory(), labels_t.pin_memory()
+        dlabels = move(labels_t, home)
+        if sharding is not None and clips.shape[0] % sharding.n_pieces == 0:
+            return sharding.split(clips_t).pieces, dlabels
+        if sharding is not None and not warned:
+            warned.append(True)
+            warnings.warn(
+                f"dp eval: batch of {clips.shape[0]} does not divide the {mesh.size}-position "
+                "mesh; running this batch on a single device (pick a batch_size divisible by "
+                "the device count to keep eval data-parallel)")
+        return move(clips_t, home), dlabels
+
+    return upload
+
+
 def _prefetched_uploads(files_batches: Sequence[Sequence[str]], run_dir: str,
-                        device: torch.device):
-    """Iterator of (device clips, device labels, host labels). The worker
-    thread reads each batch, pins it (on a CUDA device) and starts its
-    upload, so that disk reads and the copy overlap the consumer's forwards.
-    At most three batches are on the device (in use, queued, in the worker's
-    hands): a B=16 batch is 308 MB."""
-    pin = device.type == "cuda"
+                        device: torch.device, mesh: Optional[Mesh] = None):
+    """Iterator of (device clips or their mesh pieces, device labels, host
+    labels). The worker thread reads each batch, pins it (for a card) and
+    starts its upload, so that disk reads and the copy overlap the
+    consumer's forwards. At most three batches are on the device (in use,
+    queued, in the worker's hands): a B=16 batch is 308 MB."""
+    upload = _make_uploader(mesh, device)
 
     def uploaded():
         for files in files_batches:
             clips, labels = artifacts.load_adv_batch(run_dir, files)
-            clips_t = torch.from_numpy(clips)
-            labels_t = torch.from_numpy(labels.astype(np.int64))
-            if pin:
-                clips_t, labels_t = clips_t.pin_memory(), labels_t.pin_memory()
-            yield (clips_t.to(device, non_blocking=True),
-                   labels_t.to(device, non_blocking=True), labels)
+            yield upload(clips, labels) + (labels,)
 
     return threaded_prefetch(uploaded)
+
+
+class _Replicas:
+    """A video model on each distinct device of a mesh: the bundle itself on
+    its own device, a deep copy moved to each other one."""
+
+    def __init__(self, bundle, mesh: Optional[Mesh]):
+        self.by_device = {bundle.device: bundle}
+        for dev in ([] if mesh is None else mesh.distinct_devices):
+            if dev not in self.by_device:
+                replica = copy.deepcopy(bundle)
+                replica.module.to(dev)
+                self.by_device[dev] = replica
+
+    def logits(self, clips, positions: Optional[list]) -> torch.Tensor:
+        """The bundle's logits of whole clips, or of a batch's mesh pieces
+        gathered in clip order on the first device (a piece held by several
+        positions of one device, never here: the eval sharding cuts over
+        every axis)."""
+        if isinstance(clips, torch.Tensor):
+            return self.by_device[clips.device].apply_norm(clips)
+        home = positions[0]
+        return torch.cat([move(self.by_device[d].apply_norm(c), home)
+                          for d, c in zip(positions, clips)])
 
 
 def _sync(device: torch.device) -> None:
@@ -112,20 +169,24 @@ def _log_progress(log, step: int, n: int, data_time, batch_time, top1: dict, tit
         log(f"top-1 accuracy{f' [{name}]' if name else ''}: {meter.avg:.2f}%")
 
 
-def reference_eval(bundle, files_batches: Sequence[Sequence[str]], run_dir: str, *, log=print):
+def reference_eval(bundle, files_batches: Sequence[Sequence[str]], run_dir: str, *,
+                   mesh: Optional[Mesh] = None, log=print):
     """Evaluate one model over artifact batches → (preds, labels, top1_avg).
 
     Artifacts are normalized-domain clips (the protocol); the bundle's
-    ``apply_norm`` takes them as they are."""
+    ``apply_norm`` takes them as they are. With a ``mesh``, each batch is
+    cut over its positions (data-parallel evaluation)."""
     data_time, batch_time, top1 = AverageMeter(), AverageMeter(), AverageMeter()
     predictions: list[int] = []
     labels_all: list[int] = []
+    replicas = _Replicas(bundle, mesh)
+    positions = None if mesh is None else mesh.positions
     end = time.time()
     with torch.inference_mode():
         for step, (clips, dlabels, labels) in enumerate(
-                _prefetched_uploads(files_batches, run_dir, bundle.device)):
+                _prefetched_uploads(files_batches, run_dir, bundle.device, mesh)):
             data_time.update(time.time() - end)
-            acc, preds = accuracy_and_preds(bundle.apply_norm(clips), dlabels)
+            acc, preds = accuracy_and_preds(replicas.logits(clips, positions), dlabels)
             predictions += preds.cpu().tolist()
             labels_all += labels.tolist()
             top1.update(float(acc), len(labels))
@@ -138,15 +199,18 @@ def reference_eval(bundle, files_batches: Sequence[Sequence[str]], run_dir: str,
 
 
 def single_pass_eval(bundles: dict, files_batches: Sequence[Sequence[str]], run_dir: str, *,
-                     log=print):
+                     mesh: Optional[Mesh] = None, log=print):
     """Evaluate every model over each uploaded batch → ({model: preds},
     labels, {model: top1_avg}).
 
     The reference reads and uploads every artifact once per model
     (reference.py:108-125); here each batch is read and uploaded once, and
     every model's forward is issued before any result is fetched, so the
-    card runs them back to back. The reports are the serial mode's."""
+    card runs them back to back. The reports are the serial mode's. With a
+    ``mesh``, each batch is cut over its positions."""
     device = next(iter(bundles.values())).device
+    replicas = {name: _Replicas(b, mesh) for name, b in bundles.items()}
+    positions = None if mesh is None else mesh.positions
     data_time, batch_time = AverageMeter(), AverageMeter()
     top1 = {name: AverageMeter() for name in bundles}
     predictions: dict = {name: [] for name in bundles}
@@ -154,10 +218,10 @@ def single_pass_eval(bundles: dict, files_batches: Sequence[Sequence[str]], run_
     end = time.time()
     with torch.inference_mode():
         for step, (clips, dlabels, labels) in enumerate(
-                _prefetched_uploads(files_batches, run_dir, device)):
+                _prefetched_uploads(files_batches, run_dir, device, mesh)):
             data_time.update(time.time() - end)
-            pending = {name: accuracy_and_preds(b.apply_norm(clips), dlabels)
-                       for name, b in bundles.items()}
+            pending = {name: accuracy_and_preds(r.logits(clips, positions), dlabels)
+                       for name, r in replicas.items()}
             labels_all += labels.tolist()
             for name, (acc, preds) in pending.items():
                 predictions[name] += preds.cpu().tolist()
@@ -209,14 +273,20 @@ def evaluate_run(
     model in place of ``get_video_model(name, device=device, dtype=dtype,
     ...)``, and a model of another compute dtype than ``dtype`` is refused,
     so that the reports say what they were computed in. ``single_pass=True``
-    keeps all models resident and reads and uploads each batch once. A
+    keeps all models resident and reads and uploads each batch once.
+    ``mesh`` (or ``data_parallel=True``: :func:`attack_mesh` over every local
+    card for ``device="cuda"``, else over ``device`` alone) cuts each batch
+    over the mesh's positions; the models are built on its first device. A
     ``throughput`` dict is filled with the clips/s of each model's
     evaluation (serial) or of the whole pass (``"single_pass"``), each timed
     on the host's clock around work that ends in a device synchronize."""
-    if mesh is not None or data_parallel:
-        raise NotImplementedError(
-            f"data-parallel evaluation is not ported yet ({MULTI_DEVICE_ITEM})")
     device = torch.device(device)
+    if data_parallel and mesh is None:
+        # this process's devices only: each process of a multi-process run
+        # evaluates its own artifact shard over its own card
+        mesh = attack_mesh(None if device == torch.device("cuda") else [device])
+    if mesh is not None:
+        device = mesh.positions[0]
     files = artifacts.list_adv_files(run_dir)
     if not files:
         raise FileNotFoundError(f"no adv artifacts under {run_dir!r}")
@@ -250,7 +320,8 @@ def evaluate_run(
         log(f"Models (single pass): {', '.join(model_names)}")
         dev = next(iter(bundles.values())).device
         preds_by_model, labels, model_val_acc = timed(
-            "single_pass", dev, lambda: single_pass_eval(bundles, batches, run_dir, log=log))
+            "single_pass", dev,
+            lambda: single_pass_eval(bundles, batches, run_dir, mesh=mesh, log=log))
         for name in model_names:
             columns[name] = order_predictions_by_label(labels, preds_by_model[name], n_classes)
     else:
@@ -259,7 +330,7 @@ def evaluate_run(
             bundle = build(name)
             dev = bundle.device
             preds, labels, top1 = timed(
-                name, dev, lambda: reference_eval(bundle, batches, run_dir, log=log))
+                name, dev, lambda: reference_eval(bundle, batches, run_dir, mesh=mesh, log=log))
             columns[name] = order_predictions_by_label(labels, preds, n_classes)
             model_val_acc[name] = top1
             # the reference's model swap (reference.py:124-125)

@@ -30,6 +30,7 @@ from __future__ import annotations
 import concurrent.futures
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -37,11 +38,21 @@ import torch
 from . import _build, pixel
 
 launches = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
+# K2 launches from the autograd engine's thread of each card, so the counts
+# take a lock: ``+=`` on a dict entry is a read, an add and a write
+_launches_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _launches_lock:
+        for k in launches:
+            launches[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``launches[name]``, safe under concurrent callers."""
+    with _launches_lock:
+        launches[name] += 1
 
 
 _PTR, _N, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
@@ -109,7 +120,7 @@ def launch_rebuild_fwd(clean01: torch.Tensor, modifier: torch.Tensor,
             clean01.data_ptr(), modifier.data_ptr(), out.data_ptr(), modifier.numel(),
             eps32, _stream(modifier))
     _raise_on(err, "rebuild_fwd")
-    launches["rebuild_fwd"] += 1
+    count_launch("rebuild_fwd")
     return out
 
 
@@ -123,7 +134,7 @@ def launch_rebuild_bwd(clean01: torch.Tensor, modifier: torch.Tensor, grad: torc
             clean01.data_ptr(), modifier.data_ptr(), grad.data_ptr(), dmod.data_ptr(),
             modifier.numel(), eps32, _stream(modifier))
     _raise_on(err, "rebuild_bwd")
-    launches["rebuild_bwd"] += 1
+    count_launch("rebuild_bwd")
     return dmod
 
 
@@ -167,7 +178,7 @@ def launch_sign_step(adv01: torch.Tensor, grad: torch.Tensor, clean01: torch.Ten
             adv01.data_ptr(), grad.data_ptr(), clean01.data_ptr(), out.data_ptr(),
             adv01.numel(), alpha32, eps32, _stream(adv01))
     _raise_on(err, "sign_step")
-    launches["sign_step"] += 1
+    count_launch("sign_step")
     return out
 
 

@@ -23,10 +23,21 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def _stats(x: torch.Tensor, channel_axis: int):
-    shape = [1] * x.ndim
+    return _stats_on(x.dtype, x.device, x.ndim, channel_axis)
+
+
+@functools.lru_cache(maxsize=None)
+def _stats_on(dtype: torch.dtype, device: torch.device, ndim: int, channel_axis: int):
+    """The mean and std shaped to broadcast along ``channel_axis``, made once
+    a (dtype, device, layout): a tensor built from Python numbers on a card
+    is a blocking copy, which would make the host wait for the card at each
+    surrogate's forward. Never an inference tensor, so that a graph may
+    save it whatever mode first asked for it."""
+    shape = [1] * ndim
     shape[channel_axis] = 3
-    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device).reshape(shape)
-    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device).reshape(shape)
+    with torch.inference_mode(False):
+        mean = torch.tensor(IMAGENET_MEAN, dtype=dtype).reshape(shape).to(device)
+        std = torch.tensor(IMAGENET_STD, dtype=dtype).reshape(shape).to(device)
     return mean, std
 
 

@@ -9,9 +9,11 @@ the reference's. The ε-ball and [0,1] hold in both phases, since the
 modifier is clipped inside ``rebuild_adv`` at either size, and the cost
 vector is the coarse costs followed by the fine ones.
 
-The coarse phase is a :func:`~.sharded.make_sharded_i2v_runner` over the
-downsampled clips that returns its final modifier; the fine phase is another
-one, warm-started through ``mod_init``. The Adam moments restart at the
+The coarse phase is a runner (:func:`~.sharded.make_sharded_i2v_runner`, or
+another ``runner_factory`` such as
+:func:`~.ensemble.make_ensemble_parallel_runner`) over the downsampled clips
+that returns its final modifier; the fine phase is another one on the same
+mesh, warm-started through ``mod_init``. The Adam moments restart at the
 switch: the coarse ones live on another grid. Adaptive AENS is refused, as
 in the JAX package: its per-tap signal changes magnitude with the frame
 area. Surrogates built to compute in bfloat16 run both phases in it, with
@@ -27,6 +29,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..models.api import ImageModel
+from .mesh import Mesh, Sharded
 from .sharded import cast_param_storage, make_sharded_i2v_runner
 
 
@@ -47,6 +50,7 @@ def upsample_modifier(mod_frames: torch.Tensor, scale: int) -> torch.Tensor:
 
 def make_multigrid_i2v_runner(
     models: Sequence[ImageModel],
+    mesh: Optional[Mesh] = None,
     *,
     steps: int,
     coarse_steps: int,
@@ -56,12 +60,15 @@ def make_multigrid_i2v_runner(
     frame_chunk: int | str | None = None,
     coarse_frame_chunk=...,
     param_dtype: Optional[torch.dtype] = None,
-    device: torch.device | str | None = None,
+    runner_factory=None,
 ):
     """Two-phase runner: ``runner(clean01, n_real=None) -> (adv01 clips,
     per-step costs)`` with ``len(costs) == steps`` (coarse, then fine).
     ``coarse_frame_chunk`` defaults to ``frame_chunk`` ("auto" resolves
-    again at the coarse size)."""
+    again at the coarse size). ``runner_factory(models, mesh, steps=,
+    step_size=, epsilon=, frame_chunk=, return_modifier=)`` builds each
+    phase (default :func:`~.sharded.make_sharded_i2v_runner`; with no
+    ``mesh``, on the surrogates' device)."""
     if not 0 < coarse_steps < steps:
         raise ValueError(f"coarse_steps must be in (0, {steps}), got {coarse_steps}")
     if scale < 2:
@@ -71,14 +78,15 @@ def make_multigrid_i2v_runner(
         models = cast_param_storage(models, param_dtype)
     if coarse_frame_chunk is ...:
         coarse_frame_chunk = frame_chunk
-    coarse = make_sharded_i2v_runner(models, steps=coarse_steps, step_size=step_size,
-                                     epsilon=epsilon, frame_chunk=coarse_frame_chunk,
-                                     return_modifier=True, device=device)
-    fine = make_sharded_i2v_runner(models, steps=steps - coarse_steps, step_size=step_size,
-                                   epsilon=epsilon, frame_chunk=frame_chunk, device=device)
+    factory = runner_factory or make_sharded_i2v_runner
+    coarse = factory(models, mesh, steps=coarse_steps, step_size=step_size, epsilon=epsilon,
+                     frame_chunk=coarse_frame_chunk, return_modifier=True)
+    fine = factory(models, mesh, steps=steps - coarse_steps, step_size=step_size,
+                   epsilon=epsilon, frame_chunk=frame_chunk)
 
     def runner(clean01, n_real=None):
-        clean01 = torch.as_tensor(clean01)
+        # the area mean needs whole clips: a laid-out batch is gathered
+        clean01 = clean01.gather() if isinstance(clean01, Sharded) else torch.as_tensor(clean01)
         _, costs_c, mod_c = coarse(downsample_clips(clean01, scale), n_real=n_real)
         adv, costs_f = fine(clean01, n_real=n_real, mod_init=upsample_modifier(mod_c, scale))
         return adv, torch.cat([costs_c, costs_f])

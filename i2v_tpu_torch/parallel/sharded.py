@@ -1,21 +1,26 @@
-"""Frame-chunked I2V / ENS-I2V / AENS-I2V-MF Adam runner on one device.
+"""Frame-chunked I2V / ENS-I2V / AENS-I2V-MF Adam runner, on one device or
+over a device mesh.
 
-PyTorch counterpart of :mod:`i2v_tpu.parallel.sharded` without the mesh
+PyTorch counterpart of :mod:`i2v_tpu.parallel.sharded`
 (``i2v_tpu/parallel/sharded.py:64-446``). The I2V and AENS objectives are
 sums of per-frame terms: every frame's cosine depends only on that frame's
 modifier slice. So the (B·T) frame batch can be cut into chunks whose
 gradients are taken one after another and written side by side, which gives
 the full batch's cost and gradient while only one chunk's surrogate
 activations are alive. That is what lets AENS-I2V-MF run at the reference's
-B=16 on one 80 GB card.
+B=16 on one 80 GB card. The same argument cuts the batch over the positions
+of a device mesh (:mod:`.mesh`): each position holds a contiguous slice of
+the frames, its modifier slice and its slice of Adam's state (Adam is
+elementwise), and only the scalar cost and AENS's per-tap signal are summed
+across positions, on the first position's device, in position order.
 
 Each chunk is a leaf of its own (``modifier.detach()[i:j]``), differentiated
 with ``torch.autograd.grad`` into a preallocated gradient buffer: a backward
 through a slice of one big modifier would build a zero tensor of the whole
 batch for every chunk. Every chunk rebuilds its frames through the
 hand-written kernel pair (:func:`i2v_tpu_torch.ops.kernels.rebuild_adv`), so
-a step launches K1 and K2 once a chunk, and the final rebuild K1 once over
-the whole batch.
+a step launches K1 and K2 once a chunk of each position, and the final
+rebuild K1 once a position.
 
 The surrogates compute in their own dtype (``get_image_models(...,
 dtype=torch.bfloat16)``); the frames, the modifier, the kernels' rebuild and
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -44,6 +50,7 @@ from ..attacks.core import Attack
 from ..attacks.i2v import MODIFIER_INIT, _collect_taps
 from ..models.api import ImageModel
 from ..ops import kernels, losses, pixel
+from .mesh import Mesh, Sharded, move
 
 # The byte budget of ``frame_chunk="auto"``: one chunk's input frames in the
 # surrogates' compute dtype, whose activations scale with it (float32: 256
@@ -60,14 +67,16 @@ AUTO_CHUNK_BYTES = 256 * 4 * 224 * 224
 
 
 def resolve_frame_chunk(frame_chunk, n_frames: int, hw,
-                        compute_dtype: torch.dtype = torch.float32) -> Optional[int]:
+                        compute_dtype: torch.dtype = torch.float32,
+                        n_devices: int = 1) -> Optional[int]:
     """Resolve a ``frame_chunk`` setting against the frame batch's shape.
 
     ``int`` and ``None`` pass through untouched; ``"auto"`` gives the chunk
     of ``AUTO_CHUNK_BYTES`` of frames at ``hw`` in the surrogates' compute
-    dtype (``i2v_tpu/parallel/sharded.py:36-55``; their storage dtype does
-    not count), or ``None`` (unchunked) when the whole batch fits that
-    budget. The runner then snaps a chunk that does not divide the batch
+    dtype a device (``i2v_tpu/parallel/sharded.py:36-55``; their storage
+    dtype does not count), times ``n_devices`` when the chunk is cut over a
+    mesh, or ``None`` (unchunked) when the whole batch fits that budget.
+    The runner then snaps a chunk that does not divide the batch
     (:func:`snap_frame_chunk`)."""
     if frame_chunk != "auto":
         if isinstance(frame_chunk, str):
@@ -75,7 +84,7 @@ def resolve_frame_chunk(frame_chunk, n_frames: int, hw,
         return frame_chunk
     h, w = int(hw[0]), int(hw[1])
     itemsize = torch.empty((), dtype=compute_dtype).element_size()
-    target = max(1, AUTO_CHUNK_BYTES // (itemsize * h * w))
+    target = max(1, AUTO_CHUNK_BYTES // (itemsize * h * w)) * n_devices
     return None if n_frames <= target else target
 
 
@@ -147,31 +156,116 @@ def frame_mask(b: int, t: int, n_real: Optional[int], device) -> Optional[torch.
     return (torch.arange(b * t, device=device) < n_real * t).float()
 
 
-@dataclasses.dataclass
-class _Batch:
-    """One runner call's frames, chunk bounds, mask and clean taps, and the
-    buffer the chunks' gradients are written into (None for one chunk)."""
+def replicate(models: Sequence[ImageModel], device) -> list[ImageModel]:
+    """``models`` on ``device``: the bundles themselves where they are there
+    already, else deep copies moved there. A runner makes one replica a
+    distinct device of its mesh, so a device that fills several positions
+    holds one copy of the weights."""
+    device = torch.device(device)
+    if all(m.device == device for m in models):
+        return list(models)
+    return [dataclasses.replace(m, module=copy.deepcopy(m.module).to(device)) for m in models]
 
-    clips: int
+
+def _cat(pieces: list, home: torch.device) -> torch.Tensor:
+    """Per-position pieces of a frame tensor, whole on ``home``, in order."""
+    if len(pieces) == 1:
+        return pieces[0]
+    return torch.cat([move(p, home) for p in pieces])
+
+
+def _acc(total, x, home: torch.device):
+    """``total + x`` on ``home``, positions added in order (None: nothing yet)."""
+    if x is None:
+        return total
+    x = move(x, home)
+    return x if total is None else total + x
+
+
+@dataclasses.dataclass
+class _Position:
+    """One mesh position's share of a runner call: its device and models,
+    its slice of the frame batch, chunk bounds within the slice, the slice's
+    pad mask and clean taps (one list a chunk), the buffer the chunks'
+    gradients are written into (None for one chunk), and where its models'
+    taps sit in the ensemble's AENS coefficient vector."""
+
+    device: torch.device
+    models: list
     frames: torch.Tensor
     bounds: list
     fmask: Optional[torch.Tensor]
     clean_taps: list
     grad_buf: Optional[torch.Tensor]
+    taps: slice
 
 
-def _adam(modifier: torch.Tensor, step_size: float, opt_init) -> torch.optim.Adam:
-    """``torch.optim.Adam`` as ``attacks/i2v.py`` builds it; ``opt_init =
-    (step, exp_avg, exp_avg_sq)`` resumes a saved state."""
-    opt = torch.optim.Adam([modifier], lr=step_size, betas=(0.9, 0.999), eps=1e-8,
+def _position(models: list, frames: torch.Tensor, chunk: int, fmask, taps: slice) -> _Position:
+    n = frames.shape[0]
+    bounds = [(i, i + chunk) for i in range(0, n, chunk)]
+    with torch.no_grad():
+        # chunk by chunk: a whole-slice clean forward would set the very
+        # peak that chunking avoids
+        clean_taps = [_collect_taps(models, frames[i:j]) for i, j in bounds]
+    grad_buf = torch.empty_like(frames) if len(bounds) > 1 else None
+    return _Position(frames.device, models, frames, bounds, fmask, clean_taps, grad_buf, taps)
+
+
+def _position_grad(pos: _Position, modifier: torch.Tensor, coeffs, *, epsilon: float,
+                   adaptive: bool, coef_ce: bool, n_taps: int, remat: bool):
+    """→ (cost, AENS signal or None, gradient) of the position's models over
+    its frames at ``modifier``, the position's slice (moved to its device).
+
+    The AENS cost is the mean over all the ensemble's ``n_taps`` taps of
+    the coefficient-weighted frame sums; a position that holds a group of
+    the surrogates adds its taps' share, ``sum / n_taps``, and its signal
+    covers its own taps, ``pos.taps`` of the coefficient vector."""
+    modifier = move(modifier.detach(), pos.device)
+    cost = signal = grad = None
+    for (i, j), ct in zip(pos.bounds, pos.clean_taps):
+        m_c = modifier[i:j].requires_grad_(True)
+        fm = None if pos.fmask is None else pos.fmask[i:j]
+        with torch.enable_grad():
+            adv01 = kernels.rebuild_adv(pos.frames[i:j], m_c, epsilon)
+            if remat:
+                taps = checkpoint(_collect_taps, pos.models, adv01, use_reentrant=False)
+            else:
+                taps = _collect_taps(pos.models, adv01)
+            if adaptive:
+                per_tap = losses.per_tap_frame_cosines(taps, ct)      # (taps, chunk)
+                if fm is not None:
+                    per_tap = per_tap * fm[None, :]
+                each = torch.sum(coeffs[pos.taps, None] * per_tap, dim=1)
+                c = torch.mean(each) if each.shape[0] == n_taps else torch.sum(each) / n_taps
+                # coef_CE picks the weighted per-tap loss as the next
+                # coefficient signal (TPAMI_attack.py:293-297)
+                s = (each if coef_ce else torch.sum(per_tap, dim=1)).detach()
+                signal = s if signal is None else signal + s
+            else:
+                c = losses.i2v_cost(taps, ct, frame_weights=fm)
+        (g,) = torch.autograd.grad(c, m_c)
+        if pos.grad_buf is None:
+            grad = g
+        else:
+            pos.grad_buf[i:j].copy_(g)
+            grad = pos.grad_buf
+        cost = c.detach() if cost is None else cost + c.detach()
+    return cost, signal, grad
+
+
+def _adam(params: list, step_size: float, opt_init) -> torch.optim.Adam:
+    """``torch.optim.Adam`` as ``attacks/i2v.py`` builds it, over the
+    modifier's slices (Adam is elementwise: slice by slice is whole Adam);
+    ``opt_init``, one ``(step, exp_avg, exp_avg_sq)`` a slice, resumes a
+    saved state."""
+    opt = torch.optim.Adam(params, lr=step_size, betas=(0.9, 0.999), eps=1e-8,
                            foreach=False, fused=False)
-    if opt_init is not None:
-        step, exp_avg, exp_avg_sq = opt_init
-        opt.state[modifier] = {
+    for param, (step, exp_avg, exp_avg_sq) in zip(params, opt_init or ()):
+        opt.state[param] = {
             # torch keeps a non-capturable step as a float32 scalar on the CPU
             "step": torch.as_tensor(step, dtype=torch.float32).detach().cpu().clone(),
-            "exp_avg": exp_avg.detach().to(modifier).clone(),
-            "exp_avg_sq": exp_avg_sq.detach().to(modifier).clone(),
+            "exp_avg": exp_avg.detach().to(param).clone(),
+            "exp_avg_sq": exp_avg_sq.detach().to(param).clone(),
         }
     return opt
 
@@ -215,13 +309,15 @@ class _AdamMu:
             self.count = int(torch.as_tensor(count))
             self.mu = mu.detach().to(param.device, mu_dtype).clone()
             self.nu = nu.detach().to(param).clone()
+        # made once: a tensor built from a Python number on a card is a copy
+        # that makes the host wait for the card
+        self.b1 = torch.tensor(self.B1, dtype=mu_dtype).to(param.device)
 
     @torch.no_grad()
     def step(self) -> None:
         g = self.param.grad
         self.count += 1
-        b1 = torch.tensor(self.B1, dtype=self.mu.dtype, device=self.mu.device)
-        mu = (1 - self.B1) * g + (b1 * self.mu).float()
+        mu = (1 - self.B1) * g + (self.b1 * self.mu).float()
         self.nu = (1 - self.B2) * (g * g) + self.B2 * self.nu
         # optax takes decay**count in float32
         bc1 = float(np.float32(1) - np.float32(self.B1) ** np.float32(self.count))
@@ -237,8 +333,43 @@ class _AdamMu:
         return (torch.tensor(float(self.count)), self.mu.clone(), self.nu.clone())
 
 
+def _optimizer(params: list, step_size: float, mu_dtype, opt_init):
+    """→ (step(), state(k) of slice k) over the modifier's slices: torch Adam
+    (elementwise, so slice by slice is whole Adam), or one :class:`_AdamMu`
+    a slice where ``mu_dtype`` is set. ``opt_init`` holds one state a slice."""
+    if mu_dtype is None:
+        opt = _adam(params, step_size, opt_init)
+        return opt.step, lambda k: _adam_state(opt, params[k])
+    opts = [_AdamMu(p, step_size, mu_dtype, None if opt_init is None else opt_init[k])
+            for k, p in enumerate(params)]
+
+    def step() -> None:
+        for o in opts:
+            o.step()
+
+    return step, lambda k: opts[k].io_state()
+
+
+def _slices(x, n_slices: int) -> list:
+    """Dim 0 of ``x`` cut into ``n_slices`` equal contiguous views."""
+    x = torch.as_tensor(x)
+    per = x.shape[0] // n_slices
+    return [x[k * per:(k + 1) * per] for k in range(n_slices)]
+
+
+def _local_chunk(frame_chunk, n_frames: int, hw, compute_dtype, n_positions: int) -> int:
+    """A position's chunk: the batch's chunk (``"auto"`` resolved with the
+    per-device budget times the positions, as the JAX runner resolves it
+    for a mesh), cut over the positions as the frames are, then snapped to
+    divide the position's slice."""
+    chunk = resolve_frame_chunk(frame_chunk, n_frames, hw, compute_dtype, n_positions)
+    local = None if chunk is None else max(1, chunk // n_positions)
+    return snap_frame_chunk(local, n_frames // n_positions)
+
+
 def make_sharded_i2v_runner(
     models: Sequence[ImageModel],
+    mesh: Optional[Mesh] = None,
     *,
     steps: int,
     step_size: float = 0.005,
@@ -257,12 +388,27 @@ def make_sharded_i2v_runner(
     """Build an I2V / ENS-I2V (``adaptive=False``) or AENS-I2V-MF runner.
 
     ``runner(clean01 (B,C,T,H,W) in [0,1], n_real=None, mod_init=None,
-    opt_init=None) -> (adv01 clips, per-step costs)`` on ``device`` (default:
-    the surrogates' device).
+    opt_init=None) -> (adv01 clips, per-step costs)``.
+
+    Without a ``mesh`` it runs on ``device`` (default: the surrogates'
+    device). With one, position *p* of its ``mesh.size`` positions (in
+    row-major order over ``('data', 'frames')``) holds frames
+    ``[p·n/P, (p+1)·n/P)`` of the B·T batch, their modifier slice and their
+    optimizer state, and runs them through its device's replica of the
+    surrogates (:func:`replicate`, made once a distinct device). The cost,
+    and AENS's per-tap signal, are summed over the positions in order on
+    the first position's device, where the coefficients, the costs and the
+    gathered outputs live. No step waits on the host, so the launches of
+    position p+1 queue while position p's kernels run. The batch's B·T
+    must divide over the positions (:class:`ShardedImageGuidedAttack`
+    pads); ``clean01`` may also come laid out by the mesh's clip sharding
+    (:class:`~.mesh.Sharded`), its pieces already on their devices.
 
     - ``frame_chunk``: accumulate the gradient over chunks of this many
       frames (``"auto"``: :func:`resolve_frame_chunk`); the clean taps are
       collected chunk by chunk too. Costs and gradients are the full batch's.
+      On a mesh the chunk is the batch's, cut over the positions
+      (:func:`_local_chunk`).
     - ``mod_init`` warm-starts from a caller-built modifier in the
       (B·T, 3, H, W) frame layout instead of the 0.01/255 fill;
       ``return_modifier`` appends the final, unclipped modifier.
@@ -270,13 +416,14 @@ def make_sharded_i2v_runner(
       torch Adam's state (the JAX runner's ``(count, mu, nu)``; see
       :mod:`i2v_tpu_torch.models.convert`), and appends the final one:
       chained segments equal one run of all their steps, bit for bit.
+      The modifier and the moments go in and come out whole, in frame order.
     - ``n_real`` marks the trailing clips of a padded batch as pad.
     - AENS's coefficients persist across runner calls, as the reference's
       instance state does; the previous per-tap loss resets on each call.
     - ``param_dtype=torch.bfloat16`` stores the surrogates' weights in bf16
-      (:func:`cast_param_storage`); each surrogate computes in its own
-      dtype (``get_image_models(..., dtype=)``), which also sizes the
-      ``"auto"`` chunk (:func:`compute_dtype_of`).
+      (:func:`cast_param_storage`, before they are replicated); each
+      surrogate computes in its own dtype (``get_image_models(..., dtype=)``),
+      which also sizes the ``"auto"`` chunk (:func:`compute_dtype_of`).
     - ``remat`` recomputes the surrogates' forward in the backward
       (``torch.utils.checkpoint``), holding only the taps.
     - ``mu_dtype=torch.bfloat16`` stores Adam's first moment in bf16 and
@@ -286,7 +433,8 @@ def make_sharded_i2v_runner(
 
     ``runner.value_and_grad(clean01, modifier, n_real=None)`` gives the
     first step's cost and its gradient w.r.t. ``modifier``, chunked as the
-    runner chunks, without a step."""
+    runner chunks, without a step; ``runner.coefficients()`` the AENS
+    coefficients the last call left."""
     if mu_dtype is not None and not (isinstance(mu_dtype, torch.dtype)
                                      and mu_dtype.is_floating_point):
         raise ValueError(f"mu_dtype must be a floating torch dtype, got {mu_dtype!r}")
@@ -295,109 +443,144 @@ def make_sharded_i2v_runner(
     models = list(models)
     if param_dtype is not None:
         models = cast_param_storage(models, param_dtype)
-    device = torch.device(device) if device is not None else models[0].device
+    if mesh is None:
+        home = torch.device(device) if device is not None else models[0].device
+        devices, replicas = [home], {home: models}
+    else:
+        devices = mesh.positions
+        home = devices[0]
+        replicas = {d: replicate(models, d) for d in mesh.distinct_devices}
+    n_pos = len(devices)
     n_taps = sum(len(m.tap_keys) for m in models)
     compute_dtype = compute_dtype_of(models)
-
-    def collect(frames01):
-        return _collect_taps(models, frames01)
-
-    def collect_grad(frames01):
-        if remat:
-            return checkpoint(collect, frames01, use_reentrant=False)
-        return collect(frames01)
+    grad_of = functools.partial(_position_grad, epsilon=epsilon, adaptive=adaptive,
+                                coef_ce=coef_ce, n_taps=n_taps, remat=remat)
 
     # AENS's coefficients persist across calls (TPAMI_attack.py:165,265)
-    coeffs_box = [torch.ones(n_taps, dtype=torch.float32, device=device)]
+    coeffs_box = [torch.ones(n_taps, dtype=torch.float32, device=home)]
 
     def state0():
         if not adaptive:
             return None
-        return coeffs_box[0], torch.ones(n_taps, dtype=torch.float32, device=device)
+        return coeffs_box[0], torch.ones(n_taps, dtype=torch.float32, device=home)
 
-    def prepare(clean01, n_real) -> _Batch:
-        clean01 = torch.as_tensor(clean01).to(device, torch.float32)
+    def frame_slices(clean01):
+        """→ (B, T, each position's frames) of clips in [0,1], whole or laid
+        out by the mesh's clip sharding."""
+        if isinstance(clean01, Sharded):
+            if clean01.sharding.mesh != mesh or clean01.sharding.axes != ("data",):
+                raise ValueError("a laid-out clip batch must come in this runner's mesh's "
+                                 "clip sharding")
+            b, _, t = clean01.shape[:3]
+            cols = mesh.shape["frames"]
+            rows = clean01.map(lambda c: pixel.flatten_clip_to_frames(c.to(torch.float32)))
+            if rows.pieces[0].shape[0] % cols:
+                raise ValueError(f"{rows.pieces[0].shape[0]} frames a mesh row do not divide "
+                                 f"over its {cols} positions")
+            return b, t, [_slices(row, cols)[p % cols] for p, row in enumerate(rows.pieces)]
+        clean01 = torch.as_tensor(clean01).to(home, torch.float32)
         b, _, t = clean01.shape[:3]
         frames = pixel.flatten_clip_to_frames(clean01)
         del clean01
-        n = frames.shape[0]
-        chunk = snap_frame_chunk(
-            resolve_frame_chunk(frame_chunk, n, frames.shape[2:], compute_dtype), n)
-        bounds = [(i, i + chunk) for i in range(0, n, chunk)]
-        with torch.no_grad():
-            # chunk by chunk: a full-batch clean forward would set the very
-            # peak that chunking avoids
-            clean_taps = [collect(frames[i:j]) for i, j in bounds]
-        grad_buf = torch.empty_like(frames) if len(bounds) > 1 else None
-        return _Batch(b, frames, bounds, frame_mask(b, t, n_real, device), clean_taps, grad_buf)
+        if (b * t) % n_pos:
+            raise ValueError(f"{b * t} frames do not divide over the mesh's {n_pos} positions")
+        if n_pos == 1:
+            return b, t, [frames]
+        return b, t, [move(f, d) for f, d in zip(_slices(frames, n_pos), devices)]
 
-    def grad_and_state(batch: _Batch, modifier, state):
-        """→ (cost, gradient, next state) of one step at ``modifier``."""
+    def prepare(clean01, n_real) -> tuple[int, list]:
+        b, t, frames = frame_slices(clean01)
+        chunk = _local_chunk(frame_chunk, b * t, frames[0].shape[2:], compute_dtype, n_pos)
+        mask = frame_mask(b, t, n_real, home)
+        masks = [None] * n_pos if mask is None else _slices(mask, n_pos)
+        return b, [_position(replicas[d], f, chunk, None if m is None else move(m, d),
+                             slice(0, n_taps))
+                   for d, f, m in zip(devices, frames, masks)]
+
+    def grad_and_state(positions: list, modifiers: list, state):
+        """→ (cost, each slice's gradient, next state) of one step."""
         coeffs = None
         if adaptive:
             coeffs_prev, prev = state
             coeffs = torch.softmax(torch.softmax(prev, dim=0) + aens_momentum * coeffs_prev, dim=0)
-        cost = signal = grad = None
-        for (i, j), ct in zip(batch.bounds, batch.clean_taps):
-            m_c = modifier.detach()[i:j].requires_grad_(True)
-            fm = None if batch.fmask is None else batch.fmask[i:j]
-            with torch.enable_grad():
-                taps = collect_grad(kernels.rebuild_adv(batch.frames[i:j], m_c, epsilon))
-                if adaptive:
-                    per_tap = losses.per_tap_frame_cosines(taps, ct)      # (taps, chunk)
-                    if fm is not None:
-                        per_tap = per_tap * fm[None, :]
-                    each = torch.sum(coeffs[:, None] * per_tap, dim=1)
-                    c = torch.mean(each)
-                    # coef_CE picks the weighted per-tap loss as the next
-                    # coefficient signal (TPAMI_attack.py:293-297)
-                    s = (each if coef_ce else torch.sum(per_tap, dim=1)).detach()
-                    signal = s if signal is None else signal + s
-                else:
-                    c = losses.i2v_cost(taps, ct, frame_weights=fm)
-            (g,) = torch.autograd.grad(c, m_c)
-            if batch.grad_buf is None:
-                grad = g
-            else:
-                batch.grad_buf[i:j].copy_(g)
-                grad = batch.grad_buf
-            cost = c.detach() if cost is None else cost + c.detach()
-        return cost, grad, ((coeffs, signal) if adaptive else state)
+        # the coefficients go out to every card before any position's work
+        # is queued (see ensemble.py: a copy queues behind its card's work)
+        devices = dict.fromkeys(q.device for q in positions)
+        coeffs_on = {} if coeffs is None else {d: move(coeffs, d) for d in devices}
+        cost = signal = None
+        grads = []
+        for pos, mod in zip(positions, modifiers):
+            c, s, g = grad_of(pos, mod, coeffs_on.get(pos.device))
+            grads.append(g)
+            cost, signal = _acc(cost, c, home), _acc(signal, s, home)
+        return cost, grads, ((coeffs, signal) if adaptive else state)
 
     def runner(clean01, n_real=None, mod_init=None, opt_init=None):
-        batch = prepare(clean01, n_real)
-        frames = batch.frames
-        modifier = (torch.full_like(frames, MODIFIER_INIT) if mod_init is None
-                    else torch.as_tensor(mod_init).to(frames).clone()).requires_grad_(True)
-        opt = (_adam(modifier, step_size, opt_init) if mu_dtype is None
-               else _AdamMu(modifier, step_size, mu_dtype, opt_init))
+        b, positions = prepare(clean01, n_real)
+        inits = None if mod_init is None else _slices(mod_init, n_pos)
+        modifiers = [(torch.full_like(p.frames, MODIFIER_INIT) if inits is None
+                      else inits[k].to(p.frames).clone()).requires_grad_(True)
+                     for k, p in enumerate(positions)]
+        if opt_init is not None:
+            count, first, second = opt_init
+            opt_init = [(count, m, v) for m, v in zip(_slices(first, n_pos),
+                                                     _slices(second, n_pos))]
+        opt_step, slice_state = _optimizer(modifiers, step_size, mu_dtype, opt_init)
         state, costs = state0(), []
         for _ in range(steps):
-            cost, grad, state = grad_and_state(batch, modifier, state)
-            modifier.grad = grad
-            opt.step()
+            cost, grads, state = grad_and_state(positions, modifiers, state)
+            for m, g in zip(modifiers, grads):
+                m.grad = g
+            opt_step()
             costs.append(cost)
         if adaptive:
             coeffs_box[0] = state[0]
-        final = modifier.detach()
+        finals = [m.detach() for m in modifiers]
         with torch.no_grad():
-            adv = kernels.rebuild_adv(frames, final, epsilon)
-        out = (pixel.unflatten_frames_to_clip(adv, batch.clips),
-               torch.stack(costs) if costs else frames.new_zeros(0))
+            adv = _cat([kernels.rebuild_adv(p.frames, f, epsilon)
+                        for p, f in zip(positions, finals)], home)
+        out = (pixel.unflatten_frames_to_clip(adv, b),
+               torch.stack(costs) if costs else adv.new_zeros(0))
         if return_modifier:
-            out = out + (final,)
+            out = out + (_cat(finals, home),)
         if opt_state_io:
-            out = out + (_adam_state(opt, modifier) if mu_dtype is None else opt.io_state(),)
+            states = [slice_state(k) for k in range(n_pos)]
+            out = out + ((states[0][0], _cat([s[1] for s in states], home),
+                          _cat([s[2] for s in states], home)),)
         return out
 
     def value_and_grad(clean01, modifier, n_real=None):
-        batch = prepare(clean01, n_real)
-        modifier = torch.as_tensor(modifier).to(batch.frames)
-        cost, grad, _ = grad_and_state(batch, modifier, state0())
-        return cost, grad
+        _, positions = prepare(clean01, n_real)
+        mods = [m.to(p.frames) for m, p in zip(_slices(modifier, n_pos), positions)]
+        cost, grads, _ = grad_and_state(positions, mods, state0())
+        return cost, _cat(grads, home)
 
     runner.value_and_grad = value_and_grad
+    runner.coefficients = lambda: coeffs_box[0]
     return runner
+
+
+def pad_to_mesh(videos, data: int, cols: int, t_axis: int):
+    """``(videos, pad)``: the batch with ``pad`` repeats of its last clip
+    appended, the fewest that make B a multiple of ``data`` and B·T one of
+    ``data · cols`` (``i2v_tpu/parallel/sharded.py:413-426``); the pad clips
+    are then masked inert by the runner's ``n_real`` and sliced off."""
+    b, t = videos.shape[0], videos.shape[t_axis]
+    target = b + (-b % data)
+    while (target * t) % (data * cols):
+        target += data
+    if target == b:
+        return videos, 0
+    videos = torch.as_tensor(videos)
+    return torch.cat([videos, videos[-1:].expand(target - b, *videos.shape[1:])]), target - b
+
+
+def _clean01_in_place(videos: torch.Tensor) -> torch.Tensor:
+    """A piece of a normalized (or raw uint8) clip batch → [0,1] float32 on
+    the piece's own device (:meth:`Attack._clean01`'s arithmetic)."""
+    if pixel.is_u8_clips(videos):
+        return pixel.ingest_u8_clips(videos, videos.device)
+    return pixel.unnormalize(videos.to(torch.float32), channel_axis=1)
 
 
 class ShardedImageGuidedAttack(Attack):
@@ -405,17 +588,24 @@ class ShardedImageGuidedAttack(Attack):
     (``attack(videos, labels, video_names) -> normalized adversarial
     clips``), for ``image_main --sharded``: per-step costs go into
     ``loss_info``. With ``multigrid > 0`` it runs the coarse-to-fine
-    schedule (:mod:`.multigrid`). One device holds the whole batch, so the
-    JAX adapter's pad-to-the-mesh step has nothing to do here."""
+    schedule (:mod:`.multigrid`). Over a ``mesh``, a trailing batch that
+    does not divide over it is padded with repeats of its last clip, which
+    the runner masks inert (they change neither the real clips' output nor
+    the recorded costs nor AENS's coefficients) and which are sliced off
+    (``i2v_tpu/parallel/sharded.py:401-440``); a batch laid out by the
+    mesh's clip sharding (``make_input_pipeline(mesh=)``) goes in as its
+    pieces."""
 
-    def __init__(self, models: Sequence[ImageModel], *, steps: int, step_size: float,
-                 adaptive: bool = False, aens_momentum: float = 0.0, coef_ce: bool = False,
-                 name: str = "ShardedI2V", frame_chunk: int | str | None = None,
-                 param_dtype: Optional[torch.dtype] = None, multigrid: int = 0,
-                 multigrid_scale: int = 2):
+    def __init__(self, models: Sequence[ImageModel], mesh: Optional[Mesh] = None, *, steps: int,
+                 step_size: float, adaptive: bool = False, aens_momentum: float = 0.0,
+                 coef_ce: bool = False, name: str = "ShardedI2V",
+                 frame_chunk: int | str | None = None, param_dtype: Optional[torch.dtype] = None,
+                 multigrid: int = 0, multigrid_scale: int = 2):
         models = list(models)
-        super().__init__(name, None, device=models[0].device)
+        super().__init__(name, None,
+                         device=models[0].device if mesh is None else mesh.positions[0])
         self.steps = steps
+        self.mesh = mesh
         if multigrid:
             if adaptive:
                 raise ValueError("--multigrid does not compose with the adaptive AENS "
@@ -423,17 +613,27 @@ class ShardedImageGuidedAttack(Attack):
             from .multigrid import make_multigrid_i2v_runner
 
             self._runner = make_multigrid_i2v_runner(
-                models, steps=steps, coarse_steps=multigrid, scale=multigrid_scale,
+                models, mesh, steps=steps, coarse_steps=multigrid, scale=multigrid_scale,
                 step_size=step_size, frame_chunk=frame_chunk, param_dtype=param_dtype)
         else:
             self._runner = make_sharded_i2v_runner(
-                models, steps=steps, step_size=step_size, adaptive=adaptive,
+                models, mesh, steps=steps, step_size=step_size, adaptive=adaptive,
                 aens_momentum=aens_momentum, coef_ce=coef_ce, frame_chunk=frame_chunk,
                 param_dtype=param_dtype)
 
     def __call__(self, videos, labels=None, video_names=None) -> torch.Tensor:
-        # the normalized clips are not kept: the runner's flattened frames
-        # replace them on the device
-        adv01, costs = self._runner(self._clean01(videos))
+        pad = 0
+        if isinstance(videos, Sharded):
+            clean01 = videos.map(_clean01_in_place)
+        else:
+            if self.mesh is not None:
+                t_axis = 1 if pixel.is_u8_clips(videos) else 2
+                videos, pad = pad_to_mesh(videos, self.mesh.shape["data"],
+                                          self.mesh.shape["frames"], t_axis)
+            # the normalized clips are not kept: the runner's flattened frames
+            # replace them on the device
+            clean01 = self._clean01(videos)
+        b = clean01.shape[0] - pad
+        adv01, costs = self._runner(clean01, n_real=b if pad else None)
         self._record_costs(costs, video_names)
-        return pixel.normalize(adv01, channel_axis=1)
+        return pixel.normalize(adv01[:b] if pad else adv01, channel_axis=1)

@@ -41,14 +41,20 @@ class StepTimer:
     ``with timer:`` form uses ``clips_per_call``. A call whose body raises is
     not counted. ``last_call_s`` is the last call's time alone: after the
     first call it excludes one-time warm-up (CUDA context, cuDNN set-up).
+    ``n_chips``: how many positions of a device mesh the timed runner spans;
+    steps/s are reported per position, as the JAX timer reports them per
+    chip. The host clock stops after ``device`` synchronizes: the runners
+    gather their outputs there, so that waits for every card's share.
     """
 
     REPORT_EVERY = 5
 
-    def __init__(self, steps_per_call: int, clips_per_call: int, device: torch.device | str):
+    def __init__(self, steps_per_call: int, clips_per_call: int, device: torch.device | str,
+                 n_chips: int = 1):
         self.steps_per_call = steps_per_call
         self.clips_per_call = clips_per_call
         self.device = torch.device(device)
+        self.n_chips = max(1, n_chips)
         self.calls = 0
         self.clips = 0
         self.elapsed = 0.0
@@ -87,7 +93,7 @@ class StepTimer:
     def steps_per_sec_per_chip(self) -> float:
         if not self.elapsed:
             return 0.0
-        return self.calls * self.steps_per_call / self.elapsed
+        return self.calls * self.steps_per_call / self.elapsed / self.n_chips
 
     @property
     def clips_per_sec(self) -> float:
@@ -99,6 +105,7 @@ class StepTimer:
         return {
             "attack_steps_per_sec_per_chip": self.steps_per_sec_per_chip,
             "adv_clips_per_sec": self.clips_per_sec,
+            "n_chips": self.n_chips,
             "calls": self.calls,
             "elapsed_s": self.elapsed,
             "last_call_s": self.last_call_s,

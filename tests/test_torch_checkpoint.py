@@ -17,6 +17,8 @@ from flax import serialization
 
 torch = pytest.importorskip("torch")
 
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+
 from i2v_tpu.models import convert as jconvert  # noqa: E402
 from i2v_tpu.models import get_image_models as jget_image_models  # noqa: E402
 from i2v_tpu.models import i3d as ji3d  # noqa: E402

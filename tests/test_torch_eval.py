@@ -21,6 +21,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+
 from i2v_tpu.eval import transfer as jtransfer  # noqa: E402
 from i2v_tpu.models import video_zoo as jvideo_zoo  # noqa: E402
 from i2v_tpu.models.api import VideoModel as JVideoModel  # noqa: E402
@@ -147,11 +149,17 @@ def test_report_bytes_are_what_pandas_writes(tmp_path):
     assert (tmp_path / JSON).read_text() == json.dumps(acc)
 
 
-def test_evaluate_run_refuses_data_parallel_and_empty_runs(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 9"):
+def test_evaluate_run_refuses_data_parallel_and_empty_runs(tmp_path, monkeypatch):
+    """Data-parallel evaluation is ported (tests/test_torch_mesh.py holds its
+    reports): it is refused only where it would need a card and finds none,
+    rather than carrying on on the CPU. An empty run is refused."""
+    with pytest.raises(FileNotFoundError):
         transfer.evaluate_run(str(tmp_path), data_parallel=True, device="cpu")
     with pytest.raises(FileNotFoundError):
         transfer.evaluate_run(str(tmp_path), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transfer.evaluate_run(str(tmp_path), data_parallel=True)
 
 
 @pytest.fixture
@@ -209,16 +217,13 @@ def test_cuda_device_without_a_card_stops(opt_path, monkeypatch):
 
 @pytest.mark.parametrize("flag,item", [("--bf16", "item 10"), ("--data_parallel", "item 9")])
 def test_cli_refuses_unported_flags_naming_the_roadmap_item(opt_path, capsys, flag, item):
-    """--data_parallel waits for item 9 and is refused, naming it. --bf16
-    (item 10) is ported: it parses, and the run builds its models in
-    bfloat16 (tests/test_torch_bf16.py holds the reports to the JAX CLI's)."""
-    if item == "item 10":
-        args = evaluate.arg_parse(["--adv_path", str(opt_path), flag])
-        assert args.bf16 and "ROADMAP" not in capsys.readouterr().err
-        return
-    with pytest.raises(SystemExit):
-        evaluate.arg_parse(["--adv_path", str(opt_path), flag])
-    assert f"ROADMAP Queue 1, {item}" in capsys.readouterr().err
+    """No flag of the JAX CLI is refused any more. --bf16 (item 10) builds the
+    models in bfloat16 (tests/test_torch_bf16.py holds the reports to the
+    JAX CLI's); --data_parallel (item 9) cuts each batch over the mesh
+    (tests/test_torch_mesh.py): both parse, naming no ROADMAP item."""
+    args = evaluate.arg_parse(["--adv_path", str(opt_path), flag])
+    assert getattr(args, flag[2:]) is True
+    assert "ROADMAP" not in capsys.readouterr().err
 
 
 def test_ucf101_models_have_101_classes_at_full_width():

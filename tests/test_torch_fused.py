@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+
 from i2v_tpu.cli import image_main as jimage_main  # noqa: E402
 from i2v_tpu.eval import fused as jfused  # noqa: E402
 from i2v_tpu.models import video_zoo as jvideo_zoo  # noqa: E402

@@ -19,6 +19,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+
 import i2v_tpu.attacks as jattacks  # noqa: E402
 from i2v_tpu.models import get_image_models as jget_image_models  # noqa: E402
 from i2v_tpu.ops import losses as jlosses  # noqa: E402
@@ -165,17 +167,27 @@ def test_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):
     (["--model_parallel", "2"], "item 9"),
 ])
 def test_cli_rejects_methods_not_ported_yet(tmp_path, monkeypatch, capsys, flags, item):
-    """The JAX image CLI's --model_parallel is refused, naming the ROADMAP
-    item; its four methods are all accepted, and so are its other runner
-    flags and its six surrogates."""
+    """--model_parallel (ROADMAP item 9) is ported: it parses as the JAX
+    CLI's does, and a run rejects it, with the JAX CLI's words, only for a
+    method that has no surrogate ensemble to split or together with
+    --sharded. The four methods are all accepted, and so are the other
+    runner flags and the six surrogates."""
+    from i2v_tpu.cli import common as jcommon
     from i2v_tpu.cli import image_main as jimage_main
-    from i2v_tpu_torch.cli import image_main
+    from i2v_tpu_torch.cli import common, image_main
 
     monkeypatch.setenv("I2V_TPU_OPT_PATH", str(tmp_path))
-    jimage_main.arg_parse(flags)   # a flag of the JAX CLI
-    with pytest.raises(SystemExit):
-        image_main.arg_parse(flags)
-    assert f"ROADMAP Queue 1, {item}" in capsys.readouterr().err
+    assert image_main.arg_parse(flags).model_parallel == \
+        jimage_main.arg_parse(flags).model_parallel == 2
+    assert "ROADMAP" not in capsys.readouterr().err
+    for extra in (["--attack_method", "ImageGuidedFMDirection_Adam"],
+                  ["--attack_method", "AENS_I2V_MF", "--sharded"]):
+        with pytest.raises(SystemExit) as err:
+            common.build_image_guided_attack(image_main.arg_parse(flags + extra + ["--tiny"]),
+                                             torch.device("cpu"))
+        with pytest.raises(SystemExit) as jerr:
+            jcommon.build_image_guided_attack(jimage_main.arg_parse(flags + extra + ["--tiny"]))
+        assert str(err.value) == str(jerr.value)
     for method in jimage_main.common.IMAGE_GUIDED_METHODS:
         assert image_main.arg_parse(["--attack_method", method]).attack_method == method
     ported = ["--sharded", "--frame_chunk", "auto", "--param_dtype", "bfloat16", "--multigrid",

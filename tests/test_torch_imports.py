@@ -1,7 +1,9 @@
-"""The port stands alone: every module of ``i2v_tpu_torch``, and the port's
-ASR-proxy tool ``tools/torch_asr_proxy.py``, imports with JAX, Flax, Optax
-and the JAX package made unimportable, and with pandas, msgpack and Pillow
-too (a machine with a card need not have them)."""
+"""The port stands alone: every module of ``i2v_tpu_torch`` (the multi-device
+``parallel.mesh``, ``parallel.ensemble`` and ``parallel.dist`` among them),
+and the port's tools ``tools/torch_asr_proxy.py`` and
+``tools/torch_mesh_profile.py``, import with JAX, Flax, Optax and the JAX
+package made unimportable, and with pandas, msgpack and Pillow too (a
+machine with a card need not have them)."""
 
 import os
 import subprocess
@@ -20,9 +22,11 @@ for name in BLOCKED:
     sys.modules[name] = None
 import i2v_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(i2v_tpu_torch.__path__, "i2v_tpu_torch."))
+assert {"i2v_tpu_torch.parallel." + m for m in ("mesh", "ensemble", "dist")} <= set(names)
 for name in names:
     importlib.import_module(name)
 import tools.torch_asr_proxy
+import tools.torch_mesh_profile
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in BLOCKED and sys.modules[k] is not None)
 assert not leaked, leaked

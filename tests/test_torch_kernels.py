@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+
 from jax.experimental import pallas as pl  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
@@ -269,3 +271,30 @@ def test_sign_step_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         kernels.sign_step_project(adv, g.cpu(), clean, ALPHA32, EPS32)
     with pytest.raises(ValueError):
         kernels.sign_step_project(adv, g[1:], clean, ALPHA32, EPS32)
+
+
+def test_launch_counts_are_exact_under_concurrent_increments():
+    """The mesh runners launch K2 from the autograd engine's thread of each
+    card: every increment of the launch counts must land. Eight threads add
+    20,000 each under a short switch interval, which loses updates to an
+    unlocked ``+=``."""
+    import sys
+    import threading
+
+    saved = dict(kernels.launches)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        kernels.reset_launches()
+        threads = [threading.Thread(target=lambda: [kernels.count_launch("rebuild_bwd")
+                                                    for _ in range(20_000)])
+                   for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert kernels.launches == {"rebuild_fwd": 0, "rebuild_bwd": 160_000, "sign_step": 0}
+    finally:
+        sys.setswitchinterval(interval)
+        kernels.launches.update(saved)

@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+
 from i2v_tpu.ops import grads as jgrads  # noqa: E402
 from i2v_tpu.ops import losses as jlosses  # noqa: E402
 from i2v_tpu.ops import pixel as jpixel  # noqa: E402
@@ -28,6 +30,22 @@ def test_normalize_unnormalize_match_jax(fn):
     want = np.asarray(getattr(jpixel, fn)(jnp.asarray(x), channel_axis=1))
     got = getattr(pixel, fn)(torch.from_numpy(x), channel_axis=1).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_normalize_statistics_are_made_once_and_serve_every_mode():
+    """The mean and std are made once a (dtype, device, layout), so that no
+    forward builds a tensor from Python numbers on a card (a blocking copy);
+    made first under inference mode, they still let a graph save them."""
+    x = torch.from_numpy(np.random.RandomState(3).rand(2, 3, 4, 5, 5).astype(np.float32))
+    with torch.inference_mode():
+        want = pixel.normalize(x, channel_axis=1)
+    assert pixel._stats(x, 1)[0] is pixel._stats(x.clone(), 1)[0]
+    leaf = x.clone().requires_grad_(True)
+    got = pixel.normalize(leaf, channel_axis=1)
+    got.sum().backward()
+    np.testing.assert_array_equal(got.detach().numpy(), want.numpy())
+    np.testing.assert_allclose(leaf.grad[0, :, 0, 0, 0].numpy(),
+                               1 / np.float32(pixel.IMAGENET_STD), rtol=1e-6)
 
 
 def test_flatten_and_unflatten_match_jax():

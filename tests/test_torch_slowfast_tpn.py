@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+
 from i2v_tpu.models import slowfast as jslowfast  # noqa: E402
 from i2v_tpu.models import tpn as jtpn  # noqa: E402
 from i2v_tpu.ops import losses as jlosses  # noqa: E402
