@@ -70,7 +70,18 @@ raises and the script exits non-zero:
                  costs, K1/K2 at 112² and then at 224², outputs in the ε-ball
  24. runner parity — the tiny chunked AENS runner (momentum 0.5) on the card
                  and on the CPU: step-0 cost and gradient at a generic modifier
- 25. real data  — real formats at full width: two seeded uint8 Kinetics
+ 25. converters — the flax-free checkpoint converters at full width, float32,
+                 TF32 off: a seeded torchvision-named ResNet-101 (BN statistics
+                 randomized) through models.convert.convert_torchvision on the
+                 host and back through get_image_models with no warning, its
+                 layer2 tap within CONV_TAP_RTOL (relative L2) of the torch
+                 model's; a seeded gluoncv-named I3D-R50 with its five non-local
+                 blocks saved as a .pth, converted by
+                 tools/torch_convert_gluoncv.py --verify in a subprocess, loaded
+                 through get_video_model with no module at init, its logits
+                 within CONV_LOGIT_RTOL of the torch model's; host seconds and
+                 file MB of each conversion; no kernel runs
+ 26. real data  — real formats at full width: two seeded uint8 Kinetics
                  sidecars (80x256x340) behind a manifest, and checkpoint files
                  of the four whole-network surrogates and I3D-R50 written with
                  to_jax_params + save_params. 20-step ENS-I2V at B=2 through
@@ -84,7 +95,7 @@ raises and the script exits non-zero:
                  where Pillow writes JPEGs, cli.attack_ucf101 --data ucf101 over
                  frame JPEGs. Host decode ms a clip, bytes and upload time a
                  batch, uint8 against float32
- 26. zoo + gradcam — 5-step I2V on DenseNet-161 (depth 3) and DR on ViT-B/16
+ 27. zoo + gradcam — 5-step I2V on DenseNet-161 (depth 3) and DR on ViT-B/16
                  (depth 4) over one clip through image_main, each run twice (the
                  second warm), K1/K2 6/5 a run; cli.gradcam with the five CAM
                  models at full width over the I2V clip (float16 masks in [0,1],
@@ -93,7 +104,7 @@ raises and the script exits non-zero:
                  vit.msgpack written by save_params and loaded through the
                  registry, logits bit for bit; cli.evaluate -> cli.report on the
                  I2V run; cli.run_grid layer_ablation --limit 1 --step 2
- 27. bf16      — 3-step ENS-I2V at B=16 x 32 x 224^2 with the four surrogates
+ 28. bf16      — 3-step ENS-I2V at B=16 x 32 x 224^2 with the four surrogates
                  in bf16 (compute and storage) through the runner's library
                  call: "auto" = the whole batch, K1/K2 = steps+1/steps, the cost
                  falls, steps/s and peak; its step-0 cost at B=2 and a generic
@@ -107,7 +118,7 @@ raises and the script exits non-zero:
                  and on; 3-step AENS-I2V-MF at B=16 with a bf16 first moment
                  (mu_dtype): its peak beside a float32 moment's
 
- 28. multi-device — on the real cards when there are four or more, else on
+ 29. multi-device — on the real cards when there are four or more, else on
                  one card four times (the JAX suite's fake devices), float32,
                  TF32 off: ENS-I2V at B=2 through the mesh runner over
                  attack_mesh(data=2, frames=2), each position's slice of the
@@ -125,7 +136,14 @@ raises and the script exits non-zero:
                  processes of image_main under the launcher's variables (gloo),
                  each on its half of four clips into one run directory, their
                  launch counts printed and checked, and cli.evaluate over the
-                 merged run
+                 merged run; white-box data parallelism: 3-step BIM on
+                 full-width I3D-R50 at B=4 over attack_mesh(data=4), on one card
+                 four times and (with four cards) over four cards: K3 = steps x 4
+                 a call, each piece stepping on its own card, the step-0 cost
+                 within MD_WB_COST_RTOL of the one-device B=4 attack's, each
+                 piece's step-0 gradient within MD_WB_GRAD_ATOL of max|g| of the
+                 one-device attack on that piece alone, later steps printed,
+                 steps/s beside the one-device attack's
 Phase 3 also holds K1/K2 to their plain versions at the chunked runner's
 shapes: a 512-frame call (B=16), a 128-frame chunk that starts 128 frames
 into a 512-frame modifier, and a 112² call (multigrid's coarse phase).
@@ -134,7 +152,8 @@ family, tt, remat, ucf101, chunked aens, chunk equality, multigrid, real
 data's ENS, twin, BIM and UCF-101 runs, zoo + gradcam's DenseNet and ViT
 runs, Grad-CAM, evaluation and grid, bf16's ENS, evaluations and
 mu_dtype AENS, and multi-device's mesh runner, --model_parallel runs,
-model-axis AENS and evaluations) is driven with the launch counters set to
+model-axis AENS, evaluations and white-box mesh BIM; converters, which
+launches none) is driven with the launch counters set to
 0 just before it and read just after; the two launched processes count
 their own and print them, and their counts join the kernels line.
 The line before the last is a JSON object with each kernel's launches over
@@ -1567,6 +1586,143 @@ def _h2d_ms(host: np.ndarray, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+CONV_SEED = 11
+CONV_TAP_RTOL = 1e-4      # ResNet-101's layer2 output, the port from the converted file
+                          # against the torch model it came from: ||diff|| / ||ref||. The
+                          # fold W·γ/√(σ²+ε) and b' change the rounding only
+CONV_LOGIT_RTOL = 1e-3    # I3D-R50's logits (five non-local blocks), the same measure
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm((a - b).double()) / torch.linalg.vector_norm(b.double()))
+
+
+def _tool(name: str):
+    """``tools/{name}.py`` of this checkout, loaded by its path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_converters(kernels, synthetic, pixel, card: str, tmp: str) -> None:
+    """The flax-free checkpoint converters at full width, float32, TF32 off:
+    a seeded torchvision-named ResNet-101 (BN statistics randomized) through
+    models.convert.convert_torchvision on the host, loaded through
+    get_image_models(["resnet"], {"resnet": 2}) with no warning, its layer2
+    tap held to the torch model's layer2[-1]; a seeded gluoncv-named I3D-R50
+    with its five non-local blocks written to a .pth, converted by
+    tools/torch_convert_gluoncv.py --verify in a subprocess, loaded through
+    get_video_model("i3d_resnet50") with no module left at init, its logits
+    held to the torch model's. No kernel runs."""
+    import argparse
+    import shutil
+
+    from i2v_tpu_torch.cli import common as cli_common
+    from i2v_tpu_torch.models import convert, get_image_models, get_video_model
+
+    surrogates, fakes = _tool("torch_surrogates"), _tool("torch_gluoncv_fakes")
+    gluoncv = _tool("torch_convert_gluoncv")
+    t0 = time.time()
+    cli_common.apply_matmul_precision(argparse.Namespace(matmul_precision="float32"))
+    ckpts = os.path.join(tmp, "converted")
+    saved = os.environ.get("I2V_TPU_CKPTS")
+    os.environ["I2V_TPU_CKPTS"] = ckpts
+    ds = synthetic.SyntheticAttackDataset(n_samples=1)
+    clip01 = torch.from_numpy(ds.clip01(0)[None]).cuda()           # (1, 3, 32, 224, 224)
+    facts = []
+    kernels.reset_launches()
+    try:
+        # ResNet-101: torchvision's names, converted in this process
+        torch.manual_seed(CONV_SEED)
+        tm = fakes.randomize_bn(surrogates.resnet101().eval(), CONV_SEED)
+        sd = tm.state_dict()
+        ts = time.perf_counter()
+        path = convert.convert_torchvision("resnet", sd, ckpts)
+        host_s = time.perf_counter() - ts
+        bundle, warned = _recorded(lambda: get_image_models(["resnet"], {"resnet": 2},
+                                                            device="cuda")[0])
+        warned = [w for w in warned if "random init" in w]
+        if warned:
+            raise RuntimeError(f"ResNet-101 from the converted file warned: {warned}")
+        frames = pixel.flatten_clip_to_frames(clip01)                 # (32, 3, 224, 224)
+        tm = tm.cuda()
+        with torch.no_grad():
+            _, taps = bundle.apply01_taps(frames)
+            x = tm.maxpool(tm.relu(tm.bn1(tm.conv1(pixel.normalize(frames, channel_axis=1)))))
+            want = tm.layer2(tm.layer1(x))
+        tap_err = _rel_l2(taps[0], want)
+        if not (tap_err <= CONV_TAP_RTOL and torch.isfinite(taps[0]).all()):
+            raise RuntimeError(f"ResNet-101 layer2 tap from the converted file: relative L2 "
+                               f"{tap_err} from the torch model's (limit {CONV_TAP_RTOL})")
+        facts.append(f"ResNet-101 (torchvision names): convert_torchvision {host_s:.3f} s on "
+                     f"the host, {os.path.getsize(path) / 2**20:.2f} MiB; loaded through "
+                     f"get_image_models with no warning; layer2 tap over 32 frames relative L2 "
+                     f"{tap_err:.3g} from the torch model's (limit {CONV_TAP_RTOL})")
+        del bundle, tm, sd, taps, want
+
+        # I3D-R50 with non-local blocks: gluoncv's names, through the tool's CLI
+        torch.manual_seed(CONV_SEED)
+        fake = fakes.randomize_bn(fakes.I3DResNet().eval(), CONV_SEED)
+        pth = os.path.join(tmp, "i3d_resnet50_gluoncv.pth")
+        torch.save(fake.state_dict(), pth)
+        ts = time.perf_counter()
+        convert.save_params(gluoncv.convert_i3d(fake.state_dict(), gluoncv.STAGES["resnet50"]),
+                            "i3d_resnet50", os.path.join(ckpts, "in_process"))
+        host_s = time.perf_counter() - ts
+        ts = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join("tools", "torch_convert_gluoncv.py"), "--name",
+             "i3d_resnet50", "--weights", pth, "--out", ckpts, "--verify"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=600)
+        cli_s = time.perf_counter() - ts
+        lines = proc.stdout.splitlines()
+        path = os.path.join(ckpts, "i3d_resnet50.msgpack")
+        if (proc.returncode != 0 or lines[:1] != [f"wrote {path}"]
+                or not any(ln.startswith("torch logits: finite, top-5") for ln in lines)
+                or any(ln.startswith("WARNING") for ln in lines)):
+            raise RuntimeError(f"torch_convert_gluoncv.py --verify ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        video, warned = _recorded(lambda: get_video_model("i3d_resnet50", device="cuda"))
+        warned = [w for w in warned if "random init" in w]
+        missing = convert.missing_modules(video.module, convert.load_params("i3d_resnet50"))
+        if warned or missing:
+            raise RuntimeError(f"I3D-R50 from the converted file: warnings {warned}, "
+                               f"modules at init {missing}")
+        fake = fake.cuda()
+        with torch.no_grad():
+            got = video.apply01(clip01)
+            want = fake(fakes.normalize(clip01))
+        logit_err = _rel_l2(got, want)
+        if not (logit_err <= CONV_LOGIT_RTOL and torch.isfinite(got).all()):
+            raise RuntimeError(f"I3D-R50 logits from the converted file: relative L2 "
+                               f"{logit_err} from the torch model's (limit {CONV_LOGIT_RTOL})")
+        verify = next(ln for ln in lines if ln.startswith("torch logits"))
+        facts.append(f"I3D-R50 with 5 non-local blocks (gluoncv names): convert_i3d + "
+                     f"save_params {host_s:.3f} s on the host, "
+                     f"{os.path.getsize(path) / 2**20:.2f} MiB; "
+                     f"tools/torch_convert_gluoncv.py --verify {cli_s:.2f} s in its process "
+                     f"({verify}); loaded through get_video_model with no module at init; "
+                     f"logits relative L2 {logit_err:.3g} from the torch model's (limit "
+                     f"{CONV_LOGIT_RTOL}), top-1 {int(got.argmax())} vs {int(want.argmax())}")
+        del video, fake
+    finally:
+        if saved is None:
+            os.environ.pop("I2V_TPU_CKPTS", None)
+        else:
+            os.environ["I2V_TPU_CKPTS"] = saved
+        shutil.rmtree(ckpts, ignore_errors=True)
+    if any(kernels.launches.values()):
+        raise RuntimeError(f"the converters launched a kernel: {kernels.launches}")
+    torch.cuda.empty_cache()
+    print(f"[converters] on {card}, TF32 off: " + "; ".join(facts)
+          + f"; phase wall {time.time() - t0:.2f} s")
+
+
 def phase_real_data(kernels, image_main, attack_cli, attack_ucf101, evaluate_cli, pixel,
                     card: str, tmp: str) -> dict:
     """Real-format clips and checkpoint files through the CLIs at full width:
@@ -2324,6 +2480,12 @@ MD_GRAD_ATOL = 5e-5       # a slice's step-0 gradient against the mesh-free runn
                           # sums vary run to run)
 MD_COEF_ATOL = 1e-5       # AENS's coefficients after 3 steps, model axis vs mesh-free
 MD_LOGIT_RTOL = 1e-4      # a video model's logits cut over the mesh vs whole, times max|logit|
+MD_WB_CLIPS, MD_WB_STEPS = 4, 3   # white-box BIM over attack_mesh(data=4): one clip a piece
+MD_WB_COST_RTOL = 1e-5    # its step-0 cost vs the one-device attack at B=4 (a piece's convs
+                          # run at B=1, the whole batch's at B=4: cuDNN picks by batch size)
+MD_WB_GRAD_ATOL = 2e-5    # a piece's step-0 gradient vs the one-device attack on that piece
+                          # alone (B=1 on both sides), times max|g|: cuDNN's input-gradient
+                          # sums vary run to run (~5e-6 of max|g|, PR 5)
 MD_CHILD = """
 import json, os, sys
 sys.path.insert(0, os.getcwd())
@@ -2355,6 +2517,115 @@ def _peaks(devices) -> str:
                      for d in dict.fromkeys(devices))
 
 
+def _whitebox_mesh(kernels, synthetic, pixel) -> tuple[list, dict]:
+    """BIM on full-width I3D-R50 at B=4 over attack_mesh(data=4), on one card
+    four times and, where the machine has them, over four cards: K3 once a
+    piece a step, the step-0 cost against the one-device B=4 attack, each
+    piece's step-0 direction against the one-device attack on that piece
+    alone (the same B=1 convs), steps/s beside the one-device attack's.
+    Float32, TF32 off. Returns (facts, launch counts)."""
+    import argparse
+    import warnings
+
+    from i2v_tpu_torch import attacks
+    from i2v_tpu_torch.cli import common as cli_common
+    from i2v_tpu_torch.models import get_video_model
+    from i2v_tpu_torch.parallel import attack_mesh, shard_clips
+
+    cli_common.apply_matmul_precision(argparse.Namespace(matmul_precision="float32"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # random weights: no checkpoint file, as it says
+        bundle = get_video_model("i3d_resnet50", device="cuda")
+    ds = synthetic.SyntheticAttackDataset(n_samples=MD_WB_CLIPS)
+    videos = pixel.normalize(torch.from_numpy(np.stack(
+        [ds.clip01(i) for i in range(MD_WB_CLIPS)])), channel_axis=1).numpy()
+    labels = np.arange(MD_WB_CLIPS)
+    seen, plain = [], kernels.sign_step_project
+
+    def recording(adv01, grad, clean01, alpha, epsilon):
+        if len(seen) < MD_WB_CLIPS:        # the directions of the first step
+            seen.append(grad.detach().clone())
+        return plain(adv01, grad, clean01, alpha, epsilon)
+
+    def costs(atk) -> np.ndarray:
+        return np.asarray([float(v["cost"]) for v in atk.loss_info["wb"].values()])
+
+    def timed(atk, batch):
+        ts = time.perf_counter()
+        adv = atk(batch, labels, ["wb"])
+        _sync_all()
+        return adv, time.perf_counter() - ts
+
+    kernels.sign_step_project = recording
+    facts, totals = [], {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
+    try:
+        one = attacks.BIM(bundle, steps=MD_WB_STEPS)
+        timed(one, videos)
+        seen.clear()
+        _, one_s = timed(one, videos)
+        want_costs = costs(one)
+        alone = []
+        for i in range(MD_WB_CLIPS):
+            seen.clear()
+            attacks.BIM(bundle, steps=1)(videos[i:i + 1], labels[i:i + 1])
+            alone.append(seen[0])
+        layouts = [("one card four times", [torch.device("cuda", 0)] * MD_WB_CLIPS)]
+        if torch.cuda.device_count() >= MD_WB_CLIPS:
+            layouts.append(("four cards", [torch.device("cuda", i)
+                                           for i in range(MD_WB_CLIPS)]))
+        want = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": MD_WB_STEPS * MD_WB_CLIPS}
+        for where, devs in layouts:
+            mesh = attack_mesh(devs, data=MD_WB_CLIPS)
+            atk = attacks.BIM(bundle, steps=MD_WB_STEPS)
+            walls = []
+            for call in range(2):
+                seen.clear()
+                kernels.reset_launches()
+                adv, wall = timed(atk, shard_clips(videos, mesh))
+                counts = dict(kernels.launches)
+                if counts != want:
+                    raise RuntimeError(f"BIM over the mesh ({where}), call {call}: launch "
+                                       f"counts {counts}, expected {want}")
+                for k in totals:
+                    totals[k] += counts[k]
+                walls.append(wall)
+            if [g.device for g in seen] != devs:
+                raise RuntimeError(f"BIM over the mesh ({where}): the pieces stepped on "
+                                   f"{[g.device for g in seen]}, not {devs}")
+            adv01 = pixel.unnormalize(adv, channel_axis=1)
+            clean01 = pixel.unnormalize(torch.from_numpy(videos).to(adv.device), channel_axis=1)
+            if (adv.device != devs[0] or tuple(adv.shape) != videos.shape
+                    or float((adv01 - clean01).abs().max()) > EPS + 1e-5
+                    or float(adv01.min()) < -1e-5 or float(adv01.max()) > 1 + 1e-5):
+                raise RuntimeError(f"BIM over the mesh ({where}): output on {adv.device}, "
+                                   f"shape {tuple(adv.shape)}, off the ε-ball or [0,1]")
+            got_costs = costs(atk)
+            cost_rel = abs(got_costs[0] / want_costs[0] - 1)
+            # a piece's step: ∇ of the batch mean, 1/4 of the piece alone's mean
+            grad_err = max(float((MD_WB_CLIPS * g.to(a.device) - a).abs().max())
+                           / float(a.abs().max()) for g, a in zip(seen, alone))
+            if not (cost_rel <= MD_WB_COST_RTOL and grad_err <= MD_WB_GRAD_ATOL
+                    and np.isfinite(got_costs).all()):
+                raise RuntimeError(f"BIM over the mesh ({where}): step-0 cost {got_costs[0]} "
+                                   f"vs one device {want_costs[0]} (relative {cost_rel}), each "
+                                   f"piece's step-0 gradient {grad_err} of max|g| from the piece "
+                                   "attacked alone")
+            later = np.abs(got_costs[1:] / want_costs[1:] - 1)
+            facts.append(
+                f"(5) BIM on I3D-R50 at B={MD_WB_CLIPS} over attack_mesh(data={MD_WB_CLIPS}) on "
+                f"{where}, {MD_WB_STEPS} steps: K3 {want['sign_step']} a call (steps x pieces, "
+                f"each on its piece's card); step-0 cost relative {cost_rel:.3g} from the "
+                f"one-device B={MD_WB_CLIPS} attack (limit {MD_WB_COST_RTOL}); each piece's "
+                f"step-0 gradient {grad_err:.3g} of max|g| from the piece attacked alone (limit "
+                f"{MD_WB_GRAD_ATOL}); later steps relative {np.round(later, 7).tolist()} "
+                f"(UNSTEADY, printed only); {MD_WB_STEPS / walls[1]:.4f} steps/s warm "
+                f"({MD_WB_STEPS / walls[0]:.4f} cold) against {MD_WB_STEPS / one_s:.4f} on one "
+                f"device at B={MD_WB_CLIPS}")
+    finally:
+        kernels.sign_step_project = plain
+    return facts, totals
+
+
 def phase_multi_device(kernels, image_main, evaluate_cli, synthetic, pixel_mean_std,
                        card: str, tmp: str) -> dict:
     """The mesh paths at full width, float32, TF32 off, on the real cards when
@@ -2377,6 +2648,7 @@ def phase_multi_device(kernels, image_main, evaluate_cli, synthetic, pixel_mean_
     from i2v_tpu_torch.models import get_image_models, get_video_model
     from i2v_tpu_torch.ops import pixel
     from i2v_tpu_torch.parallel import attack_mesh, ensemble, mesh as mesh_mod, sharded
+    from i2v_tpu_torch.parallel.replicas import Replicas
     from i2v_tpu_torch.utils import VIDEO_MODEL_NAMES, artifacts
 
     t0 = time.time()
@@ -2530,7 +2802,7 @@ def phase_multi_device(kernels, image_main, evaluate_cli, synthetic, pixel_mean_
     with torch.inference_mode():
         for name, bundle in video.items():
             whole = bundle.apply_norm(clips)
-            cut = transfer._Replicas(bundle, dmesh).logits(pieces, dmesh.positions)
+            cut = Replicas(bundle, dmesh).logits(pieces, dmesh.positions)
             logit_err = max(logit_err, float((cut - whole).abs().max() / whole.abs().max()))
     reports = {}
     kernels.reset_launches()
@@ -2608,6 +2880,11 @@ def phase_multi_device(kernels, image_main, evaluate_cli, synthetic, pixel_mean_
     facts.append(f"(4) two processes (gloo, cuda:{{rank % {n}}}) of image_main ENS-I2V, 2 "
                  f"steps, 2 clips each, one run directory ({', '.join(files)}); each child's "
                  f"launches {want}; cli.evaluate over the merged run: top-1 {acc}")
+
+    # (5) white-box data parallelism: BIM over the data axis
+    wb_facts, wb_counts = _whitebox_mesh(kernels, synthetic, pixel)
+    facts += wb_facts
+    add(wb_counts)
     print(f"[multi-device] on {card}, TF32 off: " + "; ".join(facts)
           + f"; launches {totals}; phase wall {time.time() - t0:.2f} s")
     return totals
@@ -2670,6 +2947,7 @@ def main() -> None:
             for k in counts:
                 counts[k] += path_counts[k]
         phase_runner_parity(image_main)
+        phase_converters(kernels, synthetic, pixel, card, tmp)
         real = phase_real_data(kernels, image_main, attack_cli, attack_ucf101, evaluate_cli,
                                pixel, card, tmp)
         zoo = phase_zoo_gradcam(kernels, image_main, synthetic, get_bundle, (mean, std), tmp)

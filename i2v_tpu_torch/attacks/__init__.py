@@ -1,7 +1,8 @@
 """Attack engines. Class names mirror the reference so CLI dispatch via
 ``getattr`` works unchanged (image_main.py:66-80, attack.py:76-83)."""
 
-from .core import Attack, SignAttackConfig, make_ce_grad_fn, run_sign_attack  # noqa: F401
+from .core import (Attack, SignAttackConfig, make_ce_grad_fn, run_sign_attack,  # noqa: F401
+                   run_sign_attack_pieces)
 from .i2v import (  # noqa: F401
     AENS_I2V_MF,
     ILAF,

@@ -14,12 +14,26 @@ pixel update, which on the card is the hand-written kernel
 taken w.r.t. the normalized input, as the reference takes it; the
 pixel-domain sign step is sign-equivalent, since normalization is a
 positive per-channel affine map.
+
+White-box data parallelism: a clip batch laid out over a mesh's ``data``
+axis (``parallel.mesh.shard_clips``) goes into an attack as it is, as the
+JAX package's attacks take a sharded batch. :func:`run_sign_attack_pieces`
+runs each piece on its own device, through the attack's video-model
+replica there (:class:`~i2v_tpu_torch.parallel.replicas.Replicas`, built
+once an attack): the step's cost is the mean of the piece means (TAP's, a
+sum of per-clip terms and a CE mean, is summed), each piece's gradient is
+its share of the whole batch's, every piece draws the step's one set of
+random numbers, and smoothing, the per-clip normalizations, momentum and
+the sign step (the kernel, once a piece a step) run on the piece's device;
+only the whole-batch L1 normalization sums one scalar across the pieces.
+The result comes back as whole clips on the mesh's first device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+import warnings
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -106,23 +120,81 @@ def run_sign_attack(grad_fn: GradFn, clean01: torch.Tensor, labels: torch.Tensor
     each update stacked over steps, (steps,) or (steps, k) for a vector cost
     such as TAP's, both on ``clean01``'s device. ``generator`` is handed to
     ``grad_fn`` each step for its random draws."""
-    b = clean01.shape[0]
-    if cfg.batch_chunk and cfg.batch_chunk < b:
-        grad_fn = _chunked(grad_fn, b, cfg.batch_chunk)
-    adv = clean01
-    mom = torch.zeros_like(clean01) if cfg.use_momentum else None
+    (adv,), costs = run_sign_attack_pieces([grad_fn], [clean01], [labels], cfg,
+                                           smooth_fn=smooth_fn, generator=generator)
+    return adv, costs
+
+
+def run_sign_attack_pieces(grad_fns: Sequence[GradFn], clean_pieces: Sequence[torch.Tensor],
+                           label_pieces: Sequence[torch.Tensor], cfg: SignAttackConfig, *,
+                           smooth_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                           generator: Optional[torch.Generator] = None,
+                           cost_sum: bool = False):
+    """The sign attack over a clip batch held as equal pieces, each on its
+    own device with its own ``grad_fn`` (one piece: the one-device attack).
+    Returns ``(adv01 pieces, per-step costs)``, the costs on the first
+    piece's device.
+
+    With ``cost_sum=False`` each ``grad_fn``'s cost is a mean over its clips:
+    the step's cost is the mean of the piece costs and each piece's gradient
+    is divided by the piece count, as :func:`_chunked` does. With
+    ``cost_sum=True`` each ``grad_fn`` already returns its share of the whole
+    batch's cost and gradient (TAP's), and the costs are summed. Every piece
+    starts from the step's generator state, so that all see the step's one
+    set of random draws."""
+    k = len(clean_pieces)
+    home = clean_pieces[0].device
+    fns = []
+    for fn, clean in zip(grad_fns, clean_pieces):
+        b = clean.shape[0]
+        fns.append(_chunked(fn, b, cfg.batch_chunk) if cfg.batch_chunk and cfg.batch_chunk < b
+                   else fn)
+    adv = list(clean_pieces)
+    mom = [torch.zeros_like(c) for c in clean_pieces] if cfg.use_momentum else None
     costs = []
     for _ in range(cfg.steps):
-        cost, g = grad_fn(adv, labels, generator)
-        if smooth_fn is not None:
-            g = smooth_fn(g)
-        g = _apply_grad_norm(g, cfg.grad_norm)
-        if cfg.use_momentum:
-            g = g + mom * cfg.decay
-            mom = g
-        adv = kernels.sign_step_project(adv, g, clean01, cfg.alpha, cfg.epsilon)
-        costs.append(cost.detach())
+        state = generator.get_state() if generator is not None and k > 1 else None
+        step_costs, gs = [], []
+        for fn, a, lab in zip(fns, adv, label_pieces):
+            if state is not None:
+                generator.set_state(state)
+            cost, g = fn(a, lab, generator)
+            if k > 1 and not cost_sum:
+                g = g / k
+            if smooth_fn is not None:
+                g = smooth_fn(g)
+            step_costs.append(cost.detach())
+            gs.append(g)
+        gs = _normalize_pieces(gs, cfg.grad_norm, home)
+        for i, g in enumerate(gs):
+            if cfg.use_momentum:
+                g = g + mom[i] * cfg.decay
+                mom[i] = g
+            adv[i] = kernels.sign_step_project(adv[i], g, clean_pieces[i], cfg.alpha,
+                                               cfg.epsilon)
+        costs.append(_reduce_costs(step_costs, home, cost_sum))
     return adv, torch.stack(costs)
+
+
+def _normalize_pieces(gs: list, kind: Optional[str], home: torch.device) -> list:
+    """The gradient normalization of each piece. The per-frame and per-clip
+    ones need only the piece; the whole-tensor L1 divides every piece by the
+    Σ|g| of the whole batch, summed in piece order on ``home``."""
+    if kind != "l1" or len(gs) == 1:
+        return [_apply_grad_norm(g, kind) for g in gs]
+    from ..parallel.mesh import move
+
+    total = torch.stack([move(torch.sum(torch.abs(g)), home) for g in gs]).sum()
+    return [grad_ops.l1_normalize(g, move(total, g.device)) for g in gs]
+
+
+def _reduce_costs(costs: list, home: torch.device, cost_sum: bool) -> torch.Tensor:
+    if len(costs) == 1:
+        return costs[0]
+    from ..parallel.mesh import move
+
+    stacked = torch.stack([move(c, home) for c in costs])
+    return stacked.sum(0) if cost_sum else stacked.mean(0)
 
 
 def ce_value_and_grad(apply_norm: Callable[[torch.Tensor], torch.Tensor], targeted: int = 1):
@@ -166,6 +238,8 @@ class Attack:
         self._return_type = "float"
         self._target_map_function = None
         self._calls = 0
+        self._mesh = None
+        self._replicas = None
         self.loss_info: dict = {}
 
     # -- attack modes (reference: base_attacks.py:49-80) --------------------
@@ -182,7 +256,24 @@ class Attack:
         else:
             raise ValueError(f"invalid attack mode {mode!r}")
 
-    def _transform_labels(self, clean01, labels):
+    def set_mesh(self, mesh) -> None:
+        """Run over ``mesh``'s ``data`` axis: a batch handed to the attack
+        whole is laid out as ``parallel.mesh.shard_clips`` lays it, or, where
+        it does not divide over the axis, runs whole on the mesh's first
+        device, with a warning. ``None`` turns it off. A batch that comes
+        laid out already (a ``Sharded``) runs over its own mesh either way."""
+        self._mesh = mesh
+
+    def _replica(self, device: torch.device):
+        """The attack's model on ``device``: the model itself on its own
+        device, elsewhere a copy built at first use and kept."""
+        if self._replicas is None:
+            from ..parallel.replicas import Replicas
+
+            self._replicas = Replicas(self.model)
+        return self._replicas.on(device)
+
+    def _transform_labels(self, clean01, labels, device: Optional[torch.device] = None):
         # As in the JAX package (a conscious fix of the reference, whose
         # forwards never call their label transforms): targeted attacks the
         # mapped labels, least_likely the argmin class of the clean clip.
@@ -190,7 +281,8 @@ class Attack:
             return self._target_map_function(clean01, labels)
         if self._attack_mode == "least_likely":
             with torch.no_grad():
-                return torch.argmin(self.model.apply01(clean01), dim=-1)
+                model = self.model if device is None else self._replica(device)
+                return torch.argmin(model.apply01(clean01), dim=-1)
         return labels
 
     def _next_generator(self) -> torch.Generator:
@@ -237,24 +329,73 @@ class Attack:
                       f"Accuracy: {100.0 * correct / max(total, 1):.2f} %")
 
     def _attack01(self, clean01, labels):
-        raise NotImplementedError
+        (adv01,), costs = self._attack_pieces([clean01], [labels], [self.device])
+        return adv01, costs
 
-    def _clean01(self, videos) -> torch.Tensor:
+    def _attack_pieces(self, clean_pieces, label_pieces, devices):
+        """Attack a clip batch held as pieces, each on its device →
+        (adversarial pieces, per-step costs on the first device)."""
+        raise NotImplementedError(f"{self.attack} does not run over a device mesh")
+
+    def _clean01(self, videos, device: Optional[torch.device] = None) -> torch.Tensor:
         """A normalized-domain clip batch (array or tensor), or a raw uint8
         (B,T,H,W,3) one (``--u8_ingress``, normalized on the device and
-        bit-identical to the float32 path), → [0,1] float32 on
-        ``self.device``."""
+        bit-identical to the float32 path), → [0,1] float32 on ``device``
+        (default ``self.device``)."""
+        device = self.device if device is None else device
         if pixel.is_u8_clips(videos):
-            return pixel.ingest_u8_clips(videos, self.device)
+            return pixel.ingest_u8_clips(videos, device)
         if not isinstance(videos, torch.Tensor):
             videos = torch.from_numpy(np.array(videos, dtype=np.float32))
-        return pixel.unnormalize(videos.to(self.device, torch.float32), channel_axis=1)
+        return pixel.unnormalize(videos.to(device, torch.float32), channel_axis=1)
+
+    def _laid_out(self, videos):
+        """``(clip pieces, the device of each)`` where the batch runs over a
+        mesh (a ``Sharded`` over the ``data`` axis, or a whole batch under
+        :meth:`set_mesh`), else None."""
+        from ..parallel.mesh import Sharded, clip_sharding
+
+        if isinstance(videos, Sharded):
+            sharding = videos.sharding
+            if sharding.axes != ("data",):
+                raise ValueError(f"a white-box attack takes clips laid out over the mesh's "
+                                 f"'data' axis (shard_clips), not over {sharding.axes}")
+            pieces = videos.distinct_pieces()
+        elif self._mesh is None:
+            return None
+        else:
+            sharding = clip_sharding(self._mesh)
+            if len(videos) % sharding.n_pieces:
+                warnings.warn(
+                    f"{self.attack}: batch of {len(videos)} does not divide the mesh's "
+                    f"{sharding.n_pieces}-way data axis; running this batch on a single "
+                    "device (pick a batch size divisible by the data axis to keep the "
+                    "attack data-parallel)")
+                return [videos], [self._mesh.positions[0]]
+            pieces = sharding.split(torch.as_tensor(videos)).distinct_pieces()
+        piece_of, positions = sharding.piece_of(), sharding.mesh.positions
+        return pieces, [positions[piece_of.index(i)] for i in range(sharding.n_pieces)]
 
     def __call__(self, videos, labels, video_names=None) -> torch.Tensor:
-        clean01 = self._clean01(videos)
-        labels = torch.as_tensor(labels, device=self.device).long()
-        labels = self._transform_labels(clean01, labels)
-        adv01, costs = self._attack01(clean01, labels)
+        laid = self._laid_out(videos)
+        if laid is None:
+            clean01 = self._clean01(videos)
+            labels = torch.as_tensor(labels, device=self.device).long()
+            labels = self._transform_labels(clean01, labels)
+            adv01, costs = self._attack01(clean01, labels)
+        else:
+            from ..parallel.mesh import move
+
+            pieces, devices = laid
+            labels = torch.as_tensor(labels).long()
+            per = labels.shape[0] // len(pieces)
+            clean, piece_labels = [], []
+            for i, (piece, dev) in enumerate(zip(pieces, devices)):
+                clean.append(self._clean01(piece, dev))
+                piece_labels.append(self._transform_labels(
+                    clean[-1], move(labels[i * per:(i + 1) * per], dev), dev))
+            adv_pieces, costs = self._attack_pieces(clean, piece_labels, devices)
+            adv01 = torch.cat([move(a, devices[0]) for a in adv_pieces])
         self._record_costs(costs, video_names)
         if self._return_type == "int":
             return (adv01 * 255).to(torch.uint8)

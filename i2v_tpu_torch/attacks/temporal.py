@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from ..models.api import VideoModel
 from ..ops import pixel, smoothing
-from .core import Attack, SignAttackConfig, run_sign_attack
+from .core import Attack, SignAttackConfig, run_sign_attack_pieces
 
 
 class TemporalTranslation(Attack):
@@ -73,8 +73,8 @@ class TemporalTranslation(Attack):
         rand = (torch.randint(0, 101, (len(self.moves),), generator=generator) % frames).tolist()
         return [0 if m == 0 else int(np.sign(m)) * r for m, r in zip(self.moves, rand)]
 
-    def _build_grad_fn(self):
-        model, targeted = self.model, self._targeted
+    def _build_grad_fn(self, model: VideoModel | None = None):
+        model, targeted = model or self.model, self._targeted
         weight, moves, chunk = self.weight, self.moves, self._chunk_size()
         kernel = [float(k) for k in self._kernel]
 
@@ -109,9 +109,10 @@ class TemporalTranslation(Attack):
 
         return grad_fn
 
-    def _attack01(self, clean01, labels):
+    def _attack_pieces(self, clean_pieces, label_pieces, devices):
         cfg = SignAttackConfig(epsilon=self.epsilon, steps=self.steps, step_size=self.step_size,
                                use_momentum=self.momentum, decay=self.delay,
                                grad_norm="frame" if self.momentum else None)
-        return run_sign_attack(self._build_grad_fn(), clean01, labels, cfg,
-                               generator=self._next_generator())
+        return run_sign_attack_pieces([self._build_grad_fn(self._replica(d)) for d in devices],
+                                      clean_pieces, label_pieces, cfg,
+                                      generator=self._next_generator())

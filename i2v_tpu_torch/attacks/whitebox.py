@@ -10,7 +10,7 @@ the reference's spelling, so that the CLI dispatches by name):
   SIM                           base_attacks.py:553-610
   TAP                           base_attacks.py:685-814
 
-Each is the engine :func:`.core.run_sign_attack` with its own gradient
+Each is the engine :func:`.core.run_sign_attack_pieces` with its own gradient
 function, smoothing, normalization and momentum. TemporalTranslation is in
 :mod:`.temporal`.
 """
@@ -24,7 +24,8 @@ import torch
 
 from ..models.api import VideoModel
 from ..ops import diversity, grads as grad_ops, losses, pixel, smoothing
-from .core import Attack, SignAttackConfig, ce_value_and_grad, make_ce_grad_fn, run_sign_attack
+from .core import (Attack, SignAttackConfig, ce_value_and_grad, make_ce_grad_fn,
+                   run_sign_attack_pieces)
 
 EPS_DEFAULT = 16 / 255
 
@@ -46,10 +47,11 @@ class _SignEngineAttack(Attack):
     def _build_smooth_fn(self):
         return None
 
-    def _attack01(self, clean01, labels):
-        return run_sign_attack(self._build_grad_fn(self.model), clean01, labels, self.cfg,
-                               smooth_fn=self._build_smooth_fn(),
-                               generator=self._next_generator())
+    def _attack_pieces(self, clean_pieces, label_pieces, devices):
+        return run_sign_attack_pieces([self._build_grad_fn(self._replica(d)) for d in devices],
+                                      clean_pieces, label_pieces, self.cfg,
+                                      smooth_fn=self._build_smooth_fn(),
+                                      generator=self._next_generator())
 
 
 class FGSM(_SignEngineAttack):
@@ -221,10 +223,15 @@ class TAP(Attack):
         else:
             self._kernel = smoothing.uniform_kernel_2d(self.kernlen)
 
-    def _build_grad_fn(self, clean01):
+    def _build_grad_fn(self, clean01, model: Optional[VideoModel] = None,
+                       ce_weight: float = 1.0):
         """The TAP cost and its gradient w.r.t. the normalized input, around
-        the clean clip's taps."""
-        model, targeted = self.model, self._targeted
+        the clean clip's taps, through ``model`` (default: the attack's).
+        The smoothness and the distance are sums over clips and the CE a
+        mean: a piece of a batch cut in k weighs its CE by ``ce_weight`` =
+        1/k, so that the pieces' costs and gradients sum to the whole
+        batch's."""
+        model, targeted = model or self.model, self._targeted
         smooth = smoothing.depthwise_conv3d if self.conv3d else smoothing.depthwise_conv2d_frames
         kernel, eta, feat_coef = self._kernel, self.eta, self.feat_coef
         x_clean = pixel.normalize(clean01, channel_axis=1)
@@ -237,6 +244,8 @@ class TAP(Attack):
             with torch.enable_grad():
                 logits, taps = model.apply_norm_taps(x_norm)
                 ce = targeted * losses.cross_entropy(logits, labels)
+                if ce_weight != 1.0:
+                    ce = ce * ce_weight
                 dist = torch.sum(losses.tap_feature_distance(taps, clean_taps, batch))
                 # the perturbation at the reference's _transform_perts scale:
                 # (adv_norm − clean_norm)/std (base_attacks.py:795)
@@ -248,10 +257,13 @@ class TAP(Attack):
 
         return grad_fn
 
-    def _attack01(self, clean01, labels):
+    def _attack_pieces(self, clean_pieces, label_pieces, devices):
         cfg = SignAttackConfig(epsilon=self.epsilon, steps=self.steps, step_size=self.step_size)
-        return run_sign_attack(self._build_grad_fn(clean01), clean01, labels, cfg,
-                               generator=self._next_generator())
+        ce_weight = 1.0 / len(clean_pieces)
+        fns = [self._build_grad_fn(c, self._replica(d), ce_weight)
+               for c, d in zip(clean_pieces, devices)]
+        return run_sign_attack_pieces(fns, clean_pieces, label_pieces, cfg,
+                                      generator=self._next_generator(), cost_sum=True)
 
     def _record_costs(self, costs, video_names) -> None:
         if video_names is None or costs is None:

@@ -33,7 +33,6 @@ with one warning (``i2v_tpu/eval/transfer.py:70-96``).
 
 from __future__ import annotations
 
-import copy
 import csv
 import json
 import os
@@ -47,6 +46,7 @@ import torch
 from ..data.pipeline import threaded_prefetch
 from ..models.video_zoo import VIDEO_BUILDERS, get_video_model
 from ..parallel.mesh import Mesh, Sharding, attack_mesh, move
+from ..parallel.replicas import Replicas
 from ..utils import AverageMeter, artifacts
 
 
@@ -132,30 +132,6 @@ def _prefetched_uploads(files_batches: Sequence[Sequence[str]], run_dir: str,
     return threaded_prefetch(uploaded)
 
 
-class _Replicas:
-    """A video model on each distinct device of a mesh: the bundle itself on
-    its own device, a deep copy moved to each other one."""
-
-    def __init__(self, bundle, mesh: Optional[Mesh]):
-        self.by_device = {bundle.device: bundle}
-        for dev in ([] if mesh is None else mesh.distinct_devices):
-            if dev not in self.by_device:
-                replica = copy.deepcopy(bundle)
-                replica.module.to(dev)
-                self.by_device[dev] = replica
-
-    def logits(self, clips, positions: Optional[list]) -> torch.Tensor:
-        """The bundle's logits of whole clips, or of a batch's mesh pieces
-        gathered in clip order on the first device (a piece held by several
-        positions of one device, never here: the eval sharding cuts over
-        every axis)."""
-        if isinstance(clips, torch.Tensor):
-            return self.by_device[clips.device].apply_norm(clips)
-        home = positions[0]
-        return torch.cat([move(self.by_device[d].apply_norm(c), home)
-                          for d, c in zip(positions, clips)])
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -179,7 +155,7 @@ def reference_eval(bundle, files_batches: Sequence[Sequence[str]], run_dir: str,
     data_time, batch_time, top1 = AverageMeter(), AverageMeter(), AverageMeter()
     predictions: list[int] = []
     labels_all: list[int] = []
-    replicas = _Replicas(bundle, mesh)
+    replicas = Replicas(bundle, mesh)
     positions = None if mesh is None else mesh.positions
     end = time.time()
     with torch.inference_mode():
@@ -209,7 +185,7 @@ def single_pass_eval(bundles: dict, files_batches: Sequence[Sequence[str]], run_
     card runs them back to back. The reports are the serial mode's. With a
     ``mesh``, each batch is cut over its positions."""
     device = next(iter(bundles.values())).device
-    replicas = {name: _Replicas(b, mesh) for name, b in bundles.items()}
+    replicas = {name: Replicas(b, mesh) for name, b in bundles.items()}
     positions = None if mesh is None else mesh.positions
     data_time, batch_time = AverageMeter(), AverageMeter()
     top1 = {name: AverageMeter() for name in bundles}

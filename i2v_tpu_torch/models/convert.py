@@ -13,7 +13,7 @@ through (DenseNet's ``scale``, ViT's top-level ``cls_token`` and
   dense kernel (I, O)         → (O, I)
   dense kernel fed by a flatten: the input index runs over H·W·C in the JAX
   package and over C·H·W here (the inverse of
-  ``i2v_tpu.models.convert.dense_kernel_from_flatten``).
+  :func:`dense_kernel_from_flatten`).
   1-D and 3-D leaves (biases, scales, ViT's token and position embeddings)
   pass through untransposed.
 
@@ -27,8 +27,18 @@ and read the JAX package's ``{I2V_TPU_CKPTS}/{name}.msgpack`` files
 (``{"params": tree}`` in Flax's msgpack format, :mod:`.checkpoint`) with
 neither flax nor msgpack installed.
 
-``fold_bn`` folds a BatchNorm into the preceding conv, as the JAX package's
-converter does, so that a torchvision state_dict can feed the port later.
+The checkpoint converters are here too, the counterparts of
+``i2v_tpu.models.convert`` without flax: ``convert_resnet``,
+``convert_vgg16``, ``convert_alexnet``, ``convert_squeezenet11``,
+``convert_densenet161`` and ``convert_vit_b16`` turn a torchvision (timm
+for ViT) state_dict into the JAX package's Flax tree, BatchNorm folded into
+the preceding conv (``fold_bn``: W' = W·γ/√(σ²+ε) per out-channel,
+b' = β − μ·γ/√(σ²+ε) + b·γ/√(σ²+ε)), DenseNet's pre-activation BNs as
+FrozenBN affines. The tree is the JAX converter's, key for key, dtype for
+dtype and bit for bit (the same arithmetic in the same order), so that
+``convert_torchvision`` writes the file ``tools/convert_torchvision.py``
+writes, byte for byte. ``tools/torch_convert_torchvision.py`` and
+``tools/torch_convert_gluoncv.py`` are the command lines.
 
 Runner state crosses too, both ways, exactly: the frame-batch modifier
 (``modifier_from_jax``/``modifier_to_jax``: the JAX runner's (B·T, H, W, 3)
@@ -56,18 +66,21 @@ BN_EPS = 1e-5
 FROM_JAX_MODES = ("strict", "subset", "overlay")
 
 
+def _np(t) -> np.ndarray:
+    if hasattr(t, "detach"):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
 def fold_bn(conv_w: np.ndarray, conv_b: Optional[np.ndarray], bn: Mapping,
             prefix: str) -> tuple[np.ndarray, np.ndarray]:
     """Fold a BN layer (torch names ``{prefix}.weight/bias/running_mean/
     running_var``) into the preceding conv's (O, ...) weight + bias:
     W' = W·γ/√(σ²+ε) per out-channel, b' = β − μ·γ/√(σ²+ε) + b·γ/√(σ²+ε)."""
-    def arr(t):
-        return t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
-
-    gamma = arr(bn[f"{prefix}.weight"])
-    beta = arr(bn[f"{prefix}.bias"])
-    mean = arr(bn[f"{prefix}.running_mean"])
-    var = arr(bn[f"{prefix}.running_var"])
+    gamma = _np(bn[f"{prefix}.weight"])
+    beta = _np(bn[f"{prefix}.bias"])
+    mean = _np(bn[f"{prefix}.running_mean"])
+    var = _np(bn[f"{prefix}.running_var"])
     scale = gamma / np.sqrt(var + BN_EPS)
     shape = (-1,) + (1,) * (conv_w.ndim - 1)
     w = conv_w * scale.reshape(shape)
@@ -76,6 +89,204 @@ def fold_bn(conv_w: np.ndarray, conv_b: Optional[np.ndarray], bn: Mapping,
         b = b + conv_b * scale
     return w, b
 
+
+# ---------------------------------------------------------------------------
+# torch layouts → the JAX package's Flax layouts
+# ---------------------------------------------------------------------------
+
+def conv2d_kernel(w: np.ndarray) -> np.ndarray:
+    """(O, I, kH, kW) → (kH, kW, I, O)."""
+    return np.transpose(w, (2, 3, 1, 0))
+
+
+def conv3d_kernel(w: np.ndarray) -> np.ndarray:
+    """(O, I, kT, kH, kW) → (kT, kH, kW, I, O)."""
+    return np.transpose(w, (2, 3, 4, 1, 0))
+
+
+def dense_kernel(w: np.ndarray) -> np.ndarray:
+    """(O, I) → (I, O)."""
+    return np.transpose(w, (1, 0))
+
+
+def dense_kernel_from_flatten(w: np.ndarray, chw: tuple[int, int, int]) -> np.ndarray:
+    """Dense fed by a flatten: torch's C·H·W input order → the JAX package's
+    H·W·C. w: (O, C·H·W) → (H·W·C, O)."""
+    o = w.shape[0]
+    c, h, ww = chw
+    w = w.reshape(o, c, h, ww).transpose(0, 2, 3, 1).reshape(o, h * ww * c)
+    return np.transpose(w, (1, 0))
+
+
+def _conv_entry(sd, name: str, bn_name: Optional[str] = None,
+                three_d: bool = False) -> dict:
+    w = _np(sd[f"{name}.weight"])
+    b = _np(sd[f"{name}.bias"]) if f"{name}.bias" in sd else None
+    if bn_name is not None:
+        w, b = fold_bn(w, b, sd, bn_name)
+    kernel = conv3d_kernel(w) if three_d else conv2d_kernel(w)
+    if b is None:
+        b = np.zeros(kernel.shape[-1], np.float32)
+    return {"kernel": kernel.astype(np.float32), "bias": b.astype(np.float32)}
+
+
+def _dense_entry(sd, name: str, flatten_chw=None) -> dict:
+    w = _np(sd[f"{name}.weight"])
+    kernel = (dense_kernel_from_flatten(w, flatten_chw) if flatten_chw
+              else dense_kernel(w))
+    return {"kernel": kernel.astype(np.float32),
+            "bias": _np(sd[f"{name}.bias"]).astype(np.float32)}
+
+
+def _frozen_bn_entry(sd, prefix: str) -> dict:
+    """A pre-activation BN → a FrozenBN affine (scale, bias)."""
+    gamma = _np(sd[f"{prefix}.weight"])
+    beta = _np(sd[f"{prefix}.bias"])
+    mean = _np(sd[f"{prefix}.running_mean"])
+    var = _np(sd[f"{prefix}.running_var"])
+    scale = gamma / np.sqrt(var + BN_EPS)
+    return {"scale": scale.astype(np.float32),
+            "bias": (beta - mean * scale).astype(np.float32)}
+
+
+# ---------------------------------------------------------------------------
+# torchvision (and timm) image models
+# ---------------------------------------------------------------------------
+
+def convert_resnet(sd, stage_sizes=(3, 4, 23, 3)) -> dict:
+    """torchvision resnet50/101 → the ResNet tree."""
+    p = {"stem": _conv_entry(sd, "conv1", "bn1")}
+    for stage in range(4):
+        for block in range(stage_sizes[stage]):
+            t = f"layer{stage + 1}.{block}"
+            entry = {
+                "conv1": _conv_entry(sd, f"{t}.conv1", f"{t}.bn1"),
+                "conv2": _conv_entry(sd, f"{t}.conv2", f"{t}.bn2"),
+                "conv3": _conv_entry(sd, f"{t}.conv3", f"{t}.bn3"),
+            }
+            if f"{t}.downsample.0.weight" in sd:
+                entry["downsample"] = _conv_entry(
+                    sd, f"{t}.downsample.0", f"{t}.downsample.1")
+            p[f"layer{stage + 1}_{block}"] = entry
+    p["fc"] = _dense_entry(sd, "fc")
+    return p
+
+
+_VGG_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def convert_vgg16(sd) -> dict:
+    p = {f"conv{i}": _conv_entry(sd, f"features.{i}") for i in _VGG_CONV_IDX}
+    p["fc1"] = _dense_entry(sd, "classifier.0", flatten_chw=(512, 7, 7))
+    p["fc2"] = _dense_entry(sd, "classifier.3")
+    p["fc3"] = _dense_entry(sd, "classifier.6")
+    return p
+
+
+_ALEXNET_CONV_IDX = (0, 3, 6, 8, 10)
+
+
+def convert_alexnet(sd) -> dict:
+    p = {f"conv{i}": _conv_entry(sd, f"features.{i}") for i in _ALEXNET_CONV_IDX}
+    p["fc1"] = _dense_entry(sd, "classifier.1", flatten_chw=(256, 6, 6))
+    p["fc2"] = _dense_entry(sd, "classifier.4")
+    p["fc3"] = _dense_entry(sd, "classifier.6")
+    return p
+
+
+_SQUEEZENET_FIRE_IDX = (3, 4, 6, 7, 9, 10, 11, 12)
+
+
+def convert_squeezenet11(sd) -> dict:
+    p = {"conv0": _conv_entry(sd, "features.0")}
+    for i in _SQUEEZENET_FIRE_IDX:
+        p[f"fire{i}"] = {
+            "squeeze": _conv_entry(sd, f"features.{i}.squeeze"),
+            "expand1x1": _conv_entry(sd, f"features.{i}.expand1x1"),
+            "expand3x3": _conv_entry(sd, f"features.{i}.expand3x3"),
+        }
+    p["classifier"] = _conv_entry(sd, "classifier.1")
+    return p
+
+
+def convert_densenet161(sd, block_config=(6, 12, 36, 24)) -> dict:
+    """torchvision densenet161 → the DenseNet tree. Pre-activation BNs
+    become FrozenBN affines (no fold through the ReLU between)."""
+    f = "features"
+    p = {
+        "conv0": _conv_entry(sd, f"{f}.conv0"),
+        "norm0": _frozen_bn_entry(sd, f"{f}.norm0"),
+        "norm5": _frozen_bn_entry(sd, f"{f}.norm5"),
+        "classifier": _dense_entry(sd, "classifier"),
+    }
+    for i, layers in enumerate(block_config):
+        for j in range(1, layers + 1):
+            base = f"{f}.denseblock{i + 1}.denselayer{j}"
+            p[f"denseblock{i + 1}_layer{j}"] = {
+                "norm1": _frozen_bn_entry(sd, f"{base}.norm1"),
+                "conv1": _conv_entry(sd, f"{base}.conv1"),
+                "norm2": _frozen_bn_entry(sd, f"{base}.norm2"),
+                "conv2": _conv_entry(sd, f"{base}.conv2"),
+            }
+        if i + 1 < len(block_config):
+            p[f"transition{i + 1}"] = {
+                "norm": _frozen_bn_entry(sd, f"{f}.transition{i + 1}.norm"),
+                "conv": _conv_entry(sd, f"{f}.transition{i + 1}.conv"),
+            }
+    return p
+
+
+def convert_vit_b16(sd) -> dict:
+    """timm vit_base_patch16_224 → the ViT tree. The patch embedding, the
+    tokens and the LayerNorms keep the source's dtype, as the JAX
+    converter keeps it."""
+    p = {
+        "patch_embed": {
+            "kernel": conv2d_kernel(_np(sd["patch_embed.proj.weight"])),
+            "bias": _np(sd["patch_embed.proj.bias"]),
+        },
+        "cls_token": _np(sd["cls_token"]),
+        "pos_embed": _np(sd["pos_embed"]),
+        "norm": {"scale": _np(sd["norm.weight"]), "bias": _np(sd["norm.bias"])},
+        "head": _dense_entry(sd, "head"),
+    }
+    i = 0
+    while f"blocks.{i}.norm1.weight" in sd:
+        b = f"blocks.{i}"
+        p[f"block{i}"] = {
+            "norm1": {"scale": _np(sd[f"{b}.norm1.weight"]),
+                      "bias": _np(sd[f"{b}.norm1.bias"])},
+            "attn": {"qkv": _dense_entry(sd, f"{b}.attn.qkv"),
+                     "proj": _dense_entry(sd, f"{b}.attn.proj")},
+            "norm2": {"scale": _np(sd[f"{b}.norm2.weight"]),
+                      "bias": _np(sd[f"{b}.norm2.bias"])},
+            "fc1": _dense_entry(sd, f"{b}.mlp.fc1"),
+            "fc2": _dense_entry(sd, f"{b}.mlp.fc2"),
+        }
+        i += 1
+    return p
+
+
+IMAGE_CONVERTERS = {
+    "resnet": lambda sd: convert_resnet(sd, (3, 4, 23, 3)),
+    "resnet50": lambda sd: convert_resnet(sd, (3, 4, 6, 3)),
+    "vgg": convert_vgg16,
+    "alexnet": convert_alexnet,
+    "squeezenet": convert_squeezenet11,
+    "densenet": convert_densenet161,
+    "vit": convert_vit_b16,
+}
+
+
+def convert_torchvision(name: str, state_dict, ckpt_dir: Optional[str] = None) -> str:
+    """Convert a torchvision image-model state_dict and write it to
+    ``{ckpt_dir or $I2V_TPU_CKPTS or ./checkpoints}/{name}.msgpack``."""
+    return save_params(IMAGE_CONVERTERS[name](state_dict), name, ckpt_dir)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's tree → a port module, and back
+# ---------------------------------------------------------------------------
 
 def _flatten_leaves(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     out = {}

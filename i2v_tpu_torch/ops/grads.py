@@ -27,6 +27,9 @@ def norm_grads(grads: torch.Tensor, frame_level: bool = True) -> torch.Tensor:
     return _divide_unless_zero(grads, torch.mean(torch.abs(grads), dim=dims, keepdim=True))
 
 
-def l1_normalize(grads: torch.Tensor) -> torch.Tensor:
-    """Whole-tensor L1 normalization (reference: base_attacks.py:398-399)."""
-    return _divide_unless_zero(grads, torch.sum(torch.abs(grads)))
+def l1_normalize(grads: torch.Tensor, total: torch.Tensor | None = None) -> torch.Tensor:
+    """Whole-tensor L1 normalization (reference: base_attacks.py:398-399).
+    ``total`` is the whole tensor's Σ|g| where ``grads`` is one piece of it."""
+    if total is None:
+        total = torch.sum(torch.abs(grads))
+    return _divide_unless_zero(grads, total)

@@ -1,9 +1,11 @@
 """The port stands alone: every module of ``i2v_tpu_torch`` (the multi-device
 ``parallel.mesh``, ``parallel.ensemble`` and ``parallel.dist`` among them),
-and the port's tools ``tools/torch_asr_proxy.py`` and
-``tools/torch_mesh_profile.py``, import with JAX, Flax, Optax and the JAX
-package made unimportable, and with pandas, msgpack and Pillow too (a
-machine with a card need not have them)."""
+and the port's tools ``tools/torch_asr_proxy.py``,
+``tools/torch_mesh_profile.py``, ``tools/torch_convert_torchvision.py``,
+``tools/torch_convert_gluoncv.py`` and ``tools/torch_gluoncv_fakes.py``,
+import with JAX, Flax, Optax and the JAX package made unimportable, and with
+pandas, msgpack and Pillow too (a machine with a card need not have them);
+the converters convert and write their files there."""
 
 import os
 import subprocess
@@ -27,6 +29,19 @@ for name in names:
     importlib.import_module(name)
 import tools.torch_asr_proxy
 import tools.torch_mesh_profile
+import tools.torch_convert_torchvision
+import tools.torch_convert_gluoncv as gluoncv
+import tools.torch_gluoncv_fakes as fakes
+import os, tempfile
+from i2v_tpu_torch.models import convert
+fake = fakes.I3DResNet((1, 1, 1, 1), ((1,), (1,), (1,), (0,)), ((), (0,), (), ()), width=8,
+                       num_classes=10)
+with tempfile.TemporaryDirectory() as d:
+    convert.save_params(gluoncv.convert_i3d(fake.state_dict(), (1, 1, 1, 1)), "i3d", d)
+    import tools.torch_surrogates
+    sd = tools.torch_surrogates.squeezenet1_1().state_dict()
+    convert.convert_torchvision("squeezenet", sd, d)
+    assert sorted(os.listdir(d)) == ["i3d.msgpack", "squeezenet.msgpack"]
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in BLOCKED and sys.modules[k] is not None)
 assert not leaked, leaked

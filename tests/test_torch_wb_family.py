@@ -381,8 +381,8 @@ def test_tap_attack_matches_jax(bundles, videos):
     patk = attacks.TAP(pb, TAP_PARAMS, steps=steps)
     seen, build = [], patk._build_grad_fn
 
-    def recording(clean01):
-        grad_fn = build(clean01)
+    def recording(clean01, *model_and_weight):
+        grad_fn = build(clean01, *model_and_weight)
 
         def wrapped(adv01, labels, generator):
             seen.append(adv01.numpy().copy())
