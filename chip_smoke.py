@@ -144,6 +144,18 @@ raises and the script exits non-zero:
                  piece's step-0 gradient within MD_WB_GRAD_ATOL of max|g| of the
                  one-device attack on that piece alone, later steps printed,
                  steps/s beside the one-device attack's
+ 30. measurement tools — the port's measurement entry points, each in its
+                 own process: tools/torch_e2e_400.py over 24 clips at B=8, 10
+                 steps, killed (exit 137) after 2 batches, its float16
+                 artifacts checked on disk, then --resume: the labels on disk
+                 re-scored (predictions = cli.evaluate --bf16's over the same
+                 files at B=8), the rest attacked, 24 report rows with no -1;
+                 tools/torch_perf_probe.py cost ens16_bf16 (the counted FLOPs
+                 of a B=16 step = the conv layers' analytic count; steps/s,
+                 mfu) and hbm mi16 for one step (K3 once, peak GiB);
+                 tools/torch_baseline_anchor.py at B=1 with TF32 off, 3 steps
+                 (the reference's and the port's step-0 costs within 1e-5
+                 relative; both steps/s)
 Phase 3 also holds K1/K2 to their plain versions at the chunked runner's
 shapes: a 512-frame call (B=16), a 128-frame chunk that starts 128 frames
 into a 512-frame modifier, and a 112² call (multigrid's coarse phase).
@@ -154,8 +166,9 @@ runs, Grad-CAM, evaluation and grid, bf16's ENS, evaluations and
 mu_dtype AENS, and multi-device's mesh runner, --model_parallel runs,
 model-axis AENS, evaluations and white-box mesh BIM; converters, which
 launches none) is driven with the launch counters set to
-0 just before it and read just after; the two launched processes count
-their own and print them, and their counts join the kernels line.
+0 just before it and read just after; the two launched processes of
+multi-device and the measurement tools' processes count their own and
+print them, and their counts join the kernels line.
 The line before the last is a JSON object with each kernel's launches over
 those paths, its error, times and bound; the last line is
 {"ok": true, "device": {...}}.
@@ -2890,6 +2903,180 @@ def phase_multi_device(kernels, image_main, evaluate_cli, synthetic, pixel_mean_
     return totals
 
 
+E2E_CLIPS, E2E_BATCH, E2E_STEPS, E2E_KILL = 24, 8, 10, 2   # the 400-clip tool, cut down
+ANCHOR_STEPS = 3
+ANCHOR_COST_RTOL = 1e-5   # the anchor's step-0 gate, reference vs port, TF32 off
+TOOL_TIMEOUT = 600
+
+
+def _run(argv: list, want_rc: int = 0) -> str:
+    """``python argv`` from the checkout's root; its stdout, or a raise with
+    both streams' ends when it exits with another code than ``want_rc``."""
+    proc = subprocess.run([sys.executable, *argv], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=TOOL_TIMEOUT)
+    if proc.returncode != want_rc:
+        raise RuntimeError(f"{' '.join(argv[:2])} exited {proc.returncode} (want {want_rc}):\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def _printed_launches(stdout: str) -> dict:
+    """The launch counts a tool's process printed as its last line."""
+    last = stdout.strip().splitlines()[-1]
+    return json.loads(last.split(" launches ", 1)[1])
+
+
+def _check_launches(label: str, got: dict, fwd: int, bwd: int, sign: int) -> None:
+    want = {"rebuild_fwd": fwd, "rebuild_bwd": bwd, "sign_step": sign}
+    if got != want:
+        raise RuntimeError(f"{label}: launches {got}, want {want}")
+
+
+def _csv_predictions(path: str) -> tuple[list, dict]:
+    import csv
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], {int(r[0]): [int(c) for c in r[1:]] for r in rows[1:]}
+
+
+def phase_measurement_tools(card: str, tmp: str) -> dict:
+    """The port's measurement tools, each in its own process, which counts
+    its own launches and prints them: tools/torch_e2e_400.py killed after
+    E2E_KILL batches and resumed (the artifacts on disk after the kill,
+    re-scored predictions against cli.evaluate --bf16 over the same files,
+    complete reports); tools/torch_perf_probe.py cost ens16_bf16 (its FLOPs
+    against the conv layers' count) and hbm mi16 for one step (K3 once);
+    tools/torch_baseline_anchor.py at B=1, TF32 off (the step-0 gate)."""
+    import math
+    import shutil
+
+    from i2v_tpu_torch.utils import artifacts
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    probe = _tool("torch_perf_probe")
+    counts = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
+    facts = []
+
+    def add(got):
+        for k in counts:
+            counts[k] += got[k]
+
+    # (1) the 400-clip fused generate→evaluate, cut to E2E_CLIPS, killed and resumed
+    run_dir, out_dir = os.path.join(tmp, "e2e400"), os.path.join(tmp, "e2e400_out")
+    e2e = [os.path.join("tools", "torch_e2e_400.py"), "--run_dir", run_dir, "--out_dir",
+           out_dir, "--clips", str(E2E_CLIPS), "--batch", str(E2E_BATCH), "--steps",
+           str(E2E_STEPS)]
+    ts = time.time()
+    out_a = _run(e2e + ["--kill_after_batches", str(E2E_KILL)], want_rc=137)
+    wall_a = time.time() - ts
+    got = _printed_launches(out_a)
+    # one 256-frame chunk at B=8: K1 steps + 1 and K2 steps a batch
+    _check_launches("e2e phase A", got, E2E_KILL * (E2E_STEPS + 1), E2E_KILL * E2E_STEPS, 0)
+    add(got)
+    if os.path.exists(os.path.join(run_dir, REPORT_CSV)):
+        raise RuntimeError("the killed phase A wrote reports")
+    on_disk = artifacts.list_adv_files(run_dir)
+    if len(on_disk) < E2E_BATCH:
+        raise RuntimeError(f"{len(on_disk)} artifacts on disk after the kill, want at least "
+                           f"{E2E_BATCH} (the first batch's, drained during the second's attack)")
+    rescored = os.path.join(tmp, "e2e400_rescored")
+    os.makedirs(rescored)
+    for f in on_disk:
+        clip = np.load(os.path.join(run_dir, f))
+        if clip.dtype != np.float16 or clip.shape != (3, 32, 224, 224):
+            raise RuntimeError(f"{f} after the kill: {clip.dtype} {clip.shape}")
+        shutil.copy(os.path.join(run_dir, f), rescored)
+    ts = time.time()
+    out_b = _run(e2e + ["--resume"])
+    wall_b = time.time() - ts
+    n_batches = math.ceil((E2E_CLIPS - len(on_disk)) / E2E_BATCH)
+    got = _printed_launches(out_b)
+    _check_launches("e2e phase B", got, n_batches * (E2E_STEPS + 1), n_batches * E2E_STEPS, 0)
+    add(got)
+    if f"[e2e400:B] re-scored {len(on_disk)} artifacts" not in out_b:
+        raise RuntimeError(f"phase B did not re-score the {len(on_disk)} artifacts on disk:\n"
+                           f"{out_b[-2000:]}")
+    header, final = _csv_predictions(os.path.join(run_dir, REPORT_CSV))
+    if sorted(final) != list(range(E2E_CLIPS)) or any(-1 in p for p in final.values()):
+        raise RuntimeError(f"the resumed reports do not cover the {E2E_CLIPS} labels once: "
+                           f"{final}")
+    ts = time.time()
+    _run(["-m", "i2v_tpu_torch.cli.evaluate", "--adv_path", rescored, "--bf16", "--batch_size",
+          str(E2E_BATCH), "--n_classes", str(E2E_CLIPS)])
+    eval_s = time.time() - ts
+    off_header, offline = _csv_predictions(os.path.join(rescored, REPORT_CSV))
+    differ = [artifacts.label_of(f) for f in on_disk
+              if offline[artifacts.label_of(f)] != final[artifacts.label_of(f)]]
+    if off_header != header or differ:
+        raise RuntimeError(f"re-scored predictions differ from cli.evaluate --bf16's for labels "
+                           f"{differ}")
+    with open(os.path.join(out_dir, "E2E_400_TORCH.json")) as f:
+        summary = json.load(f)
+    facts.append(f"e2e {E2E_CLIPS} clips, B={E2E_BATCH}, {E2E_STEPS} steps: phase A killed "
+                 f"(137) after {E2E_KILL} batches in {wall_a:.2f} s, {len(on_disk)} float16 "
+                 f"artifacts on disk; phase B re-scored them (predictions = cli.evaluate "
+                 f"--bf16's, {eval_s:.2f} s) and attacked {n_batches} batches in "
+                 f"{wall_b:.2f} s; {E2E_CLIPS} rows, no -1; "
+                 f"{summary['clips_per_s_end_to_end']} clips/s end to end")
+
+    # (2) the roofline of one bf16 ENS step at B=16
+    probe_out = os.path.join(tmp, "perf_probe.json")
+    out = _run([os.path.join("tools", "torch_perf_probe.py"), "cost", "ens16_bf16", "--out",
+                probe_out])
+    got = _printed_launches(out)
+    _check_launches("cost ens16_bf16", got, 2 * (probe.TIMED_STEPS + 1), 2 * probe.TIMED_STEPS,
+                    0)
+    add(got)
+    with open(probe_out) as f:
+        row = json.load(f)["cost_ens16_bf16"]
+    want = probe.analytic_conv_flops(
+        probe.meta_models(probe.ENS_NAMES, probe.ENS_DEPTHS, torch.bfloat16), 16 * 32)
+    if row["flops_per_step"] != want:
+        raise RuntimeError(f"cost ens16_bf16 counted {row['flops_per_step']} FLOPs a step, the "
+                           f"conv layers give {want}")
+    facts.append(f"cost ens16_bf16: {row['flops_per_step'] / 1e12:.3f} TFLOP a step (= the conv "
+                 f"layers'), {row['bytes_per_step'] / 1e9:.1f} GB; {row['steps_per_s']:.4f} "
+                 f"steps/s, mfu {row['mfu']:.4f}, hbm_share {row['hbm_share']:.4f}")
+
+    # (3) the memory audit's MIFGSM on I3D-R101 at B=16, one step
+    out = _run([os.path.join("tools", "torch_perf_probe.py"), "hbm", "mi16", "--calls", "1",
+                "--out", probe_out])
+    got = _printed_launches(out)
+    _check_launches("hbm mi16", got, 0, 0, 1)
+    add(got)
+    with open(probe_out) as f:
+        row = json.load(f)["hbm_mi16"]
+    if not row["fits"]:
+        raise RuntimeError(f"hbm mi16 did not fit: {row['error']}")
+    facts.append(f"hbm mi16 (MIFGSM, I3D-R101, B=16, one step): peak {row['peak_gib']:.2f} of "
+                 f"{row['total_gib']:.2f} GiB")
+
+    # (4) the reference's own ENS step beside the port's, same weights
+    anchor_out = os.path.join(tmp, "anchor.json")
+    out = _run([os.path.join("tools", "torch_baseline_anchor.py"), "--batches", "1", "--modes",
+                "float32", "--methods", "ens", "--steps", str(ANCHOR_STEPS), "--out",
+                anchor_out])
+    got = _printed_launches(out)
+    # value_and_grad, then a 1-step and a (steps+1)-step call, each twice
+    _check_launches("anchor", got, 1 + 2 * 2 + 2 * (ANCHOR_STEPS + 2),
+                    1 + 2 * 1 + 2 * (ANCHOR_STEPS + 1), 0)
+    add(got)
+    with open(anchor_out) as f:
+        case = json.load(f)["cases"]["ens_b1_float32"]
+    if not case["cost0_rel_diff"] <= ANCHOR_COST_RTOL:
+        raise RuntimeError(f"anchor: step-0 costs part by {case['cost0_rel_diff']} relative "
+                           f"(limit {ANCHOR_COST_RTOL})")
+    facts.append(f"anchor ENS B=1 TF32 off: step-0 costs {case['cost0_rel_diff']:.3g} relative "
+                 f"apart (limit {ANCHOR_COST_RTOL}); reference "
+                 f"{case['reference']['steps_per_s']:.4f} steps/s, port "
+                 f"{case['port']['steps_per_s']:.4f}")
+    print(f"[measurement tools] on {card}: " + "; ".join(facts)
+          + f"; launches {counts}; phase wall {time.time() - t0:.2f} s")
+    return counts
+
+
 def main() -> None:
     name, card = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2955,8 +3142,9 @@ def main() -> None:
         bf16 = phase_bf16(kernels, evaluate_cli, synthetic, pixel, card, tmp)
         multi = phase_multi_device(kernels, image_main, evaluate_cli, synthetic, (mean, std),
                                    card, tmp)
+        measured_tools = phase_measurement_tools(card, tmp)
         for k in counts:
-            counts[k] += real[k] + zoo[k] + bf16[k] + multi[k]
+            counts[k] += real[k] + zoo[k] + bf16[k] + multi[k] + measured_tools[k]
     print(f"[done] every phase passed in {time.time() - t0:.2f} s after the device check")
 
     where = {"rebuild_fwd": ("i2v_tpu_torch/csrc/rebuild_adv.cu",

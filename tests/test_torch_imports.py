@@ -3,9 +3,13 @@
 and the port's tools ``tools/torch_asr_proxy.py``,
 ``tools/torch_mesh_profile.py``, ``tools/torch_convert_torchvision.py``,
 ``tools/torch_convert_gluoncv.py`` and ``tools/torch_gluoncv_fakes.py``,
+and the measurement tools ``tools/torch_e2e_400.py``,
+``tools/torch_perf_probe.py`` and ``tools/torch_baseline_anchor.py``,
 import with JAX, Flax, Optax and the JAX package made unimportable, and with
 pandas, msgpack and Pillow too (a machine with a card need not have them);
-the converters convert and write their files there."""
+the converters convert and write their files there. Imported where nothing
+is blocked, the measurement tools load none of JAX, Flax or the JAX
+package."""
 
 import os
 import subprocess
@@ -32,6 +36,9 @@ import tools.torch_mesh_profile
 import tools.torch_convert_torchvision
 import tools.torch_convert_gluoncv as gluoncv
 import tools.torch_gluoncv_fakes as fakes
+import tools.torch_e2e_400
+import tools.torch_perf_probe
+import tools.torch_baseline_anchor
 import os, tempfile
 from i2v_tpu_torch.models import convert
 fake = fakes.I3DResNet((1, 1, 1, 1), ((1,), (1,), (1,), (0,)), ((), (0,), (), ()), width=8,
@@ -66,3 +73,20 @@ def test_every_port_module_imports_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+
+
+_TOOLS = """
+import sys
+import tools.torch_e2e_400, tools.torch_perf_probe, tools.torch_baseline_anchor
+loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "i2v_tpu"))
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_the_measurement_tools_load_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _TOOLS], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
