@@ -156,6 +156,22 @@ raises and the script exits non-zero:
                  tools/torch_baseline_anchor.py at B=1 with TF32 off, 3 steps
                  (the reference's and the port's step-0 costs within 1e-5
                  relative; both steps/s)
+ 31. compiled loops — each case with graphs=False and then graphs=True
+                 (i2v_tpu_torch/utils/graphs.py: every step after the first a
+                 CUDA graph replayed), float32 paths with TF32 off: the
+                 device-table Adam against torch.optim.Adam and optax's form on
+                 one random state (bit for bit); ENS-I2V and AENS-I2V-MF at
+                 B=1 (5 steps); the runner at B=16 in bf16 whole and in float32
+                 at chunk 256 (3 steps) and multigrid in bf16; ILAF on the
+                 truncated I3D-R50 (its res_layer2 the full model's, bit for
+                 bit); BIM, MIFGSM and TAP on I3D-R50 at B=1, BIM at B=4 over
+                 [cuda:0] x 4; the six video models' logits replayed bit for bit,
+                 their single pass at B=16 in bf16 and float32 over two batches
+                 (predictions equal), a fused ENS + six-model run over two B=2
+                 batches. Gates: step-0 costs equal, later steps printed
+                 (UNSTEADY's rule), launches equal, each B=16 peak within
+                 LOOP_PEAK_SLACK_GIB of its eager twin's; printed: steps/s or
+                 clips/s, idle share, peak GiB and the capture's one-off seconds
 Phase 3 also holds K1/K2 to their plain versions at the chunked runner's
 shapes: a 512-frame call (B=16), a 128-frame chunk that starts 128 frames
 into a 512-frame modifier, and a 112² call (multigrid's coarse phase).
@@ -163,12 +179,13 @@ Each path (slice, eval, whitebox, sf whitebox, aens, dr, fused, ilaf, wb
 family, tt, remat, ucf101, chunked aens, chunk equality, multigrid, real
 data's ENS, twin, BIM and UCF-101 runs, zoo + gradcam's DenseNet and ViT
 runs, Grad-CAM, evaluation and grid, bf16's ENS, evaluations and
-mu_dtype AENS, and multi-device's mesh runner, --model_parallel runs,
-model-axis AENS, evaluations and white-box mesh BIM; converters, which
-launches none) is driven with the launch counters set to
-0 just before it and read just after; the two launched processes of
-multi-device and the measurement tools' processes count their own and
-print them, and their counts join the kernels line.
+mu_dtype AENS, multi-device's mesh runner, --model_parallel runs,
+model-axis AENS, evaluations and white-box mesh BIM, and every compiled
+loops case, eager and graphed; converters, which launches none) is driven
+with the launch counters set to 0 just before it and read just after; the
+two launched processes of multi-device and the measurement tools'
+processes count their own and print them, and their counts join the
+kernels line.
 The line before the last is a JSON object with each kernel's launches over
 those paths, its error, times and bound; the last line is
 {"ok": true, "device": {...}}.
@@ -1467,7 +1484,8 @@ def phase_chunk_equality(kernels, image_main, synthetic) -> dict:
 
 def phase_multigrid(kernels, image_main, synthetic, pixel_mean_std) -> dict:
     """6-step ENS-I2V at B=1 with --sharded --multigrid 3: K1/K2 at 112^2 in
-    the coarse phase, then at 224^2."""
+    the coarse phase, then at 224^2, as each phase's launches are issued
+    from Python (at step 0 and at the capture of its graph)."""
     argv = ["--attack_method", "ImageGuidedFML2_Adam_MultiModels", "--data", "synthetic",
             "--n_synthetic", "1", "--batch_size", "1", "--step", str(MG_STEPS), "--sharded",
             "--multigrid", str(MG_COARSE), "--device", "cuda", "--matmul_precision", "float32",
@@ -1483,14 +1501,18 @@ def phase_multigrid(kernels, image_main, synthetic, pixel_mean_std) -> dict:
         return wrapper
 
     coarse, fine = MG_COARSE, MG_STEPS - MG_COARSE
-    want_sides = {"rebuild_fwd": [112] * (coarse + 1) + [224] * (fine + 1),
-                  "rebuild_bwd": [112] * coarse + [224] * fine}
+    # the wrappers run in Python, which a replayed step does not: each phase's
+    # steps are seen at step 0 (eager) and at the capture of step 1, then
+    # replayed; the launch counters (below) count every replay
+    seen_c, seen_f = min(coarse, 2), min(fine, 2)
+    want_sides = {"rebuild_fwd": [112] * (seen_c + 1) + [224] * (seen_f + 1),
+                  "rebuild_bwd": [112] * seen_c + [224] * seen_f}
+    want_counts = {"rebuild_fwd": MG_STEPS + 2, "rebuild_bwd": MG_STEPS, "sign_step": 0}
     kernels.launch_rebuild_fwd = recording("rebuild_fwd")
     kernels.launch_rebuild_bwd = recording("rebuild_bwd")
     try:
-        _, counts, peak = _run_counted(
-            kernels, "multigrid", {k: len(v) for k, v in want_sides.items()} | {"sign_step": 0},
-            lambda: image_main.run(args))
+        _, counts, peak = _run_counted(kernels, "multigrid", want_counts,
+                                       lambda: image_main.run(args))
     finally:
         kernels.launch_rebuild_fwd = launch["rebuild_fwd"]
         kernels.launch_rebuild_bwd = launch["rebuild_bwd"]
@@ -2595,6 +2617,10 @@ def _whitebox_mesh(kernels, synthetic, pixel) -> tuple[list, dict]:
                 seen.clear()
                 kernels.reset_launches()
                 adv, wall = timed(atk, shard_clips(videos, mesh))
+                if call == 0:
+                    # the first call's step 0 is eager; the second replays its
+                    # graphs, which no Python wrapper sees
+                    first = list(seen)
                 counts = dict(kernels.launches)
                 if counts != want:
                     raise RuntimeError(f"BIM over the mesh ({where}), call {call}: launch "
@@ -2602,9 +2628,9 @@ def _whitebox_mesh(kernels, synthetic, pixel) -> tuple[list, dict]:
                 for k in totals:
                     totals[k] += counts[k]
                 walls.append(wall)
-            if [g.device for g in seen] != devs:
+            if [g.device for g in first] != devs:
                 raise RuntimeError(f"BIM over the mesh ({where}): the pieces stepped on "
-                                   f"{[g.device for g in seen]}, not {devs}")
+                                   f"{[g.device for g in first]}, not {devs}")
             adv01 = pixel.unnormalize(adv, channel_axis=1)
             clean01 = pixel.unnormalize(torch.from_numpy(videos).to(adv.device), channel_axis=1)
             if (adv.device != devs[0] or tuple(adv.shape) != videos.shape
@@ -2616,7 +2642,7 @@ def _whitebox_mesh(kernels, synthetic, pixel) -> tuple[list, dict]:
             cost_rel = abs(got_costs[0] / want_costs[0] - 1)
             # a piece's step: ∇ of the batch mean, 1/4 of the piece alone's mean
             grad_err = max(float((MD_WB_CLIPS * g.to(a.device) - a).abs().max())
-                           / float(a.abs().max()) for g, a in zip(seen, alone))
+                           / float(a.abs().max()) for g, a in zip(first, alone))
             if not (cost_rel <= MD_WB_COST_RTOL and grad_err <= MD_WB_GRAD_ATOL
                     and np.isfinite(got_costs).all()):
                 raise RuntimeError(f"BIM over the mesh ({where}): step-0 cost {got_costs[0]} "
@@ -3059,9 +3085,10 @@ def phase_measurement_tools(card: str, tmp: str) -> dict:
                 "float32", "--methods", "ens", "--steps", str(ANCHOR_STEPS), "--out",
                 anchor_out])
     got = _printed_launches(out)
-    # value_and_grad, then a 1-step and a (steps+1)-step call, each twice
-    _check_launches("anchor", got, 1 + 2 * 2 + 2 * (ANCHOR_STEPS + 2),
-                    1 + 2 * 1 + 2 * (ANCHOR_STEPS + 1), 0)
+    # value_and_grad, then a 1-step and a (steps+1)-step call, each three
+    # times (the tool warms each runner past its graph's capture)
+    _check_launches("anchor", got, 1 + 3 * 2 + 3 * (ANCHOR_STEPS + 2),
+                    1 + 3 * 1 + 3 * (ANCHOR_STEPS + 1), 0)
     add(got)
     with open(anchor_out) as f:
         case = json.load(f)["cases"]["ens_b1_float32"]
@@ -3075,6 +3102,331 @@ def phase_measurement_tools(card: str, tmp: str) -> dict:
     print(f"[measurement tools] on {card}: " + "; ".join(facts)
           + f"; launches {counts}; phase wall {time.time() - t0:.2f} s")
     return counts
+
+
+LOOP_STEPS = 5            # the B=1 cases' steps a call
+LOOP_B16_STEPS = 3        # the B=16 runner cases' steps a call
+LOOP_MG_STEPS, LOOP_MG_COARSE = 4, 2
+LOOP_PEAK_SLACK_GIB = 1.0  # a graphed B=16 case's peak over its eager twin's, at most
+LOOP_EVAL_BATCHES = 2     # batch 1 eager (warm-up), batch 2 captured and replayed
+LOOP_FUSED_BATCHES = 2
+ADAM_STEPS = 10           # the device-table Adam against torch's, on one random state
+
+
+def _adam_table_check() -> str:
+    """The device-table Adam (utils.graphs.TableAdam) against the eager
+    optimizers it stands for, on the card: ADAM_STEPS steps of the same
+    random gradients over one random (32,3,224,224) modifier, bit for bit
+    after every step, against torch.optim.Adam (foreach=False) and against
+    optax's form with a bf16 first moment (parallel.sharded._AdamMu)."""
+    from i2v_tpu_torch.parallel.sharded import _AdamMu
+    from i2v_tpu_torch.utils.graphs import TableAdam
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    p0 = (torch.rand(MAIN_SHAPE, generator=gen, device="cuda") * 2 - 1) * EPS
+    grads = [torch.randn(MAIN_SHAPE, generator=gen, device="cuda")
+             * 10.0 ** float(-4 * torch.rand((), generator=gen, device="cuda"))
+             for _ in range(ADAM_STEPS)]
+    ref = p0.clone().requires_grad_(True)
+    opt = torch.optim.Adam([ref], lr=0.005, betas=(0.9, 0.999), eps=1e-8, foreach=False,
+                           fused=False)
+    mref = p0.clone().requires_grad_(True)
+    mu = _AdamMu(mref, 0.005, torch.bfloat16, None)
+    table, mtable = p0.clone(), p0.clone()
+    adam = TableAdam(table, 0.005, ADAM_STEPS)
+    madam = TableAdam(mtable, 0.005, ADAM_STEPS, mu_dtype=torch.bfloat16)
+    adam.reset()
+    madam.reset()
+    for t, g in enumerate(grads):
+        ref.grad, mref.grad = g.clone(), g.clone()
+        opt.step()
+        mu.step()
+        adam.step(g)
+        madam.step(g)
+        for label, want, got in (("torch.optim.Adam", ref, table), ("optax form", mref, mtable)):
+            if not torch.equal(want.detach(), got):
+                raise RuntimeError(f"device-table Adam vs {label} at step {t}: "
+                                   f"{int((want.detach() != got).sum())} elements differ")
+    return (f"device-table Adam, {ADAM_STEPS} steps over {tuple(MAIN_SHAPE)}: bit for bit "
+            "torch.optim.Adam's and the optax form's (bf16 first moment)")
+
+
+def _idle_share(call, tmp: str) -> float:
+    """The idle share of the span from the first kernel to the last over one
+    traced call (tools/torch_eval_profile.py's kernel_summary)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    path = os.path.join(tmp, "loops_trace.json")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    k = _tool("torch_eval_profile").kernel_summary(path)
+    os.remove(path)
+    return 1 - k["busy_us"] / k["span_us"] if k["span_us"] else float("nan")
+
+
+def _loop_twins(kernels, label: str, make, tmp: str, *, work: int, unit: str = "steps",
+                peak_gate: bool = False) -> dict:
+    """One compiled-loops case: ``make(graphs)`` builds the path and returns a
+    call that runs it once and returns its per-step costs (a 1-D float
+    array) or predictions. The eager twin runs first, then the graphed one,
+    each alone on the card: a first call (the graphed one's step 0 eager, then
+    the capture), a timed call and a traced call. Gates: the first calls'
+    launch counts equal, the step-0 costs equal, and with ``peak_gate`` the
+    graphed peak within LOOP_PEAK_SLACK_GIB of the eager one's. Returns the
+    twins' facts and their launches."""
+    import gc
+
+    from i2v_tpu_torch.utils import graphs as graphs_mod
+
+    runs = {}
+    for graphs in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        call = make(graphs)
+        before = dict(graphs_mod.captures)
+        kernels.reset_launches()
+        first = call()
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        second = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        idle = _idle_share(call, tmp)
+        runs[graphs] = {"first": first, "second": second, "counts": counts, "peak": peak,
+                        "rate": work / wall,
+                        "idle": idle, "captures": graphs_mod.captures["graphs"] - before["graphs"],
+                        "capture_s": graphs_mod.captures["seconds"] - before["seconds"]}
+        del call
+    eager, graphed = runs[False], runs[True]
+    if eager["counts"] != graphed["counts"]:
+        raise RuntimeError(f"{label}: launches eager {eager['counts']} vs graphed "
+                           f"{graphed['counts']}")
+    if graphed["captures"] == 0:
+        raise RuntimeError(f"{label}: the graphed run captured nothing")
+    a, b = np.asarray(eager["first"]), np.asarray(graphed["first"])
+    if unit == "steps":
+        if a[0] != b[0]:
+            raise RuntimeError(f"{label}: step-0 cost eager {a[0]!r} vs graphed {b[0]!r}")
+
+        def parts(x, y):
+            return float(np.max(np.abs(x[1:] - y[1:]) / np.abs(x[1:]))) if len(x) > 1 else 0.0
+
+        # the eager path's own second call: cuDNN's gradient sums vary from
+        # run to run (UNSTEADY), and AENS's coefficients carry over
+        tail = (f"step-0 cost {a[0]:.6g} equal; later steps part by {parts(a, b):.3g} "
+                f"relative (eager against its own second call: "
+                f"{parts(a, np.asarray(eager['second'])):.3g}; printed)")
+    else:
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"{label}: predictions eager vs graphed differ")
+        tail = "predictions equal"
+    if peak_gate and graphed["peak"] > eager["peak"] + LOOP_PEAK_SLACK_GIB:
+        raise RuntimeError(f"{label}: graphed peak {graphed['peak']:.2f} GiB over the eager "
+                           f"{eager['peak']:.2f} + {LOOP_PEAK_SLACK_GIB}")
+    print(f"[compiled loops] {label}: {unit}/s eager {eager['rate']:.4f}, graphed "
+          f"{graphed['rate']:.4f} ({graphed['rate'] / eager['rate']:.3f}x); idle "
+          f"{eager['idle']:.4f} -> {graphed['idle']:.4f}; peak {eager['peak']:.2f} -> "
+          f"{graphed['peak']:.2f} GiB; {graphed['captures']} capture(s) "
+          f"{graphed['capture_s']:.3f} s; launches {graphed['counts']} each; {tail}",
+          flush=True)
+    return {k: eager["counts"][k] + graphed["counts"][k] for k in eager["counts"]}
+
+
+def phase_compiled_loops(kernels, synthetic, pixel, card: str, tmp: str) -> dict:
+    """Each attack step and evaluation forward as a CUDA graph, against the
+    same path with ``graphs=False``, float32 paths with TF32 off: ENS-I2V at
+    B=1 (the Adam engine); the runner at B=16 in bf16 whole and in float32 at
+    chunk 256; multigrid in bf16 at B=16; AENS-I2V-MF at B=1; ILAF on the
+    truncated I3D-R50 (its tap held to the full model's bit for bit); BIM,
+    MIFGSM and TAP on I3D-R50 at B=1, BIM at B=4 over [cuda:0] x 4; the six
+    video models' single pass at B=16 in bf16 and float32 (logits bit for
+    bit) and a fused ENS + six-model run at B=2. Returns the launch counts."""
+    import argparse
+    import gc
+
+    from i2v_tpu_torch import attacks
+    from i2v_tpu_torch.cli import common as cli_common
+    from i2v_tpu_torch.eval.fused import FusedGenerateEvaluate
+    from i2v_tpu_torch.eval.transfer import single_pass_eval
+    from i2v_tpu_torch.models import get_image_models, get_video_model, tap_keys_for, video_zoo
+    from i2v_tpu_torch.parallel import attack_mesh, multigrid, sharded
+    from i2v_tpu_torch.parallel.replicas import Replicas
+    from i2v_tpu_torch.utils import artifacts
+
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_common.apply_matmul_precision(argparse.Namespace(matmul_precision="float32"))
+    totals = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
+
+    def add(counts):
+        for k in totals:
+            totals[k] += counts[k]
+
+    print(f"[compiled loops] {_adam_table_check()}", flush=True)
+    ds = synthetic.SyntheticAttackDataset(n_samples=16)
+    norm = np.stack([ds[i][0] for i in range(16)])
+    clean01 = torch.from_numpy(np.stack([ds.clip01(i) for i in range(16)])).cuda()
+    ens = {"resnet": 2, "vgg": 3, "squeezenet": 2, "alexnet": 3}
+    surr = get_image_models(list(ens), ens, device="cuda")
+
+    def loss_costs(atk):
+        """Every recorded clip's per-step costs, in the order recorded."""
+        return np.concatenate([[np.float32(per[i]["cost"]) for i in range(len(per))]
+                               for per in atk.loss_info.values()])
+
+    def attack_call(build, clips, labels=None):
+        def make(graphs):
+            atk = build(graphs)
+
+            def call():
+                atk.loss_info = {}
+                atk(clips, np.zeros(len(clips), np.int64) if labels is None else labels, ["v"])
+                return loss_costs(atk)
+            return call
+        return make
+
+    # -- the Adam engine and AENS at B=1
+    add(_loop_twins(kernels, "ENS-I2V B=1 (Adam engine)", attack_call(
+        lambda g: attacks.ImageGuidedFML2_Adam_MultiModels(surr, steps=LOOP_STEPS, graphs=g),
+        norm[:1]), tmp, work=LOOP_STEPS))
+    aens = get_image_models(list(ens), {n: [2, 3] for n in ens}, device="cuda")
+    add(_loop_twins(kernels, "AENS-I2V-MF B=1 (Adam engine)", attack_call(
+        lambda g: attacks.AENS_I2V_MF(aens, step_size=0.005, momentum=AENS_MOMENTUM,
+                                      steps=LOOP_STEPS, graphs=g), norm[:1]),
+        tmp, work=LOOP_STEPS))
+    del aens
+
+    # -- the runner at B=16
+    def runner_call(models, steps, **kw):
+        def make(graphs):
+            run = sharded.make_sharded_i2v_runner(models, steps=steps, step_size=0.005,
+                                                  graphs=graphs, **kw)
+            return lambda: run(clean01)[1].float().cpu().numpy()
+        return make
+
+    add(_loop_twins(kernels, "runner B=16 float32 chunk 256", runner_call(
+        surr, LOOP_B16_STEPS, frame_chunk=256), tmp, work=LOOP_B16_STEPS, peak_gate=True))
+    surr16 = get_image_models(list(ens), ens, device="cuda", dtype=torch.bfloat16)
+    add(_loop_twins(kernels, "runner B=16 bf16 whole", runner_call(
+        surr16, LOOP_B16_STEPS, frame_chunk="auto", param_dtype=torch.bfloat16),
+        tmp, work=LOOP_B16_STEPS, peak_gate=True))
+
+    def mg_make(graphs):
+        run = multigrid.make_multigrid_i2v_runner(
+            surr16, steps=LOOP_MG_STEPS, coarse_steps=LOOP_MG_COARSE, frame_chunk="auto",
+            param_dtype=torch.bfloat16, graphs=graphs)
+        return lambda: run(clean01)[1].float().cpu().numpy()
+
+    add(_loop_twins(kernels, f"multigrid bf16 B=16 ({LOOP_MG_COARSE} at 112^2)", mg_make, tmp,
+                    work=LOOP_MG_STEPS, peak_gate=True))
+    del surr16
+
+    # -- ILAF on the truncated I3D-R50, its tap against the full model's
+    taps = tap_keys_for("i3d_resnet50", "ilaf")
+    full = get_video_model("i3d_resnet50", device="cuda", taps=taps)
+    cut = get_video_model("i3d_resnet50", device="cuda", taps=taps, truncate=True)
+    with torch.no_grad():
+        if not torch.equal(full.apply01_taps(clean01[:1])[1][0],
+                           cut.apply01_taps(clean01[:1])[1][0]):
+            raise RuntimeError("the truncated I3D-R50's res_layer2 is not the full model's")
+    n_full = sum(p.numel() for p in full.module.parameters())
+    n_cut = sum(p.numel() for p in cut.module.parameters())
+    del full
+    adv_norm = pixel.normalize(torch.clamp(clean01[:1] + 0.8 * EPS * torch.sign(
+        torch.randn(clean01[:1].shape, generator=torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")), 0, 1), channel_axis=1).cpu().numpy()
+
+    def ilaf_make(graphs):
+        atk = attacks.ILAF(cut, "i3d", steps=LOOP_STEPS, graphs=graphs)
+
+        def call():
+            atk.loss_info = {}
+            atk(adv_norm, norm[:1], [0], ["v"])
+            return loss_costs(atk)
+        return call
+
+    print(f"[compiled loops] ILAF's I3D-R50 truncated at {taps}: {n_cut} of {n_full} "
+          "parameters, res_layer2 bit for bit the full model's", flush=True)
+    add(_loop_twins(kernels, "ILAF I3D-R50 B=1 (truncated)", ilaf_make, tmp, work=LOOP_STEPS))
+    del cut
+
+    # -- the sign engine on I3D-R50
+    i3d = get_video_model("i3d_resnet50", device="cuda")
+    for name, build in (("BIM", lambda g: attacks.BIM(i3d, steps=LOOP_STEPS, graphs=g)),
+                        ("MIFGSM", lambda g: attacks.MIFGSM(i3d, steps=LOOP_STEPS, graphs=g)),
+                        ("TAP", lambda g: attacks.TAP(i3d, steps=LOOP_STEPS, graphs=g))):
+        add(_loop_twins(kernels, f"{name} I3D-R50 B=1", attack_call(build, norm[:1]), tmp,
+                        work=LOOP_STEPS))
+    mesh = attack_mesh([torch.device("cuda", 0)] * 4, data=4)
+
+    def bim_mesh(graphs):
+        atk = attacks.BIM(i3d, steps=LOOP_STEPS, graphs=graphs)
+        atk.set_mesh(mesh)
+        return atk
+
+    add(_loop_twins(kernels, "BIM I3D-R50 B=4 over [cuda:0] x 4", attack_call(
+        bim_mesh, norm[:4]), tmp, work=LOOP_STEPS))
+    del i3d
+
+    # -- evaluation: logits bit for bit, then the single pass and a fused run
+    tmp_eval = os.path.join(tmp, "loops_eval")
+    os.makedirs(tmp_eval, exist_ok=True)
+    for label in range(16 * LOOP_EVAL_BATCHES):
+        artifacts.save_adv_clip(tmp_eval, label, norm[label % 16])
+    batches = artifacts.batch_files(artifacts.list_adv_files(tmp_eval), 16)
+    x = torch.from_numpy(norm).cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        bundles = {n: get_video_model(n, device="cuda", dtype=dtype)
+                   for n in video_zoo.VIDEO_BUILDERS}
+        for n, b in bundles.items():
+            eager = Replicas(b, graphs=False).logits(x, None).clone()
+            graphed = Replicas(b)
+            graphed.logits(x, None)              # eager warm-up
+            replayed = graphed.logits(x, None)   # captured and replayed
+            if not torch.equal(eager, replayed):
+                raise RuntimeError(f"{n} {dtype}: replayed logits differ from eager ones")
+        print(f"[compiled loops] six models in {dtype}: replayed logits bit for bit the "
+              "eager ones", flush=True)
+
+        def sp_make(graphs, bundles=bundles):
+            def call():
+                preds, _, _ = single_pass_eval(bundles, batches, tmp_eval, log=lambda *_: None,
+                                               graphs=graphs)
+                return np.asarray([preds[n] for n in bundles])
+            return call
+
+        _loop_twins(kernels, f"single pass B=16 {str(dtype).split('.')[-1]}, six models",
+                    sp_make, tmp, work=16 * LOOP_EVAL_BATCHES, unit="clips")
+        del bundles
+    bundles = {n: get_video_model(n, device="cuda") for n in video_zoo.VIDEO_BUILDERS}
+
+    def fused_make(graphs):
+        atk = attacks.ImageGuidedFML2_Adam_MultiModels(surr, steps=LOOP_STEPS, graphs=graphs)
+
+        def call():
+            f = FusedGenerateEvaluate(atk, bundles, run_dir=None, graphs=graphs)
+            atk.loss_info = {}
+            for i in range(LOOP_FUSED_BATCHES):
+                f.process_batch({"clips": norm[2 * i:2 * i + 2], "labels": np.arange(2) + 2 * i,
+                                 "names": [f"batch{i}"]})
+            f.finalize()
+            return loss_costs(atk)
+        return call
+
+    add(_loop_twins(kernels, "fused ENS-I2V B=2 + six models", fused_make, tmp,
+                    work=LOOP_STEPS * LOOP_FUSED_BATCHES))
+    del bundles, surr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[compiled loops] done in {time.time() - t0:.2f} s ({card})", flush=True)
+    return totals
 
 
 def main() -> None:
@@ -3143,8 +3495,9 @@ def main() -> None:
         multi = phase_multi_device(kernels, image_main, evaluate_cli, synthetic, (mean, std),
                                    card, tmp)
         measured_tools = phase_measurement_tools(card, tmp)
+        loops = phase_compiled_loops(kernels, synthetic, pixel, card, tmp)
         for k in counts:
-            counts[k] += real[k] + zoo[k] + bf16[k] + multi[k] + measured_tools[k]
+            counts[k] += real[k] + zoo[k] + bf16[k] + multi[k] + measured_tools[k] + loops[k]
     print(f"[done] every phase passed in {time.time() - t0:.2f} s after the device check")
 
     where = {"rebuild_fwd": ("i2v_tpu_torch/csrc/rebuild_adv.cu",

@@ -7,10 +7,13 @@ everything runs in the [0,1] pixel domain. Per-step costs land in
 ``self.loss_info``.
 
 :func:`run_sign_attack` is the iterative sign attack of the white-box
-family, a Python step loop where the JAX package has one ``lax.scan``:
-gradient → optional smoothing → gradient normalization → momentum → the
-pixel update, which on the card is the hand-written kernel
-(:func:`i2v_tpu_torch.ops.kernels.sign_step_project`). The gradient is
+family, a step loop where the JAX package has one ``lax.scan``: gradient →
+optional smoothing → gradient normalization → momentum → the pixel update,
+which on the card is the hand-written kernel
+(:func:`i2v_tpu_torch.ops.kernels.sign_step_project`). The attacks keep its
+buffers a batch layout (:class:`SignLoop`), and on a card each step after
+the first is a CUDA graph replayed (:mod:`i2v_tpu_torch.utils.graphs`), as
+the JAX engine is one ``jit`` a shape. The gradient is
 taken w.r.t. the normalized input, as the reference takes it; the
 pixel-domain sign step is sign-equivalent, since normalization is a
 positive per-channel affine map.
@@ -32,6 +35,7 @@ The result comes back as whole clips on the mesh's first device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import Any, Callable, Optional, Sequence
 
@@ -40,6 +44,7 @@ import torch
 
 from ..ops import grads as grad_ops
 from ..ops import kernels, losses, pixel
+from ..utils.graphs import StepGraph
 
 # grad_fn(adv01, labels, generator) -> (cost, grad w.r.t. adv01); the cost
 # already carries the targeted sign (it is ascended); the generator (a CPU
@@ -131,9 +136,9 @@ def run_sign_attack_pieces(grad_fns: Sequence[GradFn], clean_pieces: Sequence[to
                            generator: Optional[torch.Generator] = None,
                            cost_sum: bool = False):
     """The sign attack over a clip batch held as equal pieces, each on its
-    own device with its own ``grad_fn`` (one piece: the one-device attack).
-    Returns ``(adv01 pieces, per-step costs)``, the costs on the first
-    piece's device.
+    own device with its own ``grad_fn`` (one piece: the one-device attack),
+    every step eager. Returns ``(adv01 pieces, per-step costs)``, the costs
+    on the first piece's device.
 
     With ``cost_sum=False`` each ``grad_fn``'s cost is a mean over its clips:
     the step's cost is the mean of the piece costs and each piece's gradient
@@ -141,51 +146,140 @@ def run_sign_attack_pieces(grad_fns: Sequence[GradFn], clean_pieces: Sequence[to
     ``cost_sum=True`` each ``grad_fn`` already returns its share of the whole
     batch's cost and gradient (TAP's), and the costs are summed. Every piece
     starts from the step's generator state, so that all see the step's one
-    set of random draws."""
-    k = len(clean_pieces)
-    home = clean_pieces[0].device
-    fns = []
-    for fn, clean in zip(grad_fns, clean_pieces):
-        b = clean.shape[0]
-        fns.append(_chunked(fn, b, cfg.batch_chunk) if cfg.batch_chunk and cfg.batch_chunk < b
-                   else fn)
-    adv = list(clean_pieces)
-    mom = [torch.zeros_like(c) for c in clean_pieces] if cfg.use_momentum else None
-    costs = []
-    for _ in range(cfg.steps):
-        state = generator.get_state() if generator is not None and k > 1 else None
-        step_costs, gs = [], []
-        for fn, a, lab in zip(fns, adv, label_pieces):
+    set of random draws. :class:`SignLoop` is this engine; the attacks keep
+    one a batch layout, its steps CUDA graphs on a card."""
+    loop = SignLoop(lambda clean: list(grad_fns), clean_pieces, cfg, smooth_fn=smooth_fn,
+                    cost_sum=cost_sum, graphs=False)
+    return loop.run(clean_pieces, label_pieces, generator)
+
+
+class SignLoop:
+    """The sign attack's static buffers and steps for one batch layout: each
+    piece's clean clips, labels, adversarial clips and momentum, and the
+    ``(steps, …)`` costs on the first piece's device, written at a device
+    step counter.
+
+    On a card (``graphs``) each piece's step is a CUDA graph on its device:
+    the gradient, its scaling and smoothing, the per-piece normalization,
+    momentum and the sign step. What crosses pieces runs between the graphs,
+    in piece order: the cost reduction, and the whole batch's Σ|g| of the
+    ``l1`` normalization, after which each piece's update is a second
+    graph. A step that draws random numbers on the host (DIFGSM's and TT's
+    ``generator``) cannot be captured: it runs with ``graphs=False``.
+
+    ``make_grad_fns(clean pieces)`` builds one ``grad_fn`` a piece over the
+    static clean pieces; a ``grad_fn`` with a ``refresh()`` (TAP's, over
+    its clean taps) is refreshed when :meth:`run` copies a new batch in."""
+
+    def __init__(self, make_grad_fns: Callable, clean_pieces: Sequence[torch.Tensor],
+                 cfg: SignAttackConfig, *,
+                 smooth_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                 cost_sum: bool = False, graphs: bool = True):
+        self.cfg, self.smooth_fn, self.cost_sum = cfg, smooth_fn, cost_sum
+        self.clean = list(clean_pieces)
+        self.n = len(self.clean)
+        self.home = self.clean[0].device
+        fns = make_grad_fns(self.clean)
+        self.refreshers = [r for r in (getattr(fn, "refresh", None) for fn in fns) if r]
+        self.fns = [_chunked(fn, c.shape[0], cfg.batch_chunk)
+                    if cfg.batch_chunk and cfg.batch_chunk < c.shape[0] else fn
+                    for fn, c in zip(fns, self.clean)]
+        self.adv = [c.clone() for c in self.clean]
+        self.mom = [torch.zeros_like(c) for c in self.clean] if cfg.use_momentum else None
+        self.labels = self.generator = self.records = None
+        self.k = torch.zeros(1, dtype=torch.long, device=self.home)
+        self.cost_on: list = [None] * self.n  # each piece's cost of the step (n > 1)
+        # the whole-batch L1 needs every piece's Σ|g| before any update
+        self.split = cfg.grad_norm == "l1" and self.n > 1
+        if self.split:
+            self.g = [torch.empty_like(c) for c in self.clean]
+            self.l1 = [torch.zeros((), device=c.device) for c in self.clean]
+            self.total = [torch.zeros((), device=c.device) for c in self.clean]
+        self.grad_graphs = [StepGraph(functools.partial(self._grad_step, i), c.device,
+                                      enabled=graphs) for i, c in enumerate(self.clean)]
+        self.update_graphs = [StepGraph(functools.partial(self._update_step, i), c.device,
+                                        enabled=graphs)
+                              for i, c in enumerate(self.clean)] if self.split else []
+
+    def _record(self, cost: torch.Tensor) -> None:
+        if self.records is None:  # step 0 is eager: made outside any capture
+            self.records = torch.empty((self.cfg.steps,) + tuple(cost.shape), dtype=cost.dtype,
+                                       device=cost.device)
+        self.records.index_copy_(0, self.k, cost.detach().unsqueeze(0))
+        self.k.add_(1)
+
+    def _grad_step(self, i: int) -> None:
+        cost, g = self.fns[i](self.adv[i], self.labels[i], self.generator)
+        with torch.no_grad():
+            if self.n > 1 and not self.cost_sum:
+                g = g / self.n
+            if self.smooth_fn is not None:
+                g = self.smooth_fn(g)
+            if self.n == 1:
+                self._record(cost)
+            elif self.cost_on[i] is None:
+                self.cost_on[i] = cost.detach().clone()
+            else:
+                self.cost_on[i].copy_(cost)
+            if self.split:
+                self.g[i].copy_(g)
+                self.l1[i].copy_(torch.sum(torch.abs(g)))
+            else:
+                self._update(i, _apply_grad_norm(g, self.cfg.grad_norm))
+
+    def _update_step(self, i: int) -> None:
+        with torch.no_grad():
+            self._update(i, grad_ops.l1_normalize(self.g[i], self.total[i]))
+
+    def _update(self, i: int, g: torch.Tensor) -> None:
+        if self.cfg.use_momentum:
+            g = g + self.mom[i] * self.cfg.decay
+            self.mom[i].copy_(g)
+        self.adv[i].copy_(kernels.sign_step_project(self.adv[i], g, self.clean[i], self.cfg.alpha,
+                                                    self.cfg.epsilon))
+
+    def step(self) -> None:
+        from ..parallel.mesh import move
+
+        state = self.generator.get_state() if self.generator is not None and self.n > 1 else None
+        for graph in self.grad_graphs:
             if state is not None:
-                generator.set_state(state)
-            cost, g = fn(a, lab, generator)
-            if k > 1 and not cost_sum:
-                g = g / k
-            if smooth_fn is not None:
-                g = smooth_fn(g)
-            step_costs.append(cost.detach())
-            gs.append(g)
-        gs = _normalize_pieces(gs, cfg.grad_norm, home)
-        for i, g in enumerate(gs):
-            if cfg.use_momentum:
-                g = g + mom[i] * cfg.decay
-                mom[i] = g
-            adv[i] = kernels.sign_step_project(adv[i], g, clean_pieces[i], cfg.alpha,
-                                               cfg.epsilon)
-        costs.append(_reduce_costs(step_costs, home, cost_sum))
-    return adv, torch.stack(costs)
+                self.generator.set_state(state)
+            graph()
+        with torch.no_grad():
+            if self.split:
+                total = torch.stack([move(s, self.home) for s in self.l1]).sum()
+                for t in self.total:
+                    t.copy_(total)
+        for graph in self.update_graphs:
+            graph()
+        if self.n > 1:
+            with torch.no_grad():
+                self._record(_reduce_costs(self.cost_on, self.home, self.cost_sum))
 
-
-def _normalize_pieces(gs: list, kind: Optional[str], home: torch.device) -> list:
-    """The gradient normalization of each piece. The per-frame and per-clip
-    ones need only the piece; the whole-tensor L1 divides every piece by the
-    Σ|g| of the whole batch, summed in piece order on ``home``."""
-    if kind != "l1" or len(gs) == 1:
-        return [_apply_grad_norm(g, kind) for g in gs]
-    from ..parallel.mesh import move
-
-    total = torch.stack([move(torch.sum(torch.abs(g)), home) for g in gs]).sum()
-    return [grad_ops.l1_normalize(g, move(total, g.device)) for g in gs]
+    def run(self, clean_pieces: Sequence[torch.Tensor], label_pieces: Sequence[torch.Tensor],
+            generator: Optional[torch.Generator] = None):
+        """→ (adv01 pieces, per-step costs) of a batch of this layout."""
+        if any(held is not c for held, c in zip(self.clean, clean_pieces)):
+            for held, c in zip(self.clean, clean_pieces):
+                held.copy_(c)
+            for refresh in self.refreshers:
+                refresh()
+        if self.labels is None:
+            self.labels = [lab.clone() for lab in label_pieces]
+        else:
+            for held, lab in zip(self.labels, label_pieces):
+                held.copy_(lab)
+        for a, c in zip(self.adv, self.clean):
+            a.copy_(c)
+        for m in self.mom or ():
+            m.zero_()
+        self.k.zero_()
+        self.generator = generator
+        for _ in range(self.cfg.steps):
+            self.step()
+        self.generator = None
+        return [a.clone() for a in self.adv], self.records.clone()
 
 
 def _reduce_costs(costs: list, home: torch.device, cost_sum: bool) -> torch.Tensor:

@@ -10,9 +10,11 @@ the reference's spelling, so that the CLI dispatches by name):
   SIM                           base_attacks.py:553-610
   TAP                           base_attacks.py:685-814
 
-Each is the engine :func:`.core.run_sign_attack_pieces` with its own gradient
-function, smoothing, normalization and momentum. TemporalTranslation is in
-:mod:`.temporal`.
+Each is the engine :class:`.core.SignLoop` with its own gradient function,
+smoothing, normalization and momentum, kept a batch layout: on a card each
+step after the first replays a CUDA graph (``graphs=False`` runs them
+eagerly). DIFGSM draws its transform on the host each step and stays eager.
+TemporalTranslation is in :mod:`.temporal`.
 """
 
 from __future__ import annotations
@@ -24,22 +26,31 @@ import torch
 
 from ..models.api import VideoModel
 from ..ops import diversity, grads as grad_ops, losses, pixel, smoothing
-from .core import (Attack, SignAttackConfig, ce_value_and_grad, make_ce_grad_fn,
-                   run_sign_attack_pieces)
+from .core import Attack, SignAttackConfig, SignLoop, ce_value_and_grad, make_ce_grad_fn
 
 EPS_DEFAULT = 16 / 255
 
 
+def _loop_key(clean_pieces, devices, targeted: int) -> tuple:
+    return tuple(devices), tuple(tuple(c.shape) for c in clean_pieces), targeted
+
+
 class _SignEngineAttack(Attack):
     """Shared machinery: build the gradient function for the current attack
-    mode and run the engine."""
+    mode and run the engine, one :class:`SignLoop` a batch layout."""
 
-    def __init__(self, name: str, model: VideoModel, cfg: SignAttackConfig):
+    # the step draws nothing on the host, so that it can be captured
+    capture_ready = True
+
+    def __init__(self, name: str, model: VideoModel, cfg: SignAttackConfig,
+                 graphs: bool = True):
         super().__init__(name, model, device=model.device)
         self.cfg = cfg
         self.epsilon = cfg.epsilon
         self.steps = cfg.steps
         self.step_size = cfg.alpha
+        self.graphs = graphs and self.capture_ready
+        self._loops: dict = {}
 
     def _build_grad_fn(self, bundle):
         return make_ce_grad_fn(bundle.apply_norm, self._targeted)
@@ -48,44 +59,56 @@ class _SignEngineAttack(Attack):
         return None
 
     def _attack_pieces(self, clean_pieces, label_pieces, devices):
-        return run_sign_attack_pieces([self._build_grad_fn(self._replica(d)) for d in devices],
-                                      clean_pieces, label_pieces, self.cfg,
-                                      smooth_fn=self._build_smooth_fn(),
-                                      generator=self._next_generator())
+        generator = self._next_generator()
+        key = _loop_key(clean_pieces, devices, self._targeted)
+        loop = self._loops.get(key)
+        if loop is None:
+            loop = SignLoop(lambda clean: [self._build_grad_fn(self._replica(d)) for d in devices],
+                            clean_pieces, self.cfg, smooth_fn=self._build_smooth_fn(),
+                            graphs=self.graphs)
+            if self.capture_ready:
+                self._loops[key] = loop
+        return loop.run(clean_pieces, label_pieces,
+                        None if self.capture_ready else generator)
 
 
 class FGSM(_SignEngineAttack):
     """One-step sign attack: adv = clean + ε·sign(∇CE), clipped to [0,1]
     (reference: base_attacks.py:236-259)."""
 
-    def __init__(self, model: VideoModel, steps=None, epsilon=EPS_DEFAULT):
+    def __init__(self, model: VideoModel, steps=None, epsilon=EPS_DEFAULT, graphs: bool = True):
         del steps  # the reference accepts and ignores it too
         super().__init__("FGSM", model, SignAttackConfig(epsilon=epsilon, steps=1,
-                                                         step_size=epsilon))
+                                                         step_size=epsilon), graphs)
 
 
 class BIM(_SignEngineAttack):
     """Iterative FGSM with an ε-projection each step, step_size = ε/steps
     (reference: base_attacks.py:261-295)."""
 
-    def __init__(self, model: VideoModel, epsilon=EPS_DEFAULT, steps=10):
-        super().__init__("BIM", model, SignAttackConfig(epsilon=epsilon, steps=steps))
+    def __init__(self, model: VideoModel, epsilon=EPS_DEFAULT, steps=10, graphs: bool = True):
+        super().__init__("BIM", model, SignAttackConfig(epsilon=epsilon, steps=steps), graphs)
 
 
 class MIFGSM(_SignEngineAttack):
     """Momentum iterative FGSM with frame-level L1-mean gradient
     normalization (reference: base_attacks.py:297-340)."""
 
-    def __init__(self, model: VideoModel, epsilon=EPS_DEFAULT, steps=10, decay=1.0):
+    def __init__(self, model: VideoModel, epsilon=EPS_DEFAULT, steps=10, decay=1.0,
+                 graphs: bool = True):
         super().__init__("MIFGSM", model, SignAttackConfig(
-            epsilon=epsilon, steps=steps, use_momentum=True, decay=decay, grad_norm="frame"))
+            epsilon=epsilon, steps=steps, use_momentum=True, decay=decay, grad_norm="frame"),
+            graphs)
 
 
 class DIFGSM(_SignEngineAttack):
     """Diverse-inputs FGSM: a random resize and pad of the normalized input
     with probability 0.5 each step (reference: base_attacks.py:342-411);
     optional momentum with whole-tensor L1 normalization. The step's draws
-    come from the engine's generator, the same for every clip-batch chunk."""
+    come from the engine's generator, the same for every clip-batch chunk:
+    drawn on the host, they keep its steps eager."""
+
+    capture_ready = False
 
     def __init__(self, model: VideoModel, epsilon=EPS_DEFAULT, steps=10, decay=1.0,
                  momentum=False):
@@ -113,9 +136,9 @@ class TIFGSM(_SignEngineAttack):
     passes of the Gaussian factor."""
 
     def __init__(self, model: VideoModel, epsilon=EPS_DEFAULT, steps=10, decay=1.0,
-                 momentum=False, kernlen=15, nsig=3.0):
+                 momentum=False, kernlen=15, nsig=3.0, graphs: bool = True):
         super().__init__("TIFGSM", model, SignAttackConfig(
-            epsilon=epsilon, steps=steps, use_momentum=momentum, decay=decay))
+            epsilon=epsilon, steps=steps, use_momentum=momentum, decay=decay), graphs)
         self._k1d = smoothing.gaussian_1d(kernlen, nsig)
 
     def _build_smooth_fn(self):
@@ -129,9 +152,9 @@ class TIFGSM3D(_SignEngineAttack):
     base_attacks.py:612-683)."""
 
     def __init__(self, model: VideoModel, epsilon=EPS_DEFAULT, steps=10, decay=1.0,
-                 momentum=False, kernlen=15, nsig=3.0):
+                 momentum=False, kernlen=15, nsig=3.0, graphs: bool = True):
         super().__init__("TIFGSM3D", model, SignAttackConfig(
-            epsilon=epsilon, steps=steps, use_momentum=momentum, decay=decay))
+            epsilon=epsilon, steps=steps, use_momentum=momentum, decay=decay), graphs)
         self._k1d = smoothing.gaussian_1d(kernlen, nsig)
 
     def _build_smooth_fn(self):
@@ -145,10 +168,11 @@ class SGM(_SignEngineAttack):
     ``with_relu_grad_scale``."""
 
     def __init__(self, model: VideoModel, epsilon=EPS_DEFAULT, steps=10, decay=1.0,
-                 gamma=0.5, momentum=False):
+                 gamma=0.5, momentum=False, graphs: bool = True):
         super().__init__("SGM", model.with_relu_grad_scale(float(np.power(gamma, 0.5))),
                          SignAttackConfig(epsilon=epsilon, steps=steps, use_momentum=momentum,
-                                          decay=decay, grad_norm="l1" if momentum else None))
+                                          decay=decay, grad_norm="l1" if momentum else None),
+                         graphs)
         self.gamma = gamma
 
 
@@ -163,10 +187,10 @@ class SIM(_SignEngineAttack):
     n times the activation memory."""
 
     def __init__(self, model: VideoModel, epsilon=EPS_DEFAULT, steps=10, decay=1.0,
-                 scale_steps=5, momentum=False, batch_scales=False):
+                 scale_steps=5, momentum=False, batch_scales=False, graphs: bool = True):
         super().__init__("SIM", model, SignAttackConfig(
             epsilon=epsilon, steps=steps, use_momentum=momentum, decay=decay,
-            grad_norm="l1" if momentum else None))
+            grad_norm="l1" if momentum else None), graphs)
         self.scale_steps = scale_steps
         self.batch_scales = batch_scales
 
@@ -206,8 +230,10 @@ class TAP(Attack):
     numbers a step: total, CE, smoothness and distance."""
 
     def __init__(self, model: VideoModel, params: Optional[dict] = None,
-                 epsilon=EPS_DEFAULT, steps=10):
+                 epsilon=EPS_DEFAULT, steps=10, graphs: bool = True):
         super().__init__("TAP", model, device=model.device)
+        self.graphs = graphs
+        self._loops: dict = {}
         p = dict(kernlen=3, temporal_kernlen=3, eta=1e3, conv3d=True, feat_coef=0.05)
         p.update(params or {})
         self.epsilon = epsilon
@@ -230,7 +256,8 @@ class TAP(Attack):
         The smoothness and the distance are sums over clips and the CE a
         mean: a piece of a batch cut in k weighs its CE by ``ce_weight`` =
         1/k, so that the pieces' costs and gradients sum to the whole
-        batch's."""
+        batch's. ``grad_fn.refresh()`` recomputes the clean taps in place
+        after a new batch is copied into ``clean01``."""
         model, targeted = model or self.model, self._targeted
         smooth = smoothing.depthwise_conv3d if self.conv3d else smoothing.depthwise_conv2d_frames
         kernel, eta, feat_coef = self._kernel, self.eta, self.feat_coef
@@ -255,15 +282,27 @@ class TAP(Attack):
             (g,) = torch.autograd.grad(cost, x_norm)
             return torch.stack([cost, ce, reg, dist]).detach(), g
 
+        def refresh():
+            with torch.no_grad():
+                x_clean.copy_(pixel.normalize(clean01, channel_axis=1))
+                _, taps = model.apply_norm_taps(x_clean)
+                for held, t in zip(clean_taps, taps):
+                    held.copy_(t)
+
+        grad_fn.refresh = refresh
         return grad_fn
 
     def _attack_pieces(self, clean_pieces, label_pieces, devices):
         cfg = SignAttackConfig(epsilon=self.epsilon, steps=self.steps, step_size=self.step_size)
         ce_weight = 1.0 / len(clean_pieces)
-        fns = [self._build_grad_fn(c, self._replica(d), ce_weight)
-               for c, d in zip(clean_pieces, devices)]
-        return run_sign_attack_pieces(fns, clean_pieces, label_pieces, cfg,
-                                      generator=self._next_generator(), cost_sum=True)
+        self._next_generator()  # TAP draws nothing; the call count moves as elsewhere
+        key = _loop_key(clean_pieces, devices, self._targeted)
+        if key not in self._loops:
+            self._loops[key] = SignLoop(
+                lambda clean: [self._build_grad_fn(c, self._replica(d), ce_weight)
+                               for c, d in zip(clean, devices)],
+                clean_pieces, cfg, cost_sum=True, graphs=self.graphs)
+        return self._loops[key].run(clean_pieces, label_pieces)
 
     def _record_costs(self, costs, video_names) -> None:
         if video_names is None or costs is None:

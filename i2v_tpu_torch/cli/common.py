@@ -211,13 +211,15 @@ def check_runner_args(args) -> None:
                          "not DR")
 
 
-def build_image_guided_attack(args, device: torch.device):
+def build_image_guided_attack(args, device: torch.device, graphs: bool = True):
     """Dispatch an image-guided method (reference: image_main.py:66-80), and
     AENS, which the reference defines but never wires to a CLI. ``--sharded``
     routes I2V, ENS-I2V and AENS through the frame-chunked runner over
     ``attack_mesh`` of this process's devices, and ``--model_parallel N``
     ENS-I2V and AENS through the model-axis runner over ``ensemble_mesh``,
-    instead of the attack class."""
+    instead of the attack class. ``graphs=False`` (no CLI flag: the
+    profiling tools' comparison) runs the steps eagerly on a card; the
+    model-axis runner always does."""
     check_runner_args(args)
     method = args.attack_method
     hw = 32 if args.tiny else data_shape(args)[1]
@@ -236,21 +238,23 @@ def build_image_guided_attack(args, device: torch.device):
                 models, ensemble_mesh(mesh_devices(args), model=model_parallel), **kw)
         return ShardedImageGuidedAttack(
             models, attack_mesh(mesh_devices(args)),
-            param_dtype=torch.bfloat16 if args.param_dtype == "bfloat16" else None, **kw)
+            param_dtype=torch.bfloat16 if args.param_dtype == "bfloat16" else None,
+            graphs=graphs, **kw)
 
     if method in ("ImageGuidedStd_Adam", "ImageGuidedFMDirection_Adam"):
         models = get_image_models([args.direction_image_model], args.depth,
                                   device=device, tiny=args.tiny, input_hw=hw)
         if args.sharded:
             return build(models, step_size=args.step_size)
-        return getattr(attacks, method)(models, step_size=args.step_size, steps=args.step)
+        return getattr(attacks, method)(models, step_size=args.step_size, steps=args.step,
+                                        graphs=graphs)
     names = ["resnet", "vgg", "squeezenet", "alexnet"]
     if method == "ImageGuidedFML2_Adam_MultiModels":
         depths = {"resnet": 2, "vgg": 3, "squeezenet": 2, "alexnet": 3}
         models = get_image_models(names, depths, device=device, tiny=args.tiny, input_hw=hw)
         if args.sharded or model_parallel:
             return build(models, step_size=0.005)
-        return attacks.ImageGuidedFML2_Adam_MultiModels(models, steps=args.step)
+        return attacks.ImageGuidedFML2_Adam_MultiModels(models, steps=args.step, graphs=graphs)
     if method == "AENS_I2V_MF":
         depths = {n: [2, 3] for n in names}
         models = get_image_models(names, depths, device=device, tiny=args.tiny, input_hw=hw)
@@ -259,13 +263,14 @@ def build_image_guided_attack(args, device: torch.device):
                          momentum=args.aens_momentum, coef_ce=args.coef_CE)
         return attacks.AENS_I2V_MF(models, step_size=args.step_size,
                                    momentum=args.aens_momentum, coef_CE=args.coef_CE,
-                                   steps=args.step)
+                                   steps=args.step, graphs=graphs)
     raise ValueError(f"unknown image-guided method {method!r}")
 
 
-def build_whitebox_attack(args, bundle):
+def build_whitebox_attack(args, bundle, graphs: bool = True):
     """Dispatch a white-box method name to an attack instance (the
-    reference's getattr dispatch, attack.py:76-83)."""
+    reference's getattr dispatch, attack.py:76-83). ``graphs=False`` runs a
+    graphed method's steps eagerly on a card (DIFGSM and TT always are)."""
     name = args.attack_method
     if name == "TemporalTranslation":
         params = {"kernlen": args.kernlen, "momentum": bool(args.momentum),
@@ -274,11 +279,13 @@ def build_whitebox_attack(args, bundle):
         atk = attacks.TemporalTranslation(bundle, params, steps=args.step)
     elif name == "TAP":
         params = {"kernlen": 3, "temporal_kernlen": 3, "eta": 1e3, "conv3d": True}
-        atk = attacks.TAP(bundle, params, steps=args.step)
+        atk = attacks.TAP(bundle, params, steps=args.step, graphs=graphs)
     elif name == "SIM" and getattr(args, "sim_batch_scales", False):
-        atk = attacks.SIM(bundle, steps=args.step, batch_scales=True)
+        atk = attacks.SIM(bundle, steps=args.step, batch_scales=True, graphs=graphs)
+    elif name == "DIFGSM":
+        atk = attacks.DIFGSM(bundle, steps=args.step)
     else:
-        atk = getattr(attacks, name)(bundle, steps=args.step)
+        atk = getattr(attacks, name)(bundle, steps=args.step, graphs=graphs)
     chunk = getattr(args, "batch_chunk", None)
     if chunk:
         if hasattr(atk, "cfg"):

@@ -88,8 +88,9 @@ def run(args) -> str:
             "workflow)")
     device = common.resolve_device(args)
     print(f"[precision] {common.apply_matmul_precision(args)} on {device}")
-    bundle = get_video_model(args.model, device=device, tiny=args.tiny, ucf101=args.ucf101)
-    bundle = bundle.with_taps(tap_keys_for(args.model, "ilaf"))
+    # built to the ILAF tap and no further: ILAF reads nothing past it
+    bundle = get_video_model(args.model, device=device, tiny=args.tiny, ucf101=args.ucf101,
+                             taps=tap_keys_for(args.model, "ilaf"), truncate=True)
     attack = attacks.ILAF(bundle, args.model, step_size=args.step_size, steps=args.step)
     timer = StepTimer(steps_per_call=args.step, clips_per_call=args.batch_size, device=device)
     for adv, ori, labels in iter_pairs(args.used_adv, args.used_ori, args.batch_size):

@@ -35,8 +35,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.replicas import replicas_for
 from ..utils import artifacts
-from .transfer import accuracy_and_preds, order_predictions_by_label, write_reports
+from .transfer import order_predictions_by_label, write_reports
 
 
 class AsyncArtifactWriter:
@@ -173,12 +174,15 @@ class FusedGenerateEvaluate:
     attack's device, whose ``apply_norm`` takes normalized clips. Every model
     stays resident, so each clip is evaluated by all of them while it is on
     the device (the reference's per-model reload, reference.py:108-125, goes
-    away). ``run_dir=None`` writes no artifacts.
+    away). ``run_dir=None`` writes no artifacts. The forwards are CUDA
+    graphs on a card, as in :func:`.transfer.single_pass_eval`
+    (``graphs=False``: eager).
     """
 
     def __init__(self, attack, eval_bundles: dict, *, run_dir: Optional[str],
-                 n_classes: int = 400, artifact_dtype=np.float32):
+                 n_classes: int = 400, artifact_dtype=np.float32, graphs: bool = True):
         self.attack = attack
+        self.graphs = graphs
         self.bundles = dict(eval_bundles)
         self.n_classes = n_classes
         self.run_dir = run_dir
@@ -188,11 +192,12 @@ class FusedGenerateEvaluate:
         self.labels_seen: list[int] = []
 
     def _evaluate(self, adv: torch.Tensor, labels) -> None:
-        """Every model's forward is issued before any prediction is fetched."""
+        """Every model's forward is issued before any prediction is fetched:
+        one CUDA graph a model and batch shape on a card, held on the
+        bundle (:func:`~i2v_tpu_torch.parallel.replicas.replicas_for`)."""
         dlabels = torch.as_tensor(np.asarray(labels), device=adv.device).long()
-        with torch.no_grad():
-            pending = {name: accuracy_and_preds(b.apply_norm(adv), dlabels)
-                       for name, b in self.bundles.items()}
+        pending = {name: replicas_for(b, graphs=self.graphs).predict(adv, None, dlabels)[1:]
+                   for name, b in self.bundles.items()}
         self.labels_seen += [int(x) for x in labels]
         for name, (_, preds) in pending.items():
             self.predictions[name] += preds.cpu().tolist()

@@ -34,6 +34,7 @@ with one warning (``i2v_tpu/eval/transfer.py:70-96``).
 from __future__ import annotations
 
 import csv
+import gc
 import json
 import os
 import time
@@ -46,7 +47,7 @@ import torch
 from ..data.pipeline import threaded_prefetch
 from ..models.video_zoo import VIDEO_BUILDERS, get_video_model
 from ..parallel.mesh import Mesh, Sharding, attack_mesh, move
-from ..parallel.replicas import Replicas
+from ..parallel.replicas import replicas_for
 from ..utils import AverageMeter, artifacts
 
 
@@ -146,23 +147,26 @@ def _log_progress(log, step: int, n: int, data_time, batch_time, top1: dict, tit
 
 
 def reference_eval(bundle, files_batches: Sequence[Sequence[str]], run_dir: str, *,
-                   mesh: Optional[Mesh] = None, log=print):
+                   mesh: Optional[Mesh] = None, log=print, graphs: bool = True):
     """Evaluate one model over artifact batches → (preds, labels, top1_avg).
 
     Artifacts are normalized-domain clips (the protocol); the bundle's
     ``apply_norm`` takes them as they are. With a ``mesh``, each batch is
-    cut over its positions (data-parallel evaluation)."""
+    cut over its positions (data-parallel evaluation). The forward and
+    top-1 of each batch shape are one CUDA graph on a card, held on the
+    bundle with its replicas (:func:`~i2v_tpu_torch.parallel.replicas.replicas_for`);
+    ``graphs=False`` runs them eagerly."""
     data_time, batch_time, top1 = AverageMeter(), AverageMeter(), AverageMeter()
     predictions: list[int] = []
     labels_all: list[int] = []
-    replicas = Replicas(bundle, mesh)
+    replicas = replicas_for(bundle, mesh, graphs=graphs)
     positions = None if mesh is None else mesh.positions
     end = time.time()
     with torch.inference_mode():
         for step, (clips, dlabels, labels) in enumerate(
                 _prefetched_uploads(files_batches, run_dir, bundle.device, mesh)):
             data_time.update(time.time() - end)
-            acc, preds = accuracy_and_preds(replicas.logits(clips, positions), dlabels)
+            _, acc, preds = replicas.predict(clips, positions, dlabels)
             predictions += preds.cpu().tolist()
             labels_all += labels.tolist()
             top1.update(float(acc), len(labels))
@@ -175,7 +179,7 @@ def reference_eval(bundle, files_batches: Sequence[Sequence[str]], run_dir: str,
 
 
 def single_pass_eval(bundles: dict, files_batches: Sequence[Sequence[str]], run_dir: str, *,
-                     mesh: Optional[Mesh] = None, log=print):
+                     mesh: Optional[Mesh] = None, log=print, graphs: bool = True):
     """Evaluate every model over each uploaded batch → ({model: preds},
     labels, {model: top1_avg}).
 
@@ -183,9 +187,10 @@ def single_pass_eval(bundles: dict, files_batches: Sequence[Sequence[str]], run_
     (reference.py:108-125); here each batch is read and uploaded once, and
     every model's forward is issued before any result is fetched, so the
     card runs them back to back. The reports are the serial mode's. With a
-    ``mesh``, each batch is cut over its positions."""
+    ``mesh``, each batch is cut over its positions. Each model's forward is
+    a graph as in :func:`reference_eval`."""
     device = next(iter(bundles.values())).device
-    replicas = {name: Replicas(b, mesh) for name, b in bundles.items()}
+    replicas = {name: replicas_for(b, mesh, graphs=graphs) for name, b in bundles.items()}
     positions = None if mesh is None else mesh.positions
     data_time, batch_time = AverageMeter(), AverageMeter()
     top1 = {name: AverageMeter() for name in bundles}
@@ -196,7 +201,7 @@ def single_pass_eval(bundles: dict, files_batches: Sequence[Sequence[str]], run_
         for step, (clips, dlabels, labels) in enumerate(
                 _prefetched_uploads(files_batches, run_dir, device, mesh)):
             data_time.update(time.time() - end)
-            pending = {name: accuracy_and_preds(r.logits(clips, positions), dlabels)
+            pending = {name: r.predict(clips, positions, dlabels)[1:]
                        for name, r in replicas.items()}
             labels_all += labels.tolist()
             for name, (acc, preds) in pending.items():
@@ -309,8 +314,10 @@ def evaluate_run(
                 name, dev, lambda: reference_eval(bundle, batches, run_dir, mesh=mesh, log=log))
             columns[name] = order_predictions_by_label(labels, preds, n_classes)
             model_val_acc[name] = top1
-            # the reference's model swap (reference.py:124-125)
+            # the reference's model swap (reference.py:124-125); the bundle
+            # and the replicas it holds refer to each other
             del bundle
+            gc.collect()
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
     write_reports(run_dir, columns, n_classes, model_val_acc)

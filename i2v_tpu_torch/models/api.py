@@ -67,8 +67,15 @@ class VideoModel:
     def _run(self, clip, normalize: bool):
         return self.module(clip, normalize=normalize, relu_grad_scale=self.relu_grad_scale)
 
+    def _logits(self, clip, normalize: bool) -> torch.Tensor:
+        logits = self._run(clip, normalize)[0]
+        if logits is None:
+            raise ValueError(f"bundle {self.name!r} was built truncated (no head → "
+                             "logits=None); rebuild with truncate=False")
+        return logits
+
     def apply01(self, clip01_bcthw: torch.Tensor) -> torch.Tensor:
-        return self._run(clip01_bcthw, True)[0]
+        return self._logits(clip01_bcthw, True)
 
     def apply01_taps(self, clip01_bcthw: torch.Tensor):
         logits, taps = self._run(clip01_bcthw, True)
@@ -78,7 +85,7 @@ class VideoModel:
         """Forward on an already ImageNet-normalized clip. White-box attacks
         differentiate w.r.t. the normalized input, as the reference does
         (base_attacks.py:284-287)."""
-        return self._run(clip_norm_bcthw, False)[0]
+        return self._logits(clip_norm_bcthw, False)
 
     def apply_norm_taps(self, clip_norm_bcthw: torch.Tensor):
         logits, taps = self._run(clip_norm_bcthw, False)

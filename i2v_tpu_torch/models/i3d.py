@@ -11,6 +11,9 @@ PyTorch counterpart of :mod:`i2v_tpu.models.i3d`, the same topology:
 Submodules carry the Flax tree's names (``conv1``, ``layer2_1``,
 ``layer2_1_nl.theta``, ``fc``), so that :func:`.convert.from_jax_params`
 maps them by name. Taps: ``res_layer{i}`` (stage outputs, NCDHW).
+``truncate`` with ``taps`` builds and runs no stage past the deepest tap
+and no head (the logits are None), as the JAX model's unused layers are
+dead code under jit.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from .common import Linear, set_compute_dtype
+from .common import Linear, deepest, set_compute_dtype
 from .video_common import (Bottleneck3D, NonLocal3D, conv3d, max_pool3d, relu, remat_call,
                            to_compute)
 
@@ -36,12 +39,15 @@ class I3DResNet(nn.Module):
                  inflate_freq: Sequence[Sequence[int]] = _INFLATE_R50,
                  nonlocal_pos: Sequence[Sequence[int]] = _NL5, nl_sub_sample: bool = True,
                  nl_type: str = "gaussian", width: int = 64, num_classes: int = 400,
-                 remat: bool = False, dtype: torch.dtype = torch.float32):
+                 remat: bool = False, taps: Sequence[str] = (), truncate: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         # remat the stem too: its pre-pool activation is the model's largest
         self.remat = remat
-        self.stage_sizes = tuple(stage_sizes)
         self.nonlocal_pos = tuple(tuple(p) for p in nonlocal_pos)
+        self.headless = truncate and bool(taps)
+        depth = deepest([int(k[len("res_layer"):]) for k in taps], truncate, len(stage_sizes))
+        self.stage_sizes = tuple(stage_sizes)[:depth]
         self.conv1 = conv3d(3, width, (5, 7, 7), (2, 2, 2))
         in_ch = width
         for stage, n_blocks in enumerate(self.stage_sizes):
@@ -55,7 +61,7 @@ class I3DResNet(nn.Module):
                 if block in self.nonlocal_pos[stage]:
                     self.add_module(f"layer{stage + 1}_{block}_nl",
                                     NonLocal3D(in_ch, sub_sample=nl_sub_sample, nl_type=nl_type))
-        self.fc = Linear(in_ch, num_classes)
+        self.fc = None if self.headless else Linear(in_ch, num_classes)
         set_compute_dtype(self, dtype)
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
@@ -79,8 +85,10 @@ class I3DResNet(nn.Module):
                 if block in self.nonlocal_pos[stage]:
                     x = getattr(self, f"layer{stage + 1}_{block}_nl")(x)
             taps[f"res_layer{stage + 1}"] = x
-            if stage == 0:
+            if stage == 0 and stage + 1 < len(self.stage_sizes):
                 x = max_pool3d(x, (2, 1, 1), (2, 1, 1))
+        if self.headless:
+            return None, taps
         return self.fc(x.mean(dim=(2, 3, 4))).float(), taps
 
 

@@ -17,7 +17,8 @@ Flax infers each layer's input width; here ``__init__`` computes it.
 Submodules carry the Flax tree's names (``fast_conv1``, ``slow_res3_1``,
 ``lateral_p1``, ``lateral_res2``, ``fc``) for :func:`.convert.from_jax_params`.
 Taps: ``slow_res{2..5}`` and ``fast_res{2..5}`` (stage outputs, NCDHW; the
-slow taps are taken before the lateral concat).
+slow taps are taken before the lateral concat). ``truncate`` with ``taps``
+builds and runs no stage past the deepest tap and no head (logits None).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from .common import Linear, set_compute_dtype
+from .common import Linear, deepest, set_compute_dtype
 from .video_common import conv3d, max_pool3d, relu, remat_call, to_compute
 
 
@@ -56,10 +57,15 @@ class SlowFast(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), fast_stride: int = 2,
                  slow_stride: int = 8, beta_inv: int = 8, width: int = 64,
                  num_classes: int = 400, slow_temporal_stages: Sequence[int] = (2, 3),
-                 remat: bool = False, dtype: torch.dtype = torch.float32):
+                 remat: bool = False, taps: Sequence[str] = (), truncate: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.remat = remat
-        self.stage_sizes = tuple(stage_sizes)
+        self.headless = truncate and bool(taps)
+        # "slow_res2" / "fast_res2" → stage 1
+        depth = deepest([int(k.rsplit("res", 1)[1]) - 1 for k in taps], truncate,
+                        len(stage_sizes))
+        self.stage_sizes = tuple(stage_sizes)[:depth]
         self.fast_stride, self.slow_stride = fast_stride, slow_stride
         alpha = slow_stride // fast_stride
         fast_w = width // beta_inv
@@ -91,11 +97,11 @@ class SlowFast(nn.Module):
                     fast_in = in_ch
                 else:
                     slow_in = in_ch
-            if stage < 3:
+            if stage < min(3, len(self.stage_sizes) - 1):
                 lat = 2 * (fast_w * 2**stage) * 4
                 self.add_module(f"lateral_res{stage + 2}", lateral(fast_in, lat))
                 slow_in += lat
-        self.fc = Linear(slow_in + fast_in, num_classes)
+        self.fc = None if self.headless else Linear(slow_in + fast_in, num_classes)
         set_compute_dtype(self, dtype)
 
     def _stage(self, x: torch.Tensor, pathway: str, stage: int, scale: float) -> torch.Tensor:
@@ -121,14 +127,17 @@ class SlowFast(nn.Module):
         slow = max_pool3d(slow, (1, 3, 3), (1, 2, 2), (0, 1, 1))
         slow = torch.cat([slow, relu(self.lateral_p1(fast))], dim=1)
         taps = {}
-        for stage in range(4):
+        n = len(self.stage_sizes)
+        for stage in range(n):
             fast = self._stage(fast, "fast", stage, relu_grad_scale)
             slow = self._stage(slow, "slow", stage, relu_grad_scale)
             taps[f"fast_res{stage + 2}"] = fast
             taps[f"slow_res{stage + 2}"] = slow
-            if stage < 3:
+            if stage < min(3, n - 1):
                 lat = relu(getattr(self, f"lateral_res{stage + 2}")(fast))
                 slow = torch.cat([slow, lat], dim=1)
+        if self.headless:
+            return None, taps
         pooled = torch.cat([slow.mean(dim=(2, 3, 4)), fast.mean(dim=(2, 3, 4))], dim=1)
         return self.fc(pooled).float(), taps
 

@@ -22,6 +22,8 @@ As in the TPN repository, the bottom-up flow reads the top-down-*mutated*
 Submodules carry the Flax tree's names (``conv1``, ``layer3_0``, ``sm_0_0``,
 ``tm_0``, ``lf2_op1``, ``down_0``, ``pyramid``, ``fc``) for
 :func:`.convert.from_jax_params`. Taps: ``layer{1..4}`` (NCDHW).
+``truncate`` with ``taps`` builds and runs no stage past the deepest tap, no
+neck and no head (logits None).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import Linear, set_compute_dtype
+from .common import Linear, deepest, set_compute_dtype
 from .video_common import conv3d, max_pool3d, relu, remat_call, to_compute
 
 
@@ -66,10 +68,13 @@ class TPN(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
                  num_classes: int = 400, temporal_stages: Sequence[int] = (2, 3),
                  temporal_scales: Sequence[int] = (32, 32), upsample_scale: int = 1,
-                 neck_groups: int = 32, remat: bool = False, dtype: torch.dtype = torch.float32):
+                 neck_groups: int = 32, remat: bool = False, taps: Sequence[str] = (),
+                 truncate: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.remat = remat
-        self.stage_sizes = tuple(stage_sizes)
+        self.headless = truncate and bool(taps)
+        depth = deepest([int(k[len("layer"):]) for k in taps], truncate, len(stage_sizes))
+        self.stage_sizes = tuple(stage_sizes)[:depth]
         self.temporal_scales = tuple(temporal_scales)
         self.upsample_scale = upsample_scale
         self.conv1 = conv3d(3, width, (1, 7, 7), (1, 2, 2))
@@ -82,6 +87,9 @@ class TPN(nn.Module):
                     in_ch, feats, spatial_stride=2 if (first and stage > 0) else 1,
                     temporal_kernel=3 if stage in temporal_stages else 1, downsample=first))
                 in_ch = feats * 4
+        if self.headless:
+            set_compute_dtype(self, dtype)
+            return
         planes = width * 32   # spatial-modulation target channels
         out_c = width * 16    # the neck's out_channels
         g = neck_groups
@@ -124,6 +132,8 @@ class TPN(nn.Module):
                                x, 1.0 if block == 0 else s)
             taps[f"layer{stage + 1}"] = x
             feats.append(x)
+        if self.headless:
+            return None, taps
 
         fine = relu(self.sm_0_0(feats[2]))
         coarse = feats[3]

@@ -64,9 +64,11 @@ def remat_call(remat: bool, fn, *args):
     activations are recomputed in the backward pass instead of kept. The
     non-reentrant checkpoint lets frozen weights and SGM's scaled ReLU run
     inside; the recompute runs the same forward, so values and gradients are
-    those without it."""
+    those without it, RNG state untouched."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        # nothing random runs in these frozen models, so the RNG state needs
+        # no saving (and a CUDA graph capture refuses to read it)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
     return fn(*args)
 
 

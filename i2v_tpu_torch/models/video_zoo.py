@@ -67,17 +67,25 @@ def tap_keys_for(model_name: str, purpose: str = "tap") -> tuple:
 
 def get_video_model(name: str, *, device: torch.device | str, tiny: bool = False,
                     ucf101: bool = False, remat: bool = False, seed: int = 0,
-                    dtype: torch.dtype = torch.float32) -> VideoModel:
+                    dtype: torch.dtype = torch.float32, taps=None,
+                    truncate: bool = False) -> VideoModel:
     """Build a video-model bundle for a reference model name, in eval mode
     with frozen weights (no weight gradient ever runs), on ``device``,
     computing in ``dtype``. ``ucf101=True`` gives the 101-class head of the
     fine-tuned models at full width (reference_ucf101.py:107-117); the tiny
     models keep 10 classes. ``remat=True`` recomputes the bottlenecks (and
-    I3D's stem) in backward passes instead of keeping their activations."""
+    I3D's stem) in backward passes instead of keeping their activations.
+    ``taps`` are the bundle's tap keys (default: TAP's, ``tap_keys_for``);
+    ``truncate=True`` builds and runs nothing past the deepest of them and
+    no head, as the image registry's ``truncate`` (ILAF's model: the JAX
+    package's jit drops those layers as dead code). The weights of the
+    layers it keeps are the full model's: the random init draws them first,
+    and a checkpoint file is laid over what exists."""
     if name not in VIDEO_BUILDERS:
         raise ValueError(f"unknown video model {name!r}; have {sorted(VIDEO_BUILDERS)}")
     check_dtype_on_device(dtype, device)
-    kw = {"remat": remat}
+    taps = tap_keys_for(name, "tap") if taps is None else tuple(taps)
+    kw = {"remat": remat, "taps": taps, "truncate": truncate}
     if ucf101 and not tiny:
         kw["num_classes"] = 101
     module = (TINY_BUILDERS if tiny else VIDEO_BUILDERS)[name](**kw)
@@ -85,7 +93,7 @@ def get_video_model(name: str, *, device: torch.device | str, tiny: bool = False
     if not tiny:
         _load_checkpoint(module, name, ucf101)
     module = set_compute_dtype(module, dtype).to(device).eval().requires_grad_(False)
-    return VideoModel(name=name, module=module, tap_keys=tap_keys_for(name, "tap"))
+    return VideoModel(name=name, module=module, tap_keys=taps)
 
 
 def _load_checkpoint(module, name: str, ucf101: bool) -> None:

@@ -22,12 +22,16 @@ vector accesses and a scalar tail; the sources say more.
 Dispatch: a tensor on the CPU takes the plain version in
 :mod:`i2v_tpu_torch.ops.pixel`; a CUDA tensor launches the kernel or raises.
 There is no fallback from the card to the plain version. ``launches`` counts
-kernel launches, so that a run can show it went through the kernels.
+kernel launches, so that a run can show it went through the kernels. A
+launch made while a CUDA graph is being captured does not run: it goes
+into the capture's tally (:func:`capture_tally`), which
+:mod:`i2v_tpu_torch.utils.graphs` adds to ``launches`` at every replay.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import functools
 import threading
@@ -41,6 +45,8 @@ launches = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
 # K2 launches from the autograd engine's thread of each card, so the counts
 # take a lock: ``+=`` on a dict entry is a read, an add and a write
 _launches_lock = threading.Lock()
+# the launches recorded by the capture under way (captures run one at a time)
+_tally: dict | None = None
 
 
 def reset_launches() -> None:
@@ -50,9 +56,32 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str) -> None:
-    """Add one to ``launches[name]``, safe under concurrent callers."""
+    """Add one to ``launches[name]``, or to the tally of the capture under
+    way, safe under concurrent callers (K2 launches from autograd's thread)."""
     with _launches_lock:
-        launches[name] += 1
+        (launches if _tally is None else _tally)[name] += 1
+
+
+def add_launches(counts: dict) -> None:
+    """Add a replayed graph's launches to ``launches``."""
+    with _launches_lock:
+        for k, n in counts.items():
+            launches[k] += n
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Count the launches recorded while the block captures a CUDA graph
+    into the yielded dict instead of ``launches``: nothing runs at capture."""
+    global _tally
+    tally = dict.fromkeys(launches, 0)
+    with _launches_lock:
+        _tally = tally
+    try:
+        yield tally
+    finally:
+        with _launches_lock:
+            _tally = None
 
 
 _PTR, _N, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float

@@ -24,6 +24,7 @@ bfloat16 ensemble fits 2048 frames a chunk.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -61,11 +62,13 @@ def make_multigrid_i2v_runner(
     coarse_frame_chunk=...,
     param_dtype: Optional[torch.dtype] = None,
     runner_factory=None,
+    graphs: bool = True,
 ):
     """Two-phase runner: ``runner(clean01, n_real=None) -> (adv01 clips,
     per-step costs)`` with ``len(costs) == steps`` (coarse, then fine).
     ``coarse_frame_chunk`` defaults to ``frame_chunk`` ("auto" resolves
-    again at the coarse size). ``runner_factory(models, mesh, steps=,
+    again at the coarse size). Each phase keeps its own step graph, one a
+    shape (``graphs``, the default runner's keyword). ``runner_factory(models, mesh, steps=,
     step_size=, epsilon=, frame_chunk=, return_modifier=)`` builds each
     phase (default :func:`~.sharded.make_sharded_i2v_runner`; with no
     ``mesh``, on the surrogates' device)."""
@@ -78,7 +81,7 @@ def make_multigrid_i2v_runner(
         models = cast_param_storage(models, param_dtype)
     if coarse_frame_chunk is ...:
         coarse_frame_chunk = frame_chunk
-    factory = runner_factory or make_sharded_i2v_runner
+    factory = runner_factory or functools.partial(make_sharded_i2v_runner, graphs=graphs)
     coarse = factory(models, mesh, steps=coarse_steps, step_size=step_size, epsilon=epsilon,
                      frame_chunk=coarse_frame_chunk, return_modifier=True)
     fine = factory(models, mesh, steps=steps - coarse_steps, step_size=step_size,

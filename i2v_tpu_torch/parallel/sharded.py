@@ -28,9 +28,14 @@ the gradient stay float32, and the cast to bfloat16 happens inside each
 surrogate, after its normalization. ``mu_dtype`` keeps Adam's first moment
 in a narrower dtype, as the JAX runner's optax ``scale_by_adam`` does.
 
-The JAX runner's ``unroll``, ``chunk_unroll`` and ``donate`` steer XLA's
-scheduling and buffers, and ``runner.jitted``/``example_args`` are hooks for
-ahead-of-time lowering; none has a meaning here (ROADMAP Queue 1, item 5).
+The JAX runner is one ``jit`` a batch shape, its buffers donated
+(``runner.jitted``, ``example_args``, ``donate``). Here a runner keeps one
+:class:`_Loop` a batch layout: static buffers that a second batch of the
+same layout is copied into, and each step captured once as a CUDA graph
+and replayed (:mod:`i2v_tpu_torch.utils.graphs`). Adam reads its per-step
+scalars from a device table (:class:`~i2v_tpu_torch.utils.graphs.TableAdam`),
+so no step waits on the host. ``unroll`` and ``chunk_unroll``, XLA's
+scheduling of the scan, have no counterpart: a graph replays one step.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from ..attacks.core import Attack
 from ..attacks.i2v import MODIFIER_INIT, _collect_taps
 from ..models.api import ImageModel
 from ..ops import kernels, losses, pixel
+from ..utils.graphs import StepGraph, TableAdam
 from .mesh import Mesh, Sharded, move
 
 # The byte budget of ``frame_chunk="auto"``: one chunk's input frames in the
@@ -211,6 +217,18 @@ def _position(models: list, frames: torch.Tensor, chunk: int, fmask, taps: slice
     return _Position(frames.device, models, frames, bounds, fmask, clean_taps, grad_buf, taps)
 
 
+def _load(pos: _Position, frames: torch.Tensor, fmask) -> None:
+    """A new batch of the position's shape into its static buffers: the
+    frames, the pad mask and the clean taps, chunk by chunk."""
+    pos.frames.copy_(frames)
+    if fmask is not None:
+        pos.fmask.copy_(fmask)
+    with torch.no_grad():
+        for (i, j), held in zip(pos.bounds, pos.clean_taps):
+            for old, new in zip(held, _collect_taps(pos.models, pos.frames[i:j])):
+                old.copy_(new)
+
+
 def _position_grad(pos: _Position, modifier: torch.Tensor, coeffs, *, epsilon: float,
                    adaptive: bool, coef_ce: bool, n_taps: int, remat: bool):
     """→ (cost, AENS signal or None, gradient) of the position's models over
@@ -228,7 +246,10 @@ def _position_grad(pos: _Position, modifier: torch.Tensor, coeffs, *, epsilon: f
         with torch.enable_grad():
             adv01 = kernels.rebuild_adv(pos.frames[i:j], m_c, epsilon)
             if remat:
-                taps = checkpoint(_collect_taps, pos.models, adv01, use_reentrant=False)
+                # nothing random runs in the frozen surrogates, so the RNG
+                # state needs no saving (which a CUDA graph capture refuses)
+                taps = checkpoint(_collect_taps, pos.models, adv01, use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
                 taps = _collect_taps(pos.models, adv01)
             if adaptive:
@@ -254,10 +275,10 @@ def _position_grad(pos: _Position, modifier: torch.Tensor, coeffs, *, epsilon: f
 
 
 def _adam(params: list, step_size: float, opt_init) -> torch.optim.Adam:
-    """``torch.optim.Adam`` as ``attacks/i2v.py`` builds it, over the
-    modifier's slices (Adam is elementwise: slice by slice is whole Adam);
-    ``opt_init``, one ``(step, exp_avg, exp_avg_sq)`` a slice, resumes a
-    saved state."""
+    """``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8, foreach=False)``
+    over the modifier's slices, for the model-axis runner (:mod:`.ensemble`),
+    which steps eagerly; ``opt_init``, one ``(step, exp_avg, exp_avg_sq)`` a
+    slice, resumes a saved state."""
     opt = torch.optim.Adam(params, lr=step_size, betas=(0.9, 0.999), eps=1e-8,
                            foreach=False, fused=False)
     for param, (step, exp_avg, exp_avg_sq) in zip(params, opt_init or ()):
@@ -268,15 +289,6 @@ def _adam(params: list, step_size: float, opt_init) -> torch.optim.Adam:
             "exp_avg_sq": exp_avg_sq.detach().to(param).clone(),
         }
     return opt
-
-
-def _adam_state(opt: torch.optim.Adam, param: torch.Tensor):
-    """``(step, exp_avg, exp_avg_sq)`` of ``param``, zeros before a step."""
-    st = opt.state[param]
-    if not st:
-        zeros = torch.zeros_like(param.detach())
-        return torch.tensor(0.0), zeros, zeros.clone()
-    return st["step"].clone(), st["exp_avg"].clone(), st["exp_avg_sq"].clone()
 
 
 class _AdamMu:
@@ -294,7 +306,10 @@ class _AdamMu:
       modifier += −lr · (mu / (1 − b1ᵗ)) / (√(nu / (1 − b2ᵗ)) + ε)
 
     from the float32 ``mu``; only then is ``mu`` rounded to ``mu_dtype`` to
-    be stored. ``opt_init = (count, mu, nu)`` resumes a saved state."""
+    be stored. ``opt_init = (count, mu, nu)`` resumes a saved state.
+
+    The eager form: the runner steps :class:`~i2v_tpu_torch.utils.graphs.TableAdam`
+    with ``mu_dtype``, which equals it bit for bit on the CPU (the tests)."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -333,23 +348,6 @@ class _AdamMu:
         return (torch.tensor(float(self.count)), self.mu.clone(), self.nu.clone())
 
 
-def _optimizer(params: list, step_size: float, mu_dtype, opt_init):
-    """→ (step(), state(k) of slice k) over the modifier's slices: torch Adam
-    (elementwise, so slice by slice is whole Adam), or one :class:`_AdamMu`
-    a slice where ``mu_dtype`` is set. ``opt_init`` holds one state a slice."""
-    if mu_dtype is None:
-        opt = _adam(params, step_size, opt_init)
-        return opt.step, lambda k: _adam_state(opt, params[k])
-    opts = [_AdamMu(p, step_size, mu_dtype, None if opt_init is None else opt_init[k])
-            for k, p in enumerate(params)]
-
-    def step() -> None:
-        for o in opts:
-            o.step()
-
-    return step, lambda k: opts[k].io_state()
-
-
 def _slices(x, n_slices: int) -> list:
     """Dim 0 of ``x`` cut into ``n_slices`` equal contiguous views."""
     x = torch.as_tensor(x)
@@ -365,6 +363,107 @@ def _local_chunk(frame_chunk, n_frames: int, hw, compute_dtype, n_positions: int
     chunk = resolve_frame_chunk(frame_chunk, n_frames, hw, compute_dtype, n_positions)
     local = None if chunk is None else max(1, chunk // n_positions)
     return snap_frame_chunk(local, n_frames // n_positions)
+
+
+class _Loop:
+    """The runner's static buffers and step graphs for one batch layout.
+
+    Each position holds its frames, clean taps, pad mask and gradient
+    buffer, its modifier slice and its slice's Adam state
+    (:class:`~i2v_tpu_torch.utils.graphs.TableAdam`), and its cost and AENS
+    signal of the step. The first position's device holds the per-step
+    costs and AENS's coefficients (those of the step under way) and
+    previous per-tap loss. One position on that device runs the whole step
+    as one graph. Over a mesh each position's chunks and Adam update are a
+    graph on its card, and the sums across positions, the coefficient update
+    and the copies between cards run between them, in position order."""
+
+    def __init__(self, positions: list, home: torch.device, *, steps: int, step_size: float,
+                 mu_dtype, adaptive: bool, aens_momentum: float, n_taps: int, grad_of,
+                 graphs: bool):
+        self.positions, self.home = positions, home
+        self.adaptive, self.momentum, self.grad_of = adaptive, aens_momentum, grad_of
+        self.modifiers = [torch.full_like(p.frames, MODIFIER_INIT) for p in positions]
+        self.adams = [TableAdam(m, step_size, steps, mu_dtype) for m in self.modifiers]
+        self.costs = torch.zeros(steps, device=home)
+        self.k = torch.zeros(1, dtype=torch.long, device=home)
+        self.whole = len(positions) == 1 and positions[0].device == home
+        if adaptive:
+            self.coeffs = torch.ones(n_taps, device=home)
+            self.prev = torch.ones(n_taps, device=home)
+            self.coeffs_on = [self.coeffs if p.device == home
+                              else torch.ones(n_taps, device=p.device) for p in positions]
+        if self.whole:
+            self.graphs = [StepGraph(self._whole_step, home, enabled=graphs)]
+        else:
+            self.cost_on = [torch.zeros((), device=p.device) for p in positions]
+            self.signal_on = [torch.zeros(n_taps, device=p.device) if adaptive else None
+                              for p in positions]
+            self.graphs = [StepGraph(functools.partial(self._position_step, q), p.device,
+                                     enabled=graphs) for q, p in enumerate(positions)]
+
+    def reset(self, inits, opt_init, coeffs0) -> None:
+        for q, (m, adam) in enumerate(zip(self.modifiers, self.adams)):
+            if inits is None:
+                m.fill_(MODIFIER_INIT)
+            else:
+                m.copy_(inits[q])
+            adam.reset(None if opt_init is None else opt_init[q])
+        self.k.zero_()
+        if self.adaptive:
+            self.coeffs.copy_(coeffs0)
+            self.prev.fill_(1.0)
+
+    def _next_coeffs(self) -> None:
+        # coeffs = softmax(softmax(prev_loss) + momentum·coeffs), before the
+        # step's loss (TPAMI_attack.py:263-265)
+        self.coeffs.copy_(torch.softmax(torch.softmax(self.prev, dim=0)
+                                        + self.momentum * self.coeffs, dim=0))
+
+    def _whole_step(self) -> None:
+        adam = self.adams[0]
+        if self.adaptive:
+            self._next_coeffs()
+        cost, signal, grad = self.grad_of(self.positions[0], self.modifiers[0],
+                                          self.coeffs if self.adaptive else None)
+        with torch.no_grad():
+            if self.adaptive:
+                self.prev.copy_(signal)
+            self.costs.index_copy_(0, adam.k, cost.reshape(1))
+        adam.step(grad)
+
+    def _position_step(self, q: int) -> None:
+        cost, signal, grad = self.grad_of(self.positions[q], self.modifiers[q],
+                                          self.coeffs_on[q] if self.adaptive else None)
+        with torch.no_grad():
+            self.cost_on[q].copy_(cost)
+            if signal is not None:
+                self.signal_on[q].copy_(signal)
+        self.adams[q].step(grad)
+
+    def step(self) -> None:
+        if self.whole:
+            self.graphs[0]()
+            return
+        with torch.no_grad():
+            if self.adaptive:
+                self._next_coeffs()
+                # the coefficients go out to every card before any position's
+                # work is queued (see ensemble.py: a copy queues behind its
+                # card's work)
+                for c in self.coeffs_on:
+                    if c is not self.coeffs:
+                        c.copy_(self.coeffs)
+        for graph in self.graphs:
+            graph()
+        with torch.no_grad():
+            cost = signal = None
+            for c, s in zip(self.cost_on, self.signal_on):
+                cost, signal = _acc(cost, c, self.home), _acc(signal, s, self.home)
+            self.costs.index_copy_(0, self.k, cost.reshape(1))
+            self.k.add_(1)
+            if self.adaptive:
+                self.prev.copy_(signal)
 
 
 def make_sharded_i2v_runner(
@@ -384,6 +483,7 @@ def make_sharded_i2v_runner(
     opt_state_io: bool = False,
     mu_dtype=None,
     device: torch.device | str | None = None,
+    graphs: bool = True,
 ):
     """Build an I2V / ENS-I2V (``adaptive=False``) or AENS-I2V-MF runner.
 
@@ -430,11 +530,17 @@ def make_sharded_i2v_runner(
       steps as the JAX runner's optax Adam does (:class:`_AdamMu`), not as
       ``torch.optim.Adam``; ``opt_init``/``opt_state_io`` then carry
       ``(count, mu, nu)`` with ``mu`` in ``mu_dtype``.
+    - ``graphs`` (default): on a card each step is a CUDA graph, captured at
+      the second step of the first call of a batch layout and replayed from
+      then on, calls of the same layout included (:class:`_Loop`,
+      :mod:`i2v_tpu_torch.utils.graphs`); ``graphs=False`` runs the same
+      steps eagerly, to compare and time them.
 
     ``runner.value_and_grad(clean01, modifier, n_real=None)`` gives the
     first step's cost and its gradient w.r.t. ``modifier``, chunked as the
     runner chunks, without a step; ``runner.coefficients()`` the AENS
-    coefficients the last call left."""
+    coefficients the last call left; ``runner.loops`` the :class:`_Loop` of
+    each batch layout met so far."""
     if mu_dtype is not None and not (isinstance(mu_dtype, torch.dtype)
                                      and mu_dtype.is_floating_point):
         raise ValueError(f"mu_dtype must be a floating torch dtype, got {mu_dtype!r}")
@@ -458,11 +564,6 @@ def make_sharded_i2v_runner(
 
     # AENS's coefficients persist across calls (TPAMI_attack.py:165,265)
     coeffs_box = [torch.ones(n_taps, dtype=torch.float32, device=home)]
-
-    def state0():
-        if not adaptive:
-            return None
-        return coeffs_box[0], torch.ones(n_taps, dtype=torch.float32, device=home)
 
     def frame_slices(clean01):
         """→ (B, T, each position's frames) of clips in [0,1], whole or laid
@@ -488,75 +589,76 @@ def make_sharded_i2v_runner(
             return b, t, [frames]
         return b, t, [move(f, d) for f, d in zip(_slices(frames, n_pos), devices)]
 
-    def prepare(clean01, n_real) -> tuple[int, list]:
-        b, t, frames = frame_slices(clean01)
-        chunk = _local_chunk(frame_chunk, b * t, frames[0].shape[2:], compute_dtype, n_pos)
-        mask = frame_mask(b, t, n_real, home)
+    def positions_of(frames: list, mask) -> list:
+        hw = frames[0].shape[2:]
+        chunk = _local_chunk(frame_chunk, frames[0].shape[0] * n_pos, hw, compute_dtype, n_pos)
         masks = [None] * n_pos if mask is None else _slices(mask, n_pos)
-        return b, [_position(replicas[d], f, chunk, None if m is None else move(m, d),
-                             slice(0, n_taps))
-                   for d, f, m in zip(devices, frames, masks)]
+        return [_position(replicas[d], f, chunk, None if m is None else move(m, d),
+                          slice(0, n_taps))
+                for d, f, m in zip(devices, frames, masks)]
 
-    def grad_and_state(positions: list, modifiers: list, state):
-        """→ (cost, each slice's gradient, next state) of one step."""
-        coeffs = None
-        if adaptive:
-            coeffs_prev, prev = state
-            coeffs = torch.softmax(torch.softmax(prev, dim=0) + aens_momentum * coeffs_prev, dim=0)
-        # the coefficients go out to every card before any position's work
-        # is queued (see ensemble.py: a copy queues behind its card's work)
-        devices = dict.fromkeys(q.device for q in positions)
-        coeffs_on = {} if coeffs is None else {d: move(coeffs, d) for d in devices}
-        cost = signal = None
-        grads = []
-        for pos, mod in zip(positions, modifiers):
-            c, s, g = grad_of(pos, mod, coeffs_on.get(pos.device))
-            grads.append(g)
-            cost, signal = _acc(cost, c, home), _acc(signal, s, home)
-        return cost, grads, ((coeffs, signal) if adaptive else state)
+    # the loops by batch layout, as the JAX runner's jit caches by shape
+    loops: dict = {}
+
+    def loop_for(clean01, n_real) -> tuple[int, _Loop]:
+        b, t, frames = frame_slices(clean01)
+        mask = frame_mask(b, t, n_real, home)
+        key = (tuple(tuple(f.shape) for f in frames), mask is None)
+        loop = loops.get(key)
+        if loop is None:
+            loop = loops[key] = _Loop(
+                positions_of(frames, mask), home, steps=steps, step_size=step_size,
+                mu_dtype=mu_dtype, adaptive=adaptive, aens_momentum=aens_momentum,
+                n_taps=n_taps, grad_of=grad_of, graphs=graphs)
+        else:
+            masks = [None] * n_pos if mask is None else _slices(mask, n_pos)
+            for pos, f, m in zip(loop.positions, frames, masks):
+                _load(pos, f, None if m is None else move(m, pos.device))
+        return b, loop
 
     def runner(clean01, n_real=None, mod_init=None, opt_init=None):
-        b, positions = prepare(clean01, n_real)
+        b, loop = loop_for(clean01, n_real)
         inits = None if mod_init is None else _slices(mod_init, n_pos)
-        modifiers = [(torch.full_like(p.frames, MODIFIER_INIT) if inits is None
-                      else inits[k].to(p.frames).clone()).requires_grad_(True)
-                     for k, p in enumerate(positions)]
         if opt_init is not None:
             count, first, second = opt_init
             opt_init = [(count, m, v) for m, v in zip(_slices(first, n_pos),
                                                      _slices(second, n_pos))]
-        opt_step, slice_state = _optimizer(modifiers, step_size, mu_dtype, opt_init)
-        state, costs = state0(), []
+        loop.reset(inits, opt_init, coeffs_box[0])
         for _ in range(steps):
-            cost, grads, state = grad_and_state(positions, modifiers, state)
-            for m, g in zip(modifiers, grads):
-                m.grad = g
-            opt_step()
-            costs.append(cost)
+            loop.step()
         if adaptive:
-            coeffs_box[0] = state[0]
-        finals = [m.detach() for m in modifiers]
+            coeffs_box[0] = loop.coeffs.clone()
         with torch.no_grad():
-            adv = _cat([kernels.rebuild_adv(p.frames, f, epsilon)
-                        for p, f in zip(positions, finals)], home)
-        out = (pixel.unflatten_frames_to_clip(adv, b),
-               torch.stack(costs) if costs else adv.new_zeros(0))
+            adv = _cat([kernels.rebuild_adv(p.frames, m, epsilon)
+                        for p, m in zip(loop.positions, loop.modifiers)], home)
+        out = (pixel.unflatten_frames_to_clip(adv, b), loop.costs.clone())
         if return_modifier:
-            out = out + (_cat(finals, home),)
+            out = out + (_cat([m.clone() for m in loop.modifiers], home),)
         if opt_state_io:
-            states = [slice_state(k) for k in range(n_pos)]
+            states = [adam.state() for adam in loop.adams]
             out = out + ((states[0][0], _cat([s[1] for s in states], home),
                           _cat([s[2] for s in states], home)),)
         return out
 
     def value_and_grad(clean01, modifier, n_real=None):
-        _, positions = prepare(clean01, n_real)
-        mods = [m.to(p.frames) for m, p in zip(_slices(modifier, n_pos), positions)]
-        cost, grads, _ = grad_and_state(positions, mods, state0())
+        b, t, frames = frame_slices(clean01)
+        positions = positions_of(frames, frame_mask(b, t, n_real, home))
+        coeffs = None
+        if adaptive:
+            ones = torch.ones(n_taps, dtype=torch.float32, device=home)
+            coeffs = torch.softmax(torch.softmax(ones, dim=0) + aens_momentum * coeffs_box[0],
+                                   dim=0)
+        cost, grads = None, []
+        for pos, mod in zip(positions, _slices(modifier, n_pos)):
+            c, _, g = grad_of(pos, mod.to(pos.frames),
+                              None if coeffs is None else move(coeffs, pos.device))
+            grads.append(g)
+            cost = _acc(cost, c, home)
         return cost, _cat(grads, home)
 
     runner.value_and_grad = value_and_grad
     runner.coefficients = lambda: coeffs_box[0]
+    runner.loops = loops
     return runner
 
 
@@ -600,7 +702,7 @@ class ShardedImageGuidedAttack(Attack):
                  step_size: float, adaptive: bool = False, aens_momentum: float = 0.0,
                  coef_ce: bool = False, name: str = "ShardedI2V",
                  frame_chunk: int | str | None = None, param_dtype: Optional[torch.dtype] = None,
-                 multigrid: int = 0, multigrid_scale: int = 2):
+                 multigrid: int = 0, multigrid_scale: int = 2, graphs: bool = True):
         models = list(models)
         super().__init__(name, None,
                          device=models[0].device if mesh is None else mesh.positions[0])
@@ -614,12 +716,13 @@ class ShardedImageGuidedAttack(Attack):
 
             self._runner = make_multigrid_i2v_runner(
                 models, mesh, steps=steps, coarse_steps=multigrid, scale=multigrid_scale,
-                step_size=step_size, frame_chunk=frame_chunk, param_dtype=param_dtype)
+                step_size=step_size, frame_chunk=frame_chunk, param_dtype=param_dtype,
+                graphs=graphs)
         else:
             self._runner = make_sharded_i2v_runner(
                 models, mesh, steps=steps, step_size=step_size, adaptive=adaptive,
                 aens_momentum=aens_momentum, coef_ce=coef_ce, frame_chunk=frame_chunk,
-                param_dtype=param_dtype)
+                param_dtype=param_dtype, graphs=graphs)
 
     def __call__(self, videos, labels=None, video_names=None) -> torch.Tensor:
         pad = 0

@@ -212,14 +212,16 @@ def port_runner(models: list, steps: int, adaptive: bool):
 def time_port(models: list, clip01: torch.Tensor, steps: int, adaptive: bool) -> dict:
     """The port's step-0 cost at the 0.01/255 fill, and its steps/s: ``steps``
     over the time a (steps+1)-step call takes beyond a 1-step call, both
-    warm."""
+    warm: each runner is called twice before the timed pair, since on a card
+    a runner captures its step graph at its second step, which for the
+    1-step runner is in its second call."""
     from i2v_tpu_torch.ops import pixel
 
     one, more = port_runner(models, 1, adaptive), port_runner(models, steps + 1, adaptive)
     modifier = torch.full_like(pixel.flatten_clip_to_frames(clip01), MODIFIER_INIT)
     cost0, _ = one.value_and_grad(clip01, modifier)
     walls = {}
-    for label, runner in (("one", one), ("more", more), ("one", one), ("more", more)):
+    for label, runner in (("one", one), ("more", more)) * 3:
         _sync(clip01.device)
         t0 = time.perf_counter()
         runner(clip01)

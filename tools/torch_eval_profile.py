@@ -20,7 +20,12 @@ Then, in each mode, the six models evaluate the same batch in one pass
 a warm-up and a timed pass, for clips/s and peak memory.
 
 It prints one line a (mode, model) and writes every number, with the card's
-name and power limit, into ``--out``. Floating-point operations a clip come
+name and power limit, into ``--out``. ``--graphs eager|graphed|both`` (default
+``graphed``, the port's path) picks whether each step and forward runs as
+the CUDA graph the port replays (``i2v_tpu_torch/utils/graphs.py``) or
+eagerly (``graphs=False``); ``both`` gives each row twice, eager then
+graphed, on every path below. A graphed row's warm-up calls hold the eager
+first step and the capture. Floating-point operations a clip come
 from the shapes (``torch.utils.flop_counter`` on the meta device). It needs a
 card and exits without one.
 
@@ -186,13 +191,16 @@ def timed(fn) -> tuple[float, object]:
     return time.perf_counter() - t0, out
 
 
-def timed_eval(bundle, batches, run_dir) -> tuple[float, list]:
+def timed_eval(bundle, batches, run_dir, graphs: bool = True) -> tuple[float, list]:
     wall, (preds, _, _) = timed(
-        lambda: reference_eval(bundle, batches, run_dir, log=lambda *_: None))
+        lambda: reference_eval(bundle, batches, run_dir, log=lambda *_: None, graphs=graphs))
     return wall, preds
 
 
-def attack_paths(tmp: str):
+GRAPH_MODES = {"eager": (False,), "graphed": (True,), "both": (False, True)}
+
+
+def attack_paths(tmp: str, graphs: bool = True):
     """(name, batch, steps, make) of each attack path profiled; ``make()``
     builds the path's models and returns a call that runs the path once on
     its batch of synthetic clips. Each path's models are built for it alone,
@@ -212,7 +220,7 @@ def attack_paths(tmp: str):
 
     def image_attack(*flags, steps=ATTACK_STEPS):
         args = image_main.arg_parse(list(flags) + ["--step", str(steps)])
-        return common.build_image_guided_attack(args, device)
+        return common.build_image_guided_attack(args, device, graphs=graphs)
 
     def aens(b, steps=ATTACK_STEPS):
         atk = image_attack("--attack_method", "AENS_I2V_MF", "--step_size", "0.005",
@@ -228,8 +236,10 @@ def attack_paths(tmp: str):
         return lambda: atk(clips[:1], [0])
 
     def ilaf():
-        atk = attacks.ILAF(get_video_model("i3d_resnet50", device=device).with_taps(
-            tap_keys_for("i3d_resnet50", "ilaf")), "i3d", steps=ATTACK_STEPS)
+        atk = attacks.ILAF(get_video_model("i3d_resnet50", device=device,
+                                           taps=tap_keys_for("i3d_resnet50", "ilaf"),
+                                           truncate=True),
+                           "i3d", steps=ATTACK_STEPS, graphs=graphs)
         ori01 = ds.clip01(0)[None]
         adv01 = np.clip(ori01 + 0.8 * (16 / 255) * np.sign(
             np.random.RandomState(0).randn(*ori01.shape)), 0, 1).astype(np.float32)
@@ -241,7 +251,8 @@ def attack_paths(tmp: str):
         bundles = {n: get_video_model(n, device=device) for n in video_zoo.VIDEO_BUILDERS}
 
         def batch():
-            f = FusedGenerateEvaluate(atk, bundles, run_dir=os.path.join(tmp, "fused"))
+            f = FusedGenerateEvaluate(atk, bundles, run_dir=os.path.join(tmp, "fused"),
+                                      graphs=graphs)
             f.process_batch({"clips": clips[:1], "labels": np.arange(1)})
             f.finalize()
 
@@ -263,7 +274,7 @@ def chunked_paths(chunks):
     """``paths(tmp)`` of :func:`profile_attacks` for the frame-chunked runner:
     AENS-I2V-MF, then ENS-I2V, at B=16 through the image CLI's dispatch with
     ``--sharded --frame_chunk c`` for each ``c`` of ``chunks``."""
-    def paths(tmp: str):
+    def paths(tmp: str, graphs: bool = True):
         import numpy as np
 
         from i2v_tpu_torch.cli import image_main
@@ -276,7 +287,7 @@ def chunked_paths(chunks):
             flags = ["--attack_method", method, "--step", str(CHUNK_STEPS), "--step_size",
                      "0.005", "--sharded"] + ([] if chunk == "none" else ["--frame_chunk", chunk])
             atk = common.build_image_guided_attack(image_main.arg_parse(flags),
-                                                   torch.device("cuda"))
+                                                   torch.device("cuda"), graphs=graphs)
             return lambda: atk(clips, list(range(AENS_PEAK_BATCH)))
 
         return [(f"{label} --sharded --frame_chunk {c}", AENS_PEAK_BATCH, CHUNK_STEPS,
@@ -292,7 +303,7 @@ ENS_DEPTHS = {"resnet": 2, "vgg": 3, "squeezenet": 2, "alexnet": 3}
 AENS_DEPTHS = {n: [2, 3] for n in ENS_DEPTHS}
 
 
-def runner_paths(tmp: str):
+def runner_paths(tmp: str, graphs: bool = True):
     """(name, batch, steps, make) of the runner at B=16 with
     ``frame_chunk="auto"``, as :func:`attack_paths`: float32 and bfloat16
     ENS-I2V, bfloat16 AENS-I2V-MF, and float32 AENS-I2V-MF with a bfloat16
@@ -308,7 +319,7 @@ def runner_paths(tmp: str):
         models = get_image_models(list(depths), depths, device="cuda", dtype=dtype)
         runner = sharded.make_sharded_i2v_runner(
             models, steps=CHUNK_STEPS, step_size=0.005, adaptive=adaptive, aens_momentum=0.5,
-            frame_chunk="auto", mu_dtype=mu_dtype,
+            frame_chunk="auto", mu_dtype=mu_dtype, graphs=graphs,
             param_dtype=torch.bfloat16 if dtype == torch.bfloat16 else None)
         clips = clean01.cuda()
         return lambda: runner(clips)
@@ -322,7 +333,7 @@ def runner_paths(tmp: str):
          lambda: make(AENS_DEPTHS, torch.float32, True, bf16)))]
 
 
-def whitebox_paths(tmp: str):
+def whitebox_paths(tmp: str, graphs: bool = True):
     """(name, batch, steps, make) of each white-box path, as
     :func:`attack_paths`: each through the attack CLI's dispatch on its own
     full-width I3D-R50."""
@@ -338,7 +349,7 @@ def whitebox_paths(tmp: str):
         args = attack_cli.arg_parse(["--attack_method", method, "--step", str(steps)]
                                     + list(flags))
         bundle = get_video_model("i3d_resnet50", device="cuda", remat=args.remat)
-        atk = common.build_whitebox_attack(args, bundle)
+        atk = common.build_whitebox_attack(args, bundle, graphs=graphs)
         return lambda: atk(clips[:b], np.arange(b))
 
     rows = [(m, 1, ATTACK_STEPS, ()) for m in ("BIM", "DIFGSM", "TIFGSM", "TIFGSM3D", "TAP")]
@@ -406,7 +417,7 @@ def time_transforms(result: dict) -> None:
 
 
 def profile_attacks(result: dict, tmp: str, paths=attack_paths, modes=MODES,
-                    key: str = "attack_rows") -> None:
+                    key: str = "attack_rows", graph_modes=(True,)) -> None:
     import gc
 
     from torch.profiler import ProfilerActivity, profile
@@ -415,14 +426,15 @@ def profile_attacks(result: dict, tmp: str, paths=attack_paths, modes=MODES,
     for mode in modes:
         prec = common.apply_matmul_precision(argparse.Namespace(matmul_precision=mode))
         print(f"[precision] {prec}")
-        for name, batch, steps, make in paths(tmp):
+        for graphs, (name, batch, steps, make) in (
+                (g, path) for g in graph_modes for path in paths(tmp, g)):
             torch.cuda.reset_peak_memory_stats()
             call = make()
             try:
                 warm_s, _ = timed(call)
             except torch.OutOfMemoryError as e:  # a result: the batch does not fit
                 row = {"mode": mode, "path": name, "batch": batch, "steps": steps,
-                       "oom": str(e).splitlines()[0],
+                       "graphs": graphs, "oom": str(e).splitlines()[0],
                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
                 result[key].append(row)
                 print(f"[{mode}] {name}, B={batch}: out of memory after a peak of "
@@ -431,6 +443,10 @@ def profile_attacks(result: dict, tmp: str, paths=attack_paths, modes=MODES,
                 gc.collect()
                 torch.cuda.empty_cache()
                 continue
+            if graphs:
+                # a second warm-up: an evaluation forward is captured at its
+                # second batch, which for a one-batch path is its second call
+                timed(call)
             torch.cuda.reset_peak_memory_stats()
             wall_s, _ = timed(call)
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -444,7 +460,8 @@ def profile_attacks(result: dict, tmp: str, paths=attack_paths, modes=MODES,
             gc.collect()
             torch.cuda.empty_cache()
             row = {"mode": mode, "path": name, "batch": batch, "steps": steps,
-                   "warmup_s": warm_s, "wall_s": wall_s, "steps_per_sec": steps / wall_s,
+                   "graphs": graphs, "warmup_s": warm_s, "wall_s": wall_s,
+                   "steps_per_sec": steps / wall_s,
                    "clips_per_sec": batch / wall_s, "peak_gib": peak,
                    "device_ms": k["kernel_us"] / 1e3,
                    "idle_share": 1 - k["busy_us"] / k["span_us"] if k["span_us"] else None,
@@ -452,7 +469,8 @@ def profile_attacks(result: dict, tmp: str, paths=attack_paths, modes=MODES,
                    "kernels": {n[:160]: us / k["kernel_us"] for n, us in k["by_name"].items()
                                if us >= 0.002 * k["kernel_us"]}}
             result[key].append(row)
-            print(f"[{mode}] {name}, B={batch}, {steps} steps: {row['steps_per_sec']:.3f} "
+            print(f"[{mode}, {'graphed' if graphs else 'eager'}] {name}, B={batch}, {steps} "
+                  f"steps: {row['steps_per_sec']:.3f} "
                   f"steps/s, {row['clips_per_sec']:.4f} clips/s ({wall_s:.3f} s; warm-up "
                   f"{warm_s:.3f} s), device {row['device_ms']:.2f} ms, idle "
                   f"{row['idle_share']:.4f}, peak {peak:.2f} GiB; " + ", ".join(
@@ -471,6 +489,9 @@ def main(argv=None) -> dict:
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="the evaluated models' compute dtype; with --attacks, 'bfloat16' "
                         "profiles the runner at B=16 with bfloat16 surrogates and mu_dtype")
+    p.add_argument("--graphs", default="graphed", choices=sorted(GRAPH_MODES),
+                   help="each step and forward as a replayed CUDA graph (the port's path), "
+                        "eagerly, or both, eager row first")
     p.add_argument("--frame_chunk", default=None, metavar="C,C,...",
                    help="with --attacks: profile the frame-chunked runner at B=16 at each of "
                         "these chunks (ints, 'auto', 'none') instead")
@@ -486,19 +507,22 @@ def main(argv=None) -> dict:
     result = {"card": card, "torch": torch.__version__, "batch": BATCH, "rows": []}
     if args.attacks or args.whitebox:
         with tempfile.TemporaryDirectory() as tmp:
+            g = GRAPH_MODES[args.graphs]
             if args.attacks and args.dtype == "bfloat16":
                 out = args.out or "outputs/bf16_runner_profile.json"
-                profile_attacks(result, tmp, runner_paths)
+                profile_attacks(result, tmp, runner_paths, graph_modes=g)
             elif args.attacks and args.frame_chunk:
                 out = args.out or "outputs/chunk_profile.json"
-                profile_attacks(result, tmp, chunked_paths(args.frame_chunk.split(",")))
+                profile_attacks(result, tmp, chunked_paths(args.frame_chunk.split(",")),
+                                graph_modes=g)
             elif args.attacks:
                 out = args.out or "outputs/attack_profile.json"
-                profile_attacks(result, tmp)
+                profile_attacks(result, tmp, graph_modes=g)
             else:
                 out = args.out or "outputs/whitebox_profile.json"
                 time_transforms(result)
-                profile_attacks(result, tmp, whitebox_paths, ("float32",), "whitebox_rows")
+                profile_attacks(result, tmp, whitebox_paths, ("float32",), "whitebox_rows",
+                                graph_modes=g)
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         with open(out, "w") as f:
             json.dump(result, f, indent=1)
@@ -516,64 +540,73 @@ def main(argv=None) -> dict:
         for mode in ("default",) if bf16 else MODES:
             prec = common.apply_matmul_precision(argparse.Namespace(matmul_precision=mode))
             print(f"[precision] {prec}; models in {args.dtype}")
-            for name in video_zoo.VIDEO_BUILDERS:
-                bundle = get_video_model(name, device="cuda", dtype=dtype)
-                warm_s, preds = timed_eval(bundle, batches, tmp)
+            for graphs in GRAPH_MODES[args.graphs]:
+                g_label = "graphed" if graphs else "eager"
+                for name in video_zoo.VIDEO_BUILDERS:
+                    bundle = get_video_model(name, device="cuda", dtype=dtype)
+                    warm_s, preds = timed_eval(bundle, batches, tmp, graphs)
+                    # a second warm-up: a graphed forward is captured at its second batch
+                    timed_eval(bundle, batches, tmp, graphs)
+                    torch.cuda.reset_peak_memory_stats()
+                    wall_s, _ = timed_eval(bundle, batches, tmp, graphs)
+                    peak = torch.cuda.max_memory_allocated() / 2**30
+                    trace_path = os.path.join(tmp, "trace.json")
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        timed_eval(bundle, batches, tmp, graphs)
+                    prof.export_chrome_trace(trace_path)
+                    k = kernel_summary(trace_path)
+                    os.remove(trace_path)
+                    flops = forward_flops_per_clip(name)
+                    top = sorted(k["by_name"].items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
+                    row = {
+                        "mode": mode, "model": name, "graphs": graphs, "warmup_s": warm_s,
+                        "wall_s": wall_s,
+                        "clips_per_sec": BATCH / wall_s, "peak_gib": peak,
+                        "device_ms_per_clip": k["kernel_us"] / 1e3 / BATCH,
+                        "idle_share": 1 - k["busy_us"] / k["span_us"] if k["span_us"] else None,
+                        "kernel_launches": k["launches"], "gflop_per_clip": flops / 1e9,
+                        "tflops_on_device": flops * BATCH / (k["kernel_us"] * 1e-6) / 1e12,
+                        "top_kernels": [(n[:120], us / k["kernel_us"]) for n, us in top],
+                        "shares": category_shares(k["by_name"]),
+                        "kernels": {n[:160]: us / k["kernel_us"] for n, us in k["by_name"].items()
+                                    if us >= 0.002 * k["kernel_us"]},
+                        "preds": preds[:4],
+                    }
+                    result["rows"].append(row)
+                    print(f"[{mode}, {g_label}] {name}: {row['clips_per_sec']:.3f} clips/s "
+                          f"({wall_s:.4f} s for {BATCH}; warm-up {warm_s:.3f} s), device "
+                          f"{row['device_ms_per_clip']:.3f} ms/clip, idle {row['idle_share']:.4f}, "
+                          f"{row['gflop_per_clip']:.1f} GFLOP/clip at {row['tflops_on_device']:.2f} "
+                          f"TFLOP/s, peak {peak:.2f} GiB; "
+                          + ", ".join(f"{c} {v:.1%}" for c, v in sorted(
+                              row["shares"].items(), key=lambda kv: -kv[1]))
+                          + "; top: "
+                          + "; ".join(f"{n[:60]} {s:.1%}" for n, s in row["top_kernels"][:3]))
+                    del bundle
+                    torch.cuda.empty_cache()
+                bundles = {name: get_video_model(name, device="cuda", dtype=dtype)
+                           for name in video_zoo.VIDEO_BUILDERS}
+
+                def one_pass():
+                    return single_pass_eval(bundles, batches, tmp, log=lambda *_: None,
+                                            graphs=graphs)
+
+                timed(one_pass)
+                timed(one_pass)
                 torch.cuda.reset_peak_memory_stats()
-                wall_s, _ = timed_eval(bundle, batches, tmp)
+                wall_s, _ = timed(one_pass)
                 peak = torch.cuda.max_memory_allocated() / 2**30
-                trace_path = os.path.join(tmp, "trace.json")
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    timed_eval(bundle, batches, tmp)
-                prof.export_chrome_trace(trace_path)
-                k = kernel_summary(trace_path)
-                os.remove(trace_path)
-                flops = forward_flops_per_clip(name)
-                top = sorted(k["by_name"].items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
-                row = {
-                    "mode": mode, "model": name, "warmup_s": warm_s, "wall_s": wall_s,
-                    "clips_per_sec": BATCH / wall_s, "peak_gib": peak,
-                    "device_ms_per_clip": k["kernel_us"] / 1e3 / BATCH,
-                    "idle_share": 1 - k["busy_us"] / k["span_us"] if k["span_us"] else None,
-                    "kernel_launches": k["launches"], "gflop_per_clip": flops / 1e9,
-                    "tflops_on_device": flops * BATCH / (k["kernel_us"] * 1e-6) / 1e12,
-                    "top_kernels": [(n[:120], us / k["kernel_us"]) for n, us in top],
-                    "shares": category_shares(k["by_name"]),
-                    "kernels": {n[:160]: us / k["kernel_us"] for n, us in k["by_name"].items()
-                                if us >= 0.002 * k["kernel_us"]},
-                    "preds": preds[:4],
-                }
-                result["rows"].append(row)
-                print(f"[{mode}] {name}: {row['clips_per_sec']:.3f} clips/s "
-                      f"({wall_s:.4f} s for {BATCH}; warm-up {warm_s:.3f} s), device "
-                      f"{row['device_ms_per_clip']:.3f} ms/clip, idle {row['idle_share']:.4f}, "
-                      f"{row['gflop_per_clip']:.1f} GFLOP/clip at {row['tflops_on_device']:.2f} "
-                      f"TFLOP/s, peak {peak:.2f} GiB; "
-                      + ", ".join(f"{c} {v:.1%}" for c, v in sorted(
-                          row["shares"].items(), key=lambda kv: -kv[1]))
-                      + "; top: "
-                      + "; ".join(f"{n[:60]} {s:.1%}" for n, s in row["top_kernels"][:3]))
-                del bundle
+                result["single_pass"] = result.get("single_pass", []) + [
+                    {"mode": mode, "graphs": graphs, "wall_s": wall_s,
+                     "clips_per_sec": BATCH / wall_s, "peak_gib": peak}]
+                serial_s = sum(r["wall_s"] for r in result["rows"] if r["mode"] == mode
+                               and r["graphs"] == graphs)
+                print(f"[{mode}, {g_label}] single pass, six models: {BATCH / wall_s:.3f} "
+                      "clips/s "
+                      f"({wall_s:.4f} s for {BATCH}; the six serial evaluations above "
+                      f"{serial_s:.4f} s), peak {peak:.2f} GiB")
+                del bundles
                 torch.cuda.empty_cache()
-            bundles = {name: get_video_model(name, device="cuda", dtype=dtype)
-                       for name in video_zoo.VIDEO_BUILDERS}
-
-            def one_pass():
-                return single_pass_eval(bundles, batches, tmp, log=lambda *_: None)
-
-            timed(one_pass)
-            torch.cuda.reset_peak_memory_stats()
-            wall_s, _ = timed(one_pass)
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            result["single_pass"] = result.get("single_pass", []) + [
-                {"mode": mode, "wall_s": wall_s, "clips_per_sec": BATCH / wall_s,
-                 "peak_gib": peak}]
-            serial_s = sum(r["wall_s"] for r in result["rows"] if r["mode"] == mode)
-            print(f"[{mode}] single pass, six models: {BATCH / wall_s:.3f} clips/s "
-                  f"({wall_s:.4f} s for {BATCH}; the six serial evaluations above "
-                  f"{serial_s:.4f} s), peak {peak:.2f} GiB")
-            del bundles
-            torch.cuda.empty_cache()
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

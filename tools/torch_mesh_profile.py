@@ -22,7 +22,8 @@ Each runner path makes a warm-up call, then a timed one on the host's clock
 around work that ends when every card is synchronized: steps/s, clips/s,
 each card's peak memory, and when the call gave the host back; the
 evaluations likewise (clips/s; the replicas of the models on the other
-cards are made inside each pass, as an evaluation run makes them). It
+cards are made at the first pass and kept with the models, as an
+evaluation run keeps them). It
 prints one line a path and writes every number, with the card's name and
 power limit and the card count, into ``--out``. It needs a card and exits
 without one.
@@ -34,6 +35,14 @@ also traces one more call of each runner path with ``torch.profiler``
 and the span from its first kernel to its last, the share of the call's
 wall during which two or more cards ran kernels at once, and the host time
 spent in CUDA runtime calls that wait for the device.
+
+    python tools/torch_mesh_profile.py --bim [--steps 10]
+
+instead times white-box data parallelism: BIM on full-width I3D-R50 at B=4
+on cuda:0 alone and over ``attack_mesh(data=4)`` of four cards (or of
+cuda:0 four times on a machine with fewer), each with its steps eager
+(``graphs=False``) and as replayed CUDA graphs, in turns (eager, graphed,
+graphed, eager), a warm-up call and the best of two timed calls each.
 """
 
 from __future__ import annotations
@@ -135,12 +144,50 @@ def _traced(fn, path: str) -> dict:
     return trace_summary(events)
 
 
+def bim_rows(result: dict, steps: int) -> None:
+    """BIM at B=4, one card and over a four-position data mesh, eager and
+    graphed in turns."""
+    from i2v_tpu_torch import attacks
+    from i2v_tpu_torch.data import synthetic
+    from i2v_tpu_torch.models import get_video_model
+    from i2v_tpu_torch.ops import kernels
+    from i2v_tpu_torch.parallel import attack_mesh, shard_clips
+
+    n = torch.cuda.device_count()
+    ds = synthetic.SyntheticAttackDataset(n_samples=4)
+    videos = np.stack([ds[i][0] for i in range(4)])
+    labels = np.arange(4)
+    bundle = get_video_model("i3d_resnet50", device="cuda:0")
+    cards = [torch.device("cuda", i) for i in range(4)] if n >= 4 else [torch.device("cuda", 0)] * 4
+    for where, mesh in (("one card", None), (f"attack_mesh(data=4) over {cards}",
+                                             attack_mesh(cards, data=4))):
+        for graphs in (False, True, True, False):
+            atk = attacks.BIM(bundle, steps=steps, graphs=graphs)
+            batch = videos if mesh is None else shard_clips(videos, mesh)
+            atk(batch, labels)
+            walls = []
+            for _ in range(2):
+                _sync_all()
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                atk(batch, labels)
+                _sync_all()
+                walls.append(time.perf_counter() - t0)
+            name = f"BIM B=4 {where}, {'graphed' if graphs else 'eager'}"
+            row = result["paths"].setdefault(name, {"steps_per_s": []})
+            row["steps_per_s"].append(steps / min(walls))
+            print(f"[mesh profile] {name}: {steps / min(walls):.4f} steps/s (best of "
+                  f"{[round(w, 4) for w in walls]} s), K3 {kernels.launches['sign_step']} a call")
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=3, help="Adam steps a runner call")
     p.add_argument("--out", default=os.path.join("outputs", "mesh_profile.json"))
     p.add_argument("--trace", default=None, metavar="DIR",
                    help="also trace one call of each runner path into DIR")
+    p.add_argument("--bim", action="store_true",
+                   help="time BIM at B=4 on one card and over a data mesh, eager and graphed")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("torch_mesh_profile: no CUDA device is available")
@@ -159,6 +206,12 @@ def main(argv=None) -> dict:
               "steps": args.steps, "precision": common.apply_matmul_precision(
                   argparse.Namespace(matmul_precision="float32")), "paths": {}}
     print(f"[mesh profile] {n} card(s): {result['cards']}")
+    if args.bim:
+        bim_rows(result, args.steps)
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+        return result
     ds = synthetic.SyntheticAttackDataset(n_samples=CLIPS)
     clean01 = torch.from_numpy(np.stack([ds.clip01(i) for i in range(CLIPS)])).cuda()
     surr = get_image_models(list(ENS), ENS, device="cuda:0")
