@@ -143,7 +143,9 @@ raises and the script exits non-zero:
                  within MD_WB_COST_RTOL of the one-device B=4 attack's, each
                  piece's step-0 gradient within MD_WB_GRAD_ATOL of max|g| of the
                  one-device attack on that piece alone, later steps printed,
-                 steps/s beside the one-device attack's
+                 steps/s beside the one-device attack's; with four cards,
+                 ENS --model_parallel 4 at B=16 over them (frame_chunk auto),
+                 eager and graphed, as in phase 31
  30. measurement tools — the port's measurement entry points, each in its
                  own process: tools/torch_e2e_400.py over 24 clips at B=8, 10
                  steps, killed (exit 137) after 2 batches, its float16
@@ -165,7 +167,14 @@ raises and the script exits non-zero:
                  at chunk 256 (3 steps) and multigrid in bf16; ILAF on the
                  truncated I3D-R50 (its res_layer2 the full model's, bit for
                  bit); BIM, MIFGSM and TAP on I3D-R50 at B=1, BIM at B=4 over
-                 [cuda:0] x 4; the six video models' logits replayed bit for bit,
+                 [cuda:0] x 4; DIFGSM with and without momentum and
+                 TemporalTranslation 'adj' and 'random' (kernlen 15, chunk 5)
+                 on I3D-R50 at B=1, K3 = steps a call and each twin's draw
+                 table equal to the host draws of its call's generator; ENS
+                 --model_parallel 4 at B=2 over [cuda:0] x 4 (K1/K2 as on the
+                 sharded runner); the Grad-CAM evaluator over the five CAM
+                 models at B=2, two batches (maps within CAM_ATOL of the eager
+                 ones); the six video models' logits replayed bit for bit,
                  their single pass at B=16 in bf16 and float32 over two batches
                  (predictions equal), a fused ENS + six-model run over two B=2
                  batches. Gates: step-0 costs equal, later steps printed
@@ -200,6 +209,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -2827,7 +2837,15 @@ def phase_multi_device(kernels, image_main, evaluate_cli, synthetic, pixel_mean_
         f"ensemble; AENS (8 taps, momentum {AENS_MOMENTUM}) coefficients after "
         f"{MD_AENS_STEPS} steps {coef_err:.3g} from the sequential runner's (limit "
         f"{MD_COEF_ATOL}); launches {counts}")
-    del surr, surr_a, seq, par
+    del surr_a, seq, par
+    if len(set(devices)) >= 4:
+        # the model-axis runner's compiled loop on four cards at B=16
+        ds16 = synthetic.SyntheticAttackDataset(n_samples=16)
+        add(_ensemble_loop_twins(kernels, surr, np.stack([ds16[i][0] for i in range(16)]),
+                                 devices, tmp, steps=LOOP_ENS_MP16_STEPS, frame_chunk="auto"))
+        facts.append("(2) ENS --model_parallel 4 at B=16 on four cards, eager and graphed "
+                     "(printed above)")
+    del surr
 
     # (3) data-parallel evaluation over (1)'s clips
     run_dir = os.path.join(tmp, "md_run")
@@ -3111,6 +3129,50 @@ LOOP_PEAK_SLACK_GIB = 1.0  # a graphed B=16 case's peak over its eager twin's, a
 LOOP_EVAL_BATCHES = 2     # batch 1 eager (warm-up), batch 2 captured and replayed
 LOOP_FUSED_BATCHES = 2
 ADAM_STEPS = 10           # the device-table Adam against torch's, on one random state
+LOOP_TT_STEPS = 3         # TemporalTranslation's steps a call (15 variants a step)
+LOOP_ENS_MP_STEPS = 5     # --model_parallel 4 at B=2 over [cuda:0] x 4
+LOOP_ENS_MP16_STEPS = 3   # --model_parallel 4 at B=16 over four cards, chunk "auto"
+LOOP_CAM_BATCH = 2        # the Grad-CAM evaluator's clips a batch (LOOP_EVAL_BATCHES batches)
+
+
+def _recorded_costs(atk) -> np.ndarray:
+    """Every recorded clip's per-step costs of an attack, in the order recorded."""
+    return np.concatenate([[np.float32(per[i]["cost"]) for i in range(len(per))]
+                           for per in atk.loss_info.values()])
+
+
+def _ensemble_loop_twins(kernels, surr, clips_norm: np.ndarray, devices: list, tmp: str, *,
+                         steps: int, frame_chunk=None) -> dict:
+    """ENS-I2V through ``EnsembleParallelAttack`` (``image_main
+    --model_parallel 4``) over ``ensemble_mesh(devices, model=4)``, eager
+    and graphed (:func:`_loop_twins`): K1 once a chunk of each position a
+    step and once a slice at the end, K2 once a chunk of each position a
+    step, as on the sharded runner. Returns the launches."""
+    from i2v_tpu_torch.parallel import EnsembleParallelAttack, ensemble_mesh
+    from i2v_tpu_torch.parallel.sharded import resolve_frame_chunk, snap_frame_chunk
+
+    mesh = ensemble_mesh(devices, model=4)
+    b, cols = len(clips_norm), mesh.shape["frames"]
+    n_local = b * clips_norm.shape[2] // cols
+    chunks = n_local // snap_frame_chunk(resolve_frame_chunk(
+        frame_chunk, n_local, clips_norm.shape[3:]), n_local)
+    want = {"rebuild_fwd": steps * mesh.size * chunks + cols,
+            "rebuild_bwd": steps * mesh.size * chunks, "sign_step": 0}
+
+    def make(graphs):
+        atk = EnsembleParallelAttack(surr, mesh, steps=steps, step_size=0.005,
+                                     frame_chunk=frame_chunk,
+                                     name="ImageGuidedFML2_Adam_MultiModels", graphs=graphs)
+
+        def call():
+            atk.loss_info = {}
+            atk(clips_norm, None, ["v"])
+            return _recorded_costs(atk)
+        return call
+
+    where = "four cards" if len(set(devices)) >= 4 else "[cuda:0] x 4"
+    return _loop_twins(kernels, f"ENS --model_parallel 4 B={b} over {where} (chunks {chunks})",
+                       make, tmp, work=steps, want=want)
 
 
 def _adam_table_check() -> str:
@@ -3167,15 +3229,17 @@ def _idle_share(call, tmp: str) -> float:
 
 
 def _loop_twins(kernels, label: str, make, tmp: str, *, work: int, unit: str = "steps",
-                peak_gate: bool = False) -> dict:
+                peak_gate: bool = False, want: Optional[dict] = None,
+                atol: Optional[float] = None) -> dict:
     """One compiled-loops case: ``make(graphs)`` builds the path and returns a
     call that runs it once and returns its per-step costs (a 1-D float
-    array) or predictions. The eager twin runs first, then the graphed one,
-    each alone on the card: a first call (the graphed one's step 0 eager, then
-    the capture), a timed call and a traced call. Gates: the first calls'
-    launch counts equal, the step-0 costs equal, and with ``peak_gate`` the
-    graphed peak within LOOP_PEAK_SLACK_GIB of the eager one's. Returns the
-    twins' facts and their launches."""
+    array), predictions or maps. The eager twin runs first, then the graphed
+    one, each alone on the card: a first call (the graphed one's step 0
+    eager, then the capture), a timed call and a traced call. Gates: the
+    first calls' launch counts equal (and equal to ``want`` where given), the
+    step-0 costs equal, predictions equal or, with ``atol``, maps within it
+    of the eager ones, and with ``peak_gate`` the graphed peak within
+    LOOP_PEAK_SLACK_GIB of the eager one's. Returns the twins' launches."""
     import gc
 
     from i2v_tpu_torch.utils import graphs as graphs_mod
@@ -3207,6 +3271,8 @@ def _loop_twins(kernels, label: str, make, tmp: str, *, work: int, unit: str = "
     if eager["counts"] != graphed["counts"]:
         raise RuntimeError(f"{label}: launches eager {eager['counts']} vs graphed "
                            f"{graphed['counts']}")
+    if want is not None and graphed["counts"] != want:
+        raise RuntimeError(f"{label}: launches {graphed['counts']}, expected {want}")
     if graphed["captures"] == 0:
         raise RuntimeError(f"{label}: the graphed run captured nothing")
     a, b = np.asarray(eager["first"]), np.asarray(graphed["first"])
@@ -3222,6 +3288,12 @@ def _loop_twins(kernels, label: str, make, tmp: str, *, work: int, unit: str = "
         tail = (f"step-0 cost {a[0]:.6g} equal; later steps part by {parts(a, b):.3g} "
                 f"relative (eager against its own second call: "
                 f"{parts(a, np.asarray(eager['second'])):.3g}; printed)")
+    elif atol is not None:
+        err = float(np.max(np.abs(a - b)))
+        if not (a.shape == b.shape and err <= atol and np.isfinite(b).all()):
+            raise RuntimeError(f"{label}: graphed {b.shape} vs eager {a.shape}, max|diff| "
+                               f"{err} (limit {atol})")
+        tail = f"{b.shape} maps, max|diff| graphed vs eager {err:.3g} (limit {atol})"
     else:
         if not np.array_equal(a, b):
             raise RuntimeError(f"{label}: predictions eager vs graphed differ")
@@ -3244,14 +3316,20 @@ def phase_compiled_loops(kernels, synthetic, pixel, card: str, tmp: str) -> dict
     B=1 (the Adam engine); the runner at B=16 in bf16 whole and in float32 at
     chunk 256; multigrid in bf16 at B=16; AENS-I2V-MF at B=1; ILAF on the
     truncated I3D-R50 (its tap held to the full model's bit for bit); BIM,
-    MIFGSM and TAP on I3D-R50 at B=1, BIM at B=4 over [cuda:0] x 4; the six
-    video models' single pass at B=16 in bf16 and float32 (logits bit for
-    bit) and a fused ENS + six-model run at B=2. Returns the launch counts."""
+    MIFGSM and TAP on I3D-R50 at B=1, BIM at B=4 over [cuda:0] x 4; DIFGSM
+    with and without momentum and TT 'adj' and 'random' (kernlen 15, chunk
+    5) on I3D-R50 at B=1, their draw tables held to the host draws; ENS
+    --model_parallel 4 at B=2 over [cuda:0] x 4; the Grad-CAM evaluator over
+    the five CAM models at B=2 (maps within CAM_ATOL of the eager ones); the
+    six video models' single pass at B=16 in bf16 and float32 (logits bit
+    for bit) and a fused ENS + six-model run at B=2. Returns the launch
+    counts."""
     import argparse
     import gc
 
     from i2v_tpu_torch import attacks
     from i2v_tpu_torch.cli import common as cli_common
+    from i2v_tpu_torch.cli import gradcam as gradcam_cli
     from i2v_tpu_torch.eval.fused import FusedGenerateEvaluate
     from i2v_tpu_torch.eval.transfer import single_pass_eval
     from i2v_tpu_torch.models import get_image_models, get_video_model, tap_keys_for, video_zoo
@@ -3276,11 +3354,6 @@ def phase_compiled_loops(kernels, synthetic, pixel, card: str, tmp: str) -> dict
     ens = {"resnet": 2, "vgg": 3, "squeezenet": 2, "alexnet": 3}
     surr = get_image_models(list(ens), ens, device="cuda")
 
-    def loss_costs(atk):
-        """Every recorded clip's per-step costs, in the order recorded."""
-        return np.concatenate([[np.float32(per[i]["cost"]) for i in range(len(per))]
-                               for per in atk.loss_info.values()])
-
     def attack_call(build, clips, labels=None):
         def make(graphs):
             atk = build(graphs)
@@ -3288,7 +3361,7 @@ def phase_compiled_loops(kernels, synthetic, pixel, card: str, tmp: str) -> dict
             def call():
                 atk.loss_info = {}
                 atk(clips, np.zeros(len(clips), np.int64) if labels is None else labels, ["v"])
-                return loss_costs(atk)
+                return _recorded_costs(atk)
             return call
         return make
 
@@ -3349,7 +3422,7 @@ def phase_compiled_loops(kernels, synthetic, pixel, card: str, tmp: str) -> dict
         def call():
             atk.loss_info = {}
             atk(adv_norm, norm[:1], [0], ["v"])
-            return loss_costs(atk)
+            return _recorded_costs(atk)
         return call
 
     print(f"[compiled loops] ILAF's I3D-R50 truncated at {taps}: {n_cut} of {n_full} "
@@ -3373,7 +3446,74 @@ def phase_compiled_loops(kernels, synthetic, pixel, card: str, tmp: str) -> dict
 
     add(_loop_twins(kernels, "BIM I3D-R50 B=4 over [cuda:0] x 4", attack_call(
         bim_mesh, norm[:4]), tmp, work=LOOP_STEPS))
+
+    # -- DIFGSM and TT, their draws in device tables
+    def drawn(label, build, rows_of, steps):
+        """The twins of a drawing attack at B=1: K3 ``steps`` a call, and
+        after each twin's first call its draw table equal to
+        ``rows_of(attack, generator)``, the host draws of that call's
+        generator (None: no table, TT's static moves)."""
+
+        def make(graphs):
+            atk, first = build(graphs), [True]
+
+            def call():
+                atk.loss_info = {}
+                atk(norm[:1], np.zeros(1, np.int64), ["v"])
+                if first:
+                    first.clear()
+                    (loop,) = atk._loops.values()
+                    want = rows_of(atk, torch.Generator().manual_seed(atk._calls - 1))
+                    got = [t.table.cpu().numpy() for t in loop.tables]
+                    if not (got == [] if want is None else
+                            len(got) == 1 and np.array_equal(got[0], want)):
+                        raise RuntimeError(f"{label} (graphs={graphs}): the draw table "
+                                           f"{got} is not the host draws {want}")
+                return _recorded_costs(atk)
+            return call
+
+        add(_loop_twins(kernels, label, make, tmp, work=steps,
+                        want={"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": steps}))
+
+    def di_rows(atk, gen):
+        from i2v_tpu_torch.ops import diversity
+
+        return np.asarray([[int(a), r, t, c] for a, r, t, c in (
+            diversity.draw(gen, *diversity.default_range(224)) for _ in range(LOOP_STEPS))])
+
+    for momentum in (False, True):
+        drawn(f"DIFGSM{' momentum' if momentum else ''} I3D-R50 B=1",
+              lambda g, m=momentum: attacks.DIFGSM(i3d, steps=LOOP_STEPS, momentum=m, graphs=g),
+              di_rows, LOOP_STEPS)
+    print("[compiled loops] DIFGSM: each twin's draw table equal to the host draws of its "
+          "call's generator", flush=True)
+    for move_type in ("adj", "random"):
+        drawn(f"TT {move_type} I3D-R50 B=1 kernlen 15 chunk 5",
+              lambda g, mt=move_type: attacks.TemporalTranslation(
+                  i3d, dict(kernlen=15, chunk=5, move_type=mt), steps=LOOP_TT_STEPS, graphs=g),
+              lambda atk, gen, mt=move_type: None if mt != "random" else np.asarray(
+                  [atk._shifts(32, gen) for _ in range(LOOP_TT_STEPS)]), LOOP_TT_STEPS)
+    print("[compiled loops] TT: 'adj' holds no draw table; 'random''s equal to the host "
+          "draws of its call's generator", flush=True)
     del i3d
+
+    # -- the model-axis runner and the Grad-CAM evaluator
+    add(_ensemble_loop_twins(kernels, surr, norm[:2], [torch.device("cuda", 0)] * 4, tmp,
+                             steps=LOOP_ENS_MP_STEPS))
+    cams = get_image_models(list(gradcam_cli.CAM_MODELS), 4, device="cuda", truncate=False,
+                            input_hw=224)
+
+    def cam_make(graphs):
+        fns = gradcam_cli._cam_fns(cams, graphs)
+        return lambda: np.concatenate([gradcam_cli.average_cam_for_clips(
+            norm[k * LOOP_CAM_BATCH:(k + 1) * LOOP_CAM_BATCH], fns, 224, "cuda")[0]
+            for k in range(LOOP_EVAL_BATCHES)])
+
+    _loop_twins(kernels, f"Grad-CAM evaluator B={LOOP_CAM_BATCH}, "
+                f"{len(cams)} CAM models", cam_make, tmp,
+                work=LOOP_CAM_BATCH * LOOP_EVAL_BATCHES, unit="clips", atol=CAM_ATOL,
+                want=dict.fromkeys(totals, 0))
+    del cams
 
     # -- evaluation: logits bit for bit, then the single pass and a fused run
     tmp_eval = os.path.join(tmp, "loops_eval")
@@ -3417,7 +3557,7 @@ def phase_compiled_loops(kernels, synthetic, pixel, card: str, tmp: str) -> dict
                 f.process_batch({"clips": norm[2 * i:2 * i + 2], "labels": np.arange(2) + 2 * i,
                                  "names": [f"batch{i}"]})
             f.finalize()
-            return loss_costs(atk)
+            return _recorded_costs(atk)
         return call
 
     add(_loop_twins(kernels, "fused ENS-I2V B=2 + six models", fused_make, tmp,

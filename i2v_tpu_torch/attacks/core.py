@@ -25,8 +25,8 @@ runs each piece on its own device, through the attack's video-model
 replica there (:class:`~i2v_tpu_torch.parallel.replicas.Replicas`, built
 once an attack): the step's cost is the mean of the piece means (TAP's, a
 sum of per-clip terms and a CE mean, is summed), each piece's gradient is
-its share of the whole batch's, every piece draws the step's one set of
-random numbers, and smoothing, the per-clip normalizations, momentum and
+its share of the whole batch's, every piece reads the step's one row of
+random draws, and smoothing, the per-clip normalizations, momentum and
 the sign step (the kernel, once a piece a step) run on the piece's device;
 only the whole-batch L1 normalization sums one scalar across the pieces.
 The result comes back as whole clips on the mesh's first device.
@@ -44,13 +44,18 @@ import torch
 
 from ..ops import grads as grad_ops
 from ..ops import kernels, losses, pixel
-from ..utils.graphs import StepGraph
+from ..utils.graphs import DrawTable, StepGraph
 
-# grad_fn(adv01, labels, generator) -> (cost, grad w.r.t. adv01); the cost
-# already carries the targeted sign (it is ascended); the generator (a CPU
-# torch.Generator, or None) gives a step's random draws
-GradFn = Callable[[torch.Tensor, torch.Tensor, torch.Generator],
+# grad_fn(adv01, labels, draws) -> (cost, grad w.r.t. adv01); the cost
+# already carries the targeted sign (it is ascended); ``draws`` is the step's
+# row of the loop's draw table on the piece's device (DI-FGSM's transform,
+# TemporalTranslation's random shifts), or None for an attack that draws
+# nothing
+GradFn = Callable[[torch.Tensor, torch.Tensor, Optional[torch.Tensor]],
                   tuple[torch.Tensor, torch.Tensor]]
+# draws(generator) -> (steps, width) int64 rows: a call's random draws, made
+# on the host from the call's generator before the loop (DrawTable)
+Draws = Callable[[torch.Generator], np.ndarray]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,21 +97,17 @@ def _chunked(grad_fn: GradFn, b: int, chunk: int) -> GradFn:
     the batch (the trailing batch of a run) snaps to the largest divisor of
     the batch that fits, which keeps the accumulation exact.
 
-    Every chunk starts from the generator state of the step, so all chunks
-    see the step's one set of random draws (DI's transform), as the JAX
-    engine hands the step's one key to every chunk."""
+    Every chunk gets the step's one row of draws (DI's transform), as the
+    JAX engine hands the step's one key to every chunk."""
     if b % chunk:
         chunk = max(d for d in range(1, chunk + 1) if b % d == 0)
     k = b // chunk
 
-    def chunked(adv, labels, generator):
-        state = generator.get_state() if generator is not None else None
+    def chunked(adv, labels, draws):
         costs, grads = [], []
         for i in range(k):
-            if state is not None:
-                generator.set_state(state)
             c, g = grad_fn(adv[i * chunk:(i + 1) * chunk], labels[i * chunk:(i + 1) * chunk],
-                           generator)
+                           draws)
             costs.append(c)
             grads.append(g)
         # global cost = mean of the chunk means; d(global)/d(chunk) =
@@ -119,38 +120,46 @@ def _chunked(grad_fn: GradFn, b: int, chunk: int) -> GradFn:
 def run_sign_attack(grad_fn: GradFn, clean01: torch.Tensor, labels: torch.Tensor,
                     cfg: SignAttackConfig, *,
                     smooth_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-                    generator: Optional[torch.Generator] = None):
+                    draws: Optional[Draws] = None,
+                    generator: Optional[torch.Generator] = None, graphs: bool = True):
     """Run the iterative sign attack. Returns ``(adv01, per-step costs)``:
     the [0,1]-domain (B, C, T, H, W) adversarial clips and the cost before
     each update stacked over steps, (steps,) or (steps, k) for a vector cost
-    such as TAP's, both on ``clean01``'s device. ``generator`` is handed to
-    ``grad_fn`` each step for its random draws."""
+    such as TAP's, both on ``clean01``'s device. ``draws(generator)`` makes
+    the call's random draws, whose row of each step ``grad_fn`` gets."""
     (adv,), costs = run_sign_attack_pieces([grad_fn], [clean01], [labels], cfg,
-                                           smooth_fn=smooth_fn, generator=generator)
+                                           smooth_fn=smooth_fn, draws=draws,
+                                           generator=generator, graphs=graphs)
     return adv, costs
 
 
 def run_sign_attack_pieces(grad_fns: Sequence[GradFn], clean_pieces: Sequence[torch.Tensor],
                            label_pieces: Sequence[torch.Tensor], cfg: SignAttackConfig, *,
                            smooth_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                           draws: Optional[Draws] = None,
                            generator: Optional[torch.Generator] = None,
-                           cost_sum: bool = False):
+                           cost_sum: bool = False, graphs: bool = True):
     """The sign attack over a clip batch held as equal pieces, each on its
-    own device with its own ``grad_fn`` (one piece: the one-device attack),
-    every step eager. Returns ``(adv01 pieces, per-step costs)``, the costs
-    on the first piece's device.
+    own device with its own ``grad_fn`` (one piece: the one-device attack).
+    Returns ``(adv01 pieces, per-step costs)``, the costs on the first
+    piece's device.
 
     With ``cost_sum=False`` each ``grad_fn``'s cost is a mean over its clips:
     the step's cost is the mean of the piece costs and each piece's gradient
     is divided by the piece count, as :func:`_chunked` does. With
     ``cost_sum=True`` each ``grad_fn`` already returns its share of the whole
     batch's cost and gradient (TAP's), and the costs are summed. Every piece
-    starts from the step's generator state, so that all see the step's one
-    set of random draws. :class:`SignLoop` is this engine; the attacks keep
-    one a batch layout, its steps CUDA graphs on a card."""
+    reads the step's one row of ``draws``. This builds a :class:`SignLoop`
+    for the one call; the attacks keep one a batch layout. On a card its
+    steps are CUDA graphs (``graphs=False``: eager)."""
     loop = SignLoop(lambda clean: list(grad_fns), clean_pieces, cfg, smooth_fn=smooth_fn,
-                    cost_sum=cost_sum, graphs=False)
+                    cost_sum=cost_sum, graphs=graphs, draws=draws)
     return loop.run(clean_pieces, label_pieces, generator)
+
+
+def loop_key(clean_pieces, devices, targeted: int) -> tuple:
+    """The key of an attack's :class:`SignLoop` cache: the batch layout."""
+    return tuple(devices), tuple(tuple(c.shape) for c in clean_pieces), targeted
 
 
 class SignLoop:
@@ -164,18 +173,22 @@ class SignLoop:
     momentum and the sign step. What crosses pieces runs between the graphs,
     in piece order: the cost reduction, and the whole batch's Σ|g| of the
     ``l1`` normalization, after which each piece's update is a second
-    graph. A step that draws random numbers on the host (DIFGSM's and TT's
-    ``generator``) cannot be captured: it runs with ``graphs=False``.
+    graph.
 
     ``make_grad_fns(clean pieces)`` builds one ``grad_fn`` a piece over the
     static clean pieces; a ``grad_fn`` with a ``refresh()`` (TAP's, over
-    its clean taps) is refreshed when :meth:`run` copies a new batch in."""
+    its clean taps) is refreshed when :meth:`run` copies a new batch in.
+    With ``draws`` (DI-FGSM's, TemporalTranslation's random shifts),
+    :meth:`run` makes the call's draws from its generator and fills each
+    piece's :class:`~i2v_tpu_torch.utils.graphs.DrawTable`, and each step
+    hands its row to the piece's ``grad_fn``."""
 
     def __init__(self, make_grad_fns: Callable, clean_pieces: Sequence[torch.Tensor],
                  cfg: SignAttackConfig, *,
                  smooth_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-                 cost_sum: bool = False, graphs: bool = True):
-        self.cfg, self.smooth_fn, self.cost_sum = cfg, smooth_fn, cost_sum
+                 cost_sum: bool = False, graphs: bool = True, draws: Optional[Draws] = None):
+        self.cfg, self.smooth_fn, self.cost_sum, self.draws = cfg, smooth_fn, cost_sum, draws
+        self.tables: list = []  # each piece's DrawTable, made at the first run
         self.clean = list(clean_pieces)
         self.n = len(self.clean)
         self.home = self.clean[0].device
@@ -186,7 +199,7 @@ class SignLoop:
                     for fn, c in zip(fns, self.clean)]
         self.adv = [c.clone() for c in self.clean]
         self.mom = [torch.zeros_like(c) for c in self.clean] if cfg.use_momentum else None
-        self.labels = self.generator = self.records = None
+        self.labels = self.records = None
         self.k = torch.zeros(1, dtype=torch.long, device=self.home)
         self.cost_on: list = [None] * self.n  # each piece's cost of the step (n > 1)
         # the whole-batch L1 needs every piece's Σ|g| before any update
@@ -209,7 +222,8 @@ class SignLoop:
         self.k.add_(1)
 
     def _grad_step(self, i: int) -> None:
-        cost, g = self.fns[i](self.adv[i], self.labels[i], self.generator)
+        draws = self.tables[i].row() if self.tables else None
+        cost, g = self.fns[i](self.adv[i], self.labels[i], draws)
         with torch.no_grad():
             if self.n > 1 and not self.cost_sum:
                 g = g / self.n
@@ -241,10 +255,7 @@ class SignLoop:
     def step(self) -> None:
         from ..parallel.mesh import move
 
-        state = self.generator.get_state() if self.generator is not None and self.n > 1 else None
         for graph in self.grad_graphs:
-            if state is not None:
-                self.generator.set_state(state)
             graph()
         with torch.no_grad():
             if self.split:
@@ -259,7 +270,8 @@ class SignLoop:
 
     def run(self, clean_pieces: Sequence[torch.Tensor], label_pieces: Sequence[torch.Tensor],
             generator: Optional[torch.Generator] = None):
-        """→ (adv01 pieces, per-step costs) of a batch of this layout."""
+        """→ (adv01 pieces, per-step costs) of a batch of this layout; the
+        call's draws, where the loop has ``draws``, from ``generator``."""
         if any(held is not c for held, c in zip(self.clean, clean_pieces)):
             for held, c in zip(self.clean, clean_pieces):
                 held.copy_(c)
@@ -275,10 +287,14 @@ class SignLoop:
         for m in self.mom or ():
             m.zero_()
         self.k.zero_()
-        self.generator = generator
+        if self.draws is not None:
+            rows = self.draws(generator)
+            if not self.tables:
+                self.tables = [DrawTable(rows, c.device) for c in self.clean]
+            for table in self.tables:
+                table.fill(rows)
         for _ in range(self.cfg.steps):
             self.step()
-        self.generator = None
         return [a.clone() for a in self.adv], self.records.clone()
 
 
@@ -312,7 +328,7 @@ def make_ce_grad_fn(apply_norm: Callable[[torch.Tensor], torch.Tensor],
     -> logits``; cost = targeted·CE (ascended)."""
     value_and_grad = ce_value_and_grad(apply_norm, targeted)
 
-    def grad_fn(adv01, labels, generator):
+    def grad_fn(adv01, labels, draws):
         return value_and_grad(pixel.normalize(adv01, channel_axis=1), labels)
 
     return grad_fn
@@ -382,8 +398,8 @@ class Attack:
     def _next_generator(self) -> torch.Generator:
         """A fresh but reproducible generator for each call, as the JAX
         engine folds its call count into the key (the reference redraws DI
-        and TT randomness every batch). On the CPU, so that drawing a step's
-        scalars never waits on the card."""
+        and TT randomness every batch). On the CPU, so that drawing a call's
+        table never waits on the card."""
         generator = torch.Generator().manual_seed(self._calls)
         self._calls += 1
         return generator

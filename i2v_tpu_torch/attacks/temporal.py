@@ -14,6 +14,14 @@ variant's mean CE, so that each variant's gradient is that of its own mean
 CE. The two smoothed sums are accumulated variant by variant, so no stack
 of D gradients is held. Variants are ``torch.roll`` copies and the sums
 elementwise: exact, and float32 in every precision mode.
+
+The attack keeps one :class:`.core.SignLoop` a batch layout, its steps
+CUDA graphs on a card (``graphs=False``: eager), as the JAX engine builds
+one runner a shape (``i2v_tpu/attacks/temporal.py:57-127``). The 'adj' and
+'large' shifts are static. The 'random' ones are a call's table, drawn on
+the host before the loop as the eager loop drew them a step
+(:meth:`TemporalTranslation._shifts`), each step's row read on the device
+and applied by :func:`~i2v_tpu_torch.ops.smoothing.cycle_move_at`.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import torch.nn.functional as F
 
 from ..models.api import VideoModel
 from ..ops import pixel, smoothing
-from .core import Attack, SignAttackConfig, run_sign_attack_pieces
+from .core import Attack, SignAttackConfig, SignLoop, loop_key
 
 
 class TemporalTranslation(Attack):
@@ -35,8 +43,10 @@ class TemporalTranslation(Attack):
     video_attacks.py:203-207). ``delay`` is the momentum decay."""
 
     def __init__(self, model: VideoModel, params: dict | None = None,
-                 epsilon=16 / 255, steps=10, delay=1.0):
+                 epsilon=16 / 255, steps=10, delay=1.0, graphs: bool = True):
         super().__init__("TemporalTranslation", model, device=model.device)
+        self.graphs = graphs
+        self._loops: dict = {}
         p = dict(kernlen=15, momentum=False, weight=0.0, move_type="adj",
                  kernel_mode="gaussian", chunk=5)
         p.update(params or {})
@@ -73,20 +83,35 @@ class TemporalTranslation(Attack):
         rand = (torch.randint(0, 101, (len(self.moves),), generator=generator) % frames).tolist()
         return [0 if m == 0 else int(np.sign(m)) * r for m, r in zip(self.moves, rand)]
 
+    def _draws(self, clean_pieces):
+        """The loop's ``draws``: a call's (steps, D) table of :meth:`_shifts`
+        for 'random', None for the static moves."""
+        if self.move_type != "random":
+            return None
+        steps, frames = self.steps, clean_pieces[0].shape[2]
+        return lambda generator: np.asarray([self._shifts(frames, generator)
+                                             for _ in range(steps)], np.int64)
+
     def _build_grad_fn(self, model: VideoModel | None = None):
+        """``grad_fn(adv01, labels, draws)``: ``draws`` is the step's row of
+        shifts on the device ('random' in the loop), or a generator or None
+        from which :meth:`_shifts` gives them as numbers."""
         model, targeted = model or self.model, self._targeted
         weight, moves, chunk = self.weight, self.moves, self._chunk_size()
         kernel = [float(k) for k in self._kernel]
 
-        def grad_fn(adv01, labels, generator):
+        def grad_fn(adv01, labels, draws):
             b, frames = adv01.shape[0], adv01.shape[2]
-            shifts = self._shifts(frames, generator)
+            if isinstance(draws, torch.Tensor):
+                shifts, move = list(draws), smoothing.cycle_move_at
+            else:
+                shifts, move = self._shifts(frames, draws), smoothing.cycle_move
             x_norm = pixel.normalize(adv01, channel_axis=1)
             s_grad = d_grad = None
             costs = []
             for c0 in range(0, len(moves), chunk):
                 sh = shifts[c0:c0 + chunk]
-                variants = torch.cat([smoothing.cycle_move(x_norm, s) for s in sh])
+                variants = torch.cat([move(x_norm, s) for s in sh])
                 variants.requires_grad_(True)
                 with torch.enable_grad():
                     nll = F.cross_entropy(model.apply_norm(variants).float(),
@@ -95,10 +120,10 @@ class TemporalTranslation(Attack):
                 (g,) = torch.autograd.grad(per_variant.sum(), variants)
                 costs.append(per_variant.detach())
                 for j, gi in enumerate(g.reshape((len(sh), b) + g.shape[1:])):
-                    k, move = kernel[c0 + j], moves[c0 + j]
+                    k = kernel[c0 + j]
                     # rolled back by the NOMINAL move even where 'large' or
                     # 'random' applied another shift (video_attacks.py:169-170)
-                    back = torch.roll(gi, -move, dims=2)
+                    back = torch.roll(gi, -moves[c0 + j], dims=2)
                     if s_grad is None:
                         s_grad, d_grad = gi * k, back * k
                     else:
@@ -110,9 +135,14 @@ class TemporalTranslation(Attack):
         return grad_fn
 
     def _attack_pieces(self, clean_pieces, label_pieces, devices):
-        cfg = SignAttackConfig(epsilon=self.epsilon, steps=self.steps, step_size=self.step_size,
-                               use_momentum=self.momentum, decay=self.delay,
-                               grad_norm="frame" if self.momentum else None)
-        return run_sign_attack_pieces([self._build_grad_fn(self._replica(d)) for d in devices],
-                                      clean_pieces, label_pieces, cfg,
-                                      generator=self._next_generator())
+        generator = self._next_generator()
+        key = loop_key(clean_pieces, devices, self._targeted)
+        if key not in self._loops:
+            cfg = SignAttackConfig(epsilon=self.epsilon, steps=self.steps,
+                                   step_size=self.step_size, use_momentum=self.momentum,
+                                   decay=self.delay, grad_norm="frame" if self.momentum else None)
+            self._loops[key] = SignLoop(
+                lambda clean: [self._build_grad_fn(self._replica(d)) for d in devices],
+                clean_pieces, cfg, graphs=self.graphs,
+                draws=self._draws(clean_pieces))
+        return self._loops[key].run(clean_pieces, label_pieces, generator)

@@ -13,8 +13,9 @@ the reference's spelling, so that the CLI dispatches by name):
 Each is the engine :class:`.core.SignLoop` with its own gradient function,
 smoothing, normalization and momentum, kept a batch layout: on a card each
 step after the first replays a CUDA graph (``graphs=False`` runs them
-eagerly). DIFGSM draws its transform on the host each step and stays eager.
-TemporalTranslation is in :mod:`.temporal`.
+eagerly). DIFGSM draws a call's transforms on the host before the loop, and
+each step reads its row from a device table. TemporalTranslation is in
+:mod:`.temporal`.
 """
 
 from __future__ import annotations
@@ -26,21 +27,15 @@ import torch
 
 from ..models.api import VideoModel
 from ..ops import diversity, grads as grad_ops, losses, pixel, smoothing
-from .core import Attack, SignAttackConfig, SignLoop, ce_value_and_grad, make_ce_grad_fn
+from .core import (Attack, SignAttackConfig, SignLoop, ce_value_and_grad, loop_key,
+                   make_ce_grad_fn)
 
 EPS_DEFAULT = 16 / 255
-
-
-def _loop_key(clean_pieces, devices, targeted: int) -> tuple:
-    return tuple(devices), tuple(tuple(c.shape) for c in clean_pieces), targeted
 
 
 class _SignEngineAttack(Attack):
     """Shared machinery: build the gradient function for the current attack
     mode and run the engine, one :class:`SignLoop` a batch layout."""
-
-    # the step draws nothing on the host, so that it can be captured
-    capture_ready = True
 
     def __init__(self, name: str, model: VideoModel, cfg: SignAttackConfig,
                  graphs: bool = True):
@@ -49,7 +44,7 @@ class _SignEngineAttack(Attack):
         self.epsilon = cfg.epsilon
         self.steps = cfg.steps
         self.step_size = cfg.alpha
-        self.graphs = graphs and self.capture_ready
+        self.graphs = graphs
         self._loops: dict = {}
 
     def _build_grad_fn(self, bundle):
@@ -58,18 +53,19 @@ class _SignEngineAttack(Attack):
     def _build_smooth_fn(self):
         return None
 
+    def _draws(self, clean_pieces):
+        """The loop's ``draws`` for this batch layout (None: no draws)."""
+        return None
+
     def _attack_pieces(self, clean_pieces, label_pieces, devices):
         generator = self._next_generator()
-        key = _loop_key(clean_pieces, devices, self._targeted)
-        loop = self._loops.get(key)
-        if loop is None:
-            loop = SignLoop(lambda clean: [self._build_grad_fn(self._replica(d)) for d in devices],
-                            clean_pieces, self.cfg, smooth_fn=self._build_smooth_fn(),
-                            graphs=self.graphs)
-            if self.capture_ready:
-                self._loops[key] = loop
-        return loop.run(clean_pieces, label_pieces,
-                        None if self.capture_ready else generator)
+        key = loop_key(clean_pieces, devices, self._targeted)
+        if key not in self._loops:
+            self._loops[key] = SignLoop(
+                lambda clean: [self._build_grad_fn(self._replica(d)) for d in devices],
+                clean_pieces, self.cfg, smooth_fn=self._build_smooth_fn(), graphs=self.graphs,
+                draws=self._draws(clean_pieces))
+        return self._loops[key].run(clean_pieces, label_pieces, generator)
 
 
 class FGSM(_SignEngineAttack):
@@ -104,25 +100,28 @@ class MIFGSM(_SignEngineAttack):
 class DIFGSM(_SignEngineAttack):
     """Diverse-inputs FGSM: a random resize and pad of the normalized input
     with probability 0.5 each step (reference: base_attacks.py:342-411);
-    optional momentum with whole-tensor L1 normalization. The step's draws
-    come from the engine's generator, the same for every clip-batch chunk:
-    drawn on the host, they keep its steps eager."""
-
-    capture_ready = False
+    optional momentum with whole-tensor L1 normalization. A call's draws
+    come from its generator before the loop (:func:`.diversity.draw_table`),
+    and each step reads its row on the device, the same row for every
+    clip-batch chunk and every mesh piece."""
 
     def __init__(self, model: VideoModel, epsilon=EPS_DEFAULT, steps=10, decay=1.0,
-                 momentum=False):
+                 momentum=False, graphs: bool = True):
         super().__init__("DIFGSM", model, SignAttackConfig(
             epsilon=epsilon, steps=steps, use_momentum=momentum, decay=decay,
-            grad_norm="l1" if momentum else None))
+            grad_norm="l1" if momentum else None), graphs)
+
+    def _draws(self, clean_pieces):
+        steps, (low, high) = self.cfg.steps, diversity.default_range(clean_pieces[0].shape[-1])
+        return lambda generator: diversity.draw_table(generator, steps, low, high)
 
     def _build_grad_fn(self, bundle):
         targeted = self._targeted
 
-        def grad_fn(adv01, labels, generator):
+        def grad_fn(adv01, labels, draws):
             x_norm = pixel.normalize(adv01, channel_axis=1).detach().requires_grad_(True)
             with torch.enable_grad():
-                y = diversity.input_diversity(x_norm, generator)
+                y = diversity.input_diversity(x_norm, draws)
                 cost = targeted * losses.cross_entropy(bundle.apply_norm(y), labels)
             (g,) = torch.autograd.grad(cost, x_norm)
             return cost.detach(), g
@@ -198,7 +197,7 @@ class SIM(_SignEngineAttack):
         cost_and_grad = ce_value_and_grad(bundle.apply_norm, self._targeted)
         n = self.scale_steps
         if self.batch_scales:
-            def grad_fn(adv01, labels, generator):
+            def grad_fn(adv01, labels, draws):
                 x_norm = pixel.normalize(adv01, channel_axis=1)
                 stacked = torch.cat([x_norm / (2.0**i) for i in range(n)])
                 cost, gs = cost_and_grad(stacked, labels.repeat(n))
@@ -206,7 +205,7 @@ class SIM(_SignEngineAttack):
 
             return grad_fn
 
-        def grad_fn(adv01, labels, generator):
+        def grad_fn(adv01, labels, draws):
             x_norm = pixel.normalize(adv01, channel_axis=1)
             cost, gsum = 0.0, torch.zeros_like(x_norm)
             for i in range(n):
@@ -266,7 +265,7 @@ class TAP(Attack):
             _, clean_taps = model.apply_norm_taps(x_clean)
         batch = clean01.shape[0]
 
-        def grad_fn(adv01, labels, generator):
+        def grad_fn(adv01, labels, draws):
             x_norm = pixel.normalize(adv01, channel_axis=1).detach().requires_grad_(True)
             with torch.enable_grad():
                 logits, taps = model.apply_norm_taps(x_norm)
@@ -296,7 +295,7 @@ class TAP(Attack):
         cfg = SignAttackConfig(epsilon=self.epsilon, steps=self.steps, step_size=self.step_size)
         ce_weight = 1.0 / len(clean_pieces)
         self._next_generator()  # TAP draws nothing; the call count moves as elsewhere
-        key = _loop_key(clean_pieces, devices, self._targeted)
+        key = loop_key(clean_pieces, devices, self._targeted)
         if key not in self._loops:
             self._loops[key] = SignLoop(
                 lambda clean: [self._build_grad_fn(c, self._replica(d), ce_weight)

@@ -217,9 +217,9 @@ def build_image_guided_attack(args, device: torch.device, graphs: bool = True):
     routes I2V, ENS-I2V and AENS through the frame-chunked runner over
     ``attack_mesh`` of this process's devices, and ``--model_parallel N``
     ENS-I2V and AENS through the model-axis runner over ``ensemble_mesh``,
-    instead of the attack class. ``graphs=False`` (no CLI flag: the
-    profiling tools' comparison) runs the steps eagerly on a card; the
-    model-axis runner always does."""
+    instead of the attack class. On a card every path's steps are CUDA
+    graphs; ``graphs=False`` (no CLI flag: the profiling tools' comparison)
+    runs them eagerly."""
     check_runner_args(args)
     method = args.attack_method
     hw = 32 if args.tiny else data_shape(args)[1]
@@ -235,7 +235,8 @@ def build_image_guided_attack(args, device: torch.device, graphs: bool = True):
                   multigrid_scale=args.multigrid_scale)
         if model_parallel:
             return EnsembleParallelAttack(
-                models, ensemble_mesh(mesh_devices(args), model=model_parallel), **kw)
+                models, ensemble_mesh(mesh_devices(args), model=model_parallel), graphs=graphs,
+                **kw)
         return ShardedImageGuidedAttack(
             models, attack_mesh(mesh_devices(args)),
             param_dtype=torch.bfloat16 if args.param_dtype == "bfloat16" else None,
@@ -269,21 +270,19 @@ def build_image_guided_attack(args, device: torch.device, graphs: bool = True):
 
 def build_whitebox_attack(args, bundle, graphs: bool = True):
     """Dispatch a white-box method name to an attack instance (the
-    reference's getattr dispatch, attack.py:76-83). ``graphs=False`` runs a
-    graphed method's steps eagerly on a card (DIFGSM and TT always are)."""
+    reference's getattr dispatch, attack.py:76-83). ``graphs=False`` runs
+    the method's steps eagerly on a card, where they are CUDA graphs."""
     name = args.attack_method
     if name == "TemporalTranslation":
         params = {"kernlen": args.kernlen, "momentum": bool(args.momentum),
                   "weight": args.augmentation_weight, "move_type": args.move_type,
                   "kernel_mode": args.kernel_mode, "chunk": args.tt_chunk}
-        atk = attacks.TemporalTranslation(bundle, params, steps=args.step)
+        atk = attacks.TemporalTranslation(bundle, params, steps=args.step, graphs=graphs)
     elif name == "TAP":
         params = {"kernlen": 3, "temporal_kernlen": 3, "eta": 1e3, "conv3d": True}
         atk = attacks.TAP(bundle, params, steps=args.step, graphs=graphs)
     elif name == "SIM" and getattr(args, "sim_batch_scales", False):
         atk = attacks.SIM(bundle, steps=args.step, batch_scales=True, graphs=graphs)
-    elif name == "DIFGSM":
-        atk = attacks.DIFGSM(bundle, steps=args.step)
     else:
         atk = getattr(attacks, name)(bundle, steps=args.step, graphs=graphs)
     chunk = getattr(args, "batch_chunk", None)

@@ -15,6 +15,9 @@ The model list defaults to the reference's five CAM models
 at depth 4, the deepest tap (the ``find_*_layer`` last-conv defaults,
 image_cam_utils.py:26-184), untruncated. The class is the argmax of the
 logits, as in the reference's ``class_idx=None`` path (image_cam.py:116-121).
+Each model's map is one forward and one backward a batch, captured once a
+batch shape as a CUDA graph on a card and replayed (``_cam_fns``), as the
+JAX CLI jits one evaluator a bundle.
 """
 
 from __future__ import annotations
@@ -69,11 +72,12 @@ def arg_parse(argv=None):
     return args
 
 
-def _cam_fns(bundles):
-    """One CAM evaluator per bundle: frames01 NCHW → (N, h', w') raw map at
-    the model's tap resolution. Upsampling and the cross-model mean happen
-    after, at a common size."""
-    return [lambda frames, b=b: gradcam_mod._cam_raw(b, frames, None)[0] for b in bundles]
+def _cam_fns(bundles, graphs: bool = True):
+    """One CAM evaluator per bundle (:class:`~i2v_tpu_torch.eval.gradcam.CamEvaluator`,
+    a CUDA graph a batch shape on a card; ``graphs=False``: eager): frames01
+    NCHW → (N, h', w') raw map at the model's tap resolution. Upsampling and
+    the cross-model mean happen after, at a common size."""
+    return [gradcam_mod.CamEvaluator(b, graphs) for b in bundles]
 
 
 def average_cam_for_clips(clips_norm_bcthw: np.ndarray, cam_fns, size: int,

@@ -18,6 +18,14 @@ the graph from the input through the tap to the logits, so
 
 Maps are NCHW-derived: the channel axis of an activation is 1. ViT taps are
 tokens (b, n, dim), not maps; they are refused with a ``ValueError``.
+
+:class:`CamEvaluator` is the CLI's evaluator, the counterpart of the JAX
+CLI's one jitted evaluator a bundle (``i2v_tpu/cli/gradcam.py:71-83``): one
+capture-ready step a frame-batch shape, with a static frames buffer, the
+shapes taken once and a static zero offset, run as a CUDA graph on a card
+(:mod:`i2v_tpu_torch.utils.graphs`). :func:`grad_cam`,
+:func:`grad_cam_update` and :func:`average_grad_cam` stay eager, for the
+callers that differentiate through the map.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 from torch.func import functional_call
 
 from ..models.api import ImageModel
+from ..utils.graphs import StepGraph
 
 
 def _shapes(bundle: ImageModel, frames01: torch.Tensor):
@@ -41,12 +50,8 @@ def _shapes(bundle: ImageModel, frames01: torch.Tensor):
     return (None if logits is None else logits.shape), taps[bundle.tap_keys[0]].shape
 
 
-def _cam_raw(bundle: ImageModel, frames01: torch.Tensor, labels, create_graph: bool = False):
-    """(cam (B, h, w), acts) before normalization, from one forward and one
-    backward. With ``labels=None`` the class is the argmax of the same
-    forward's logits (the offset is 0, so they are the plain logits).
-    ``create_graph`` keeps the map differentiable w.r.t. ``frames01``."""
-    key = bundle.tap_keys[0]
+def _checked_shapes(bundle: ImageModel, frames01: torch.Tensor):
+    """The tap's shape, for a bundle that can give a Grad-CAM map."""
     logits_shape, acts_shape = _shapes(bundle, frames01)
     if logits_shape is None:
         raise ValueError(
@@ -57,8 +62,24 @@ def _cam_raw(bundle: ImageModel, frames01: torch.Tensor, labels, create_graph: b
             f"GradCAM needs a spatial feature map (N, C, h, w), but bundle "
             f"{bundle.name!r} taps {tuple(acts_shape)}: ViT taps are tokens "
             "(b, n, dim), which have no spatial map to weigh")
-    offset = torch.zeros(acts_shape, dtype=frames01.dtype, device=frames01.device,
-                         requires_grad=True)
+    return acts_shape
+
+
+def _cam_raw(bundle: ImageModel, frames01: torch.Tensor, labels, create_graph: bool = False):
+    """(cam (B, h, w), acts) before normalization, from one forward and one
+    backward. With ``labels=None`` the class is the argmax of the same
+    forward's logits (the offset is 0, so they are the plain logits).
+    ``create_graph`` keeps the map differentiable w.r.t. ``frames01``."""
+    offset = torch.zeros(_checked_shapes(bundle, frames01), dtype=frames01.dtype,
+                         device=frames01.device, requires_grad=True)
+    return _cam_at(bundle, frames01, labels, offset, create_graph)
+
+
+def _cam_at(bundle: ImageModel, frames01: torch.Tensor, labels, offset: torch.Tensor,
+            create_graph: bool = False):
+    """:func:`_cam_raw` with the tap's zero ``offset`` (a leaf that requires
+    its gradient) given."""
+    key = bundle.tap_keys[0]
     with torch.enable_grad():
         logits, taps = bundle.module(frames01, tap_offset={key: offset})
         labs = (logits.argmax(-1) if labels is None
@@ -70,6 +91,51 @@ def _cam_raw(bundle: ImageModel, frames01: torch.Tensor, labels, create_graph: b
         acts = acts.detach()
     weights = torch.mean(grads, dim=(2, 3), keepdim=True)  # α_k, GAP of the grads
     return torch.relu(torch.sum(weights * acts, dim=1)), acts
+
+
+class _CamStep:
+    """One bundle's raw map of one frame-batch shape as a capture-ready
+    step: the frames are copied into a static buffer, and the forward, the
+    offset's backward and the map write a static output."""
+
+    def __init__(self, bundle: ImageModel, frames01: torch.Tensor, graphs: bool):
+        self.bundle = bundle
+        self.x = torch.empty_like(frames01)
+        self.offset = torch.zeros(_checked_shapes(bundle, frames01), dtype=frames01.dtype,
+                                  device=frames01.device, requires_grad=True)
+        self.cam = None
+        self.graph = StepGraph(self._step, frames01.device, enabled=graphs)
+
+    def _step(self) -> None:
+        cam, _ = _cam_at(self.bundle, self.x, None, self.offset)
+        if self.cam is None:  # step 0 is eager: made outside any capture
+            self.cam = cam
+        else:
+            self.cam.copy_(cam)
+
+    def __call__(self, frames01: torch.Tensor) -> torch.Tensor:
+        self.x.copy_(frames01)
+        self.graph()
+        return self.cam
+
+
+class CamEvaluator:
+    """``evaluator(frames01 (N, 3, H, W)) -> (N, h, w)``: ``bundle``'s raw
+    Grad-CAM map at the argmax class (:func:`_cam_raw` with ``labels=None``,
+    bit for bit on the CPU), one :class:`_CamStep` a frame-batch shape,
+    dtype and device (``steps``): on a card a CUDA graph from the second
+    call of a shape on (``graphs=False``: eager). The map returned is the
+    step's static output: read it before the next call of its shape."""
+
+    def __init__(self, bundle: ImageModel, graphs: bool = True):
+        self.bundle, self.graphs = bundle, graphs
+        self.steps: dict = {}
+
+    def __call__(self, frames01: torch.Tensor) -> torch.Tensor:
+        key = (tuple(frames01.shape), frames01.dtype, frames01.device)
+        if key not in self.steps:
+            self.steps[key] = _CamStep(self.bundle, frames01, self.graphs)
+        return self.steps[key](frames01)
 
 
 def _minmax(cam: torch.Tensor) -> torch.Tensor:

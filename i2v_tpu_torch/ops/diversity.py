@@ -12,10 +12,19 @@ The draws come from a ``torch.Generator`` on the CPU, as Python numbers:
 the indices are built from them without reading anything back from the
 card. They cannot equal the JAX package's ``jax.random`` draws; the two are
 compared at pinned draws through :func:`diversity_gather`.
+
+The attack draws a whole call's rows at once (:func:`draw_table`, the same
+draws in the same order as :func:`draw` a step), and each step reads its
+row on the device (:func:`diversity_gather_row`): the indices are then
+device integer arithmetic on the row, and a kept row gathers by the
+identity, so that the step is one fixed-shape ``index_select`` pair with no
+host decision, which a CUDA graph can hold (the JAX package's draws are
+traced values inside its jit, ``i2v_tpu/ops/diversity.py:36-44``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -35,13 +44,26 @@ def draw(generator: torch.Generator, low: int, high: int, keep_prob: float = 0.5
     return u_apply >= keep_prob, rnd, int(u_top * h_rem), int(u_left * h_rem)
 
 
-def input_diversity(x: torch.Tensor, generator: torch.Generator, keep_prob: float = 0.5,
+def draw_table(generator: torch.Generator, steps: int, low: int, high: int,
+               keep_prob: float = 0.5) -> np.ndarray:
+    """A call's draws: ``(steps, 4)`` int64 rows ``(apply, rnd, pad_top,
+    pad_left)``, row t the :func:`draw` of step t from ``generator``."""
+    return np.asarray([[int(a), rnd, top, left] for a, rnd, top, left in
+                       (draw(generator, low, high, keep_prob) for _ in range(steps))],
+                      dtype=np.int64).reshape(steps, 4)
+
+
+def input_diversity(x: torch.Tensor, generator, keep_prob: float = 0.5,
                     low: int | None = None, high: int | None = None) -> torch.Tensor:
     """The DI transform of ``x`` (..., H, W), H = W = ``low``, with the
-    step's draws from ``generator`` (:func:`draw`)."""
+    step's draws: from ``generator`` (:func:`draw`), or, where ``generator``
+    is a row of :func:`draw_table` as a device tensor, that row's
+    (:func:`diversity_gather_row`; ``keep_prob`` was spent drawing it)."""
     d_low, d_high = default_range(x.shape[-1])
     low = d_low if low is None else low
     high = d_high if high is None else high
+    if isinstance(generator, torch.Tensor):
+        return diversity_gather_row(x, generator, low, high)
     apply, rnd, pad_top, pad_left = draw(generator, low, high, keep_prob)
     return diversity_gather(x, rnd, pad_top, pad_left, low, high) if apply else x
 
@@ -64,6 +86,28 @@ def diversity_gather(x: torch.Tensor, rnd: int, pad_top: int, pad_left: int, low
     nearest) chain for pinned draws, over the last two axes of ``x``."""
     src_r, valid_r = _axis_index(rnd, pad_top, low, high, x.device)
     src_c, valid_c = _axis_index(rnd, pad_left, low, high, x.device)
+    y = x.index_select(-2, src_r).index_select(-1, src_c)
+    return torch.where(valid_r[:, None] & valid_c[None, :], y, torch.zeros((), dtype=x.dtype,
+                                                                        device=x.device))
+
+
+def diversity_gather_row(x: torch.Tensor, row: torch.Tensor, low: int, high: int) -> torch.Tensor:
+    """:func:`diversity_gather` at a :func:`draw_table` row held on the
+    device, its indices built there: where the row applies the transform,
+    the same indices and mask, so the same values; where it keeps the
+    input, the identity indices and an all-true mask, so ``x``'s values (and
+    the gradient ``g + 0``). Nothing is read back to the host."""
+    apply, rnd = row[0] != 0, row[1]
+    out_idx = torch.arange(low, device=x.device)
+
+    def axis(pad):
+        in_resized = (out_idx * high) // low - pad
+        valid = (in_resized >= 0) & (in_resized < rnd)
+        src = torch.clamp((torch.clamp(in_resized, min=0) * low) // rnd, 0, low - 1)
+        return torch.where(apply, src, out_idx), valid | ~apply
+
+    src_r, valid_r = axis(row[2])
+    src_c, valid_c = axis(row[3])
     y = x.index_select(-2, src_r).index_select(-1, src_c)
     return torch.where(valid_r[:, None] & valid_c[None, :], y, torch.zeros((), dtype=x.dtype,
                                                                         device=x.device))

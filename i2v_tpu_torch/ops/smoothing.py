@@ -198,6 +198,16 @@ def cycle_move(clip_bcthw: torch.Tensor, shift: int) -> torch.Tensor:
     return torch.roll(clip_bcthw, int(shift), dims=2)
 
 
+def cycle_move_at(clip_bcthw: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """:func:`cycle_move` by a shift held on the device (a 0-d integer
+    tensor): output frame i is input frame (i − shift) mod T, one
+    ``index_select`` over T, ``torch.roll``'s values with nothing read back
+    to the host."""
+    frames = clip_bcthw.shape[2]
+    src = torch.remainder(torch.arange(frames, device=clip_bcthw.device) - shift, frames)
+    return clip_bcthw.index_select(2, src)
+
+
 def large_move_shift(move: int, frames: int) -> int:
     """'large' move-type shift mapping (reference: video_attacks.py:107-122)."""
     if move == 0:

@@ -9,7 +9,12 @@ frame slice f only, so each step costs one group's work a device. Slice f's
 modifier and Adam state live on its home device, position (0, f); each
 step the gradients of its positions are summed there over g (the JAX
 ``psum`` over ``'model'``), and the cost over every position on position
-(0, 0)'s device, in position order.
+(0, 0)'s device, in position order. The runner keeps its static buffers
+and step graphs a batch layout (``sharded._Loop`` over the grid of
+positions): on a card each position's chunks are a CUDA graph on its card,
+and each slice's Adam step (``utils.graphs.TableAdam``) a graph on its
+home, as the JAX runner is one ``jit`` of one scan a shape
+(``i2v_tpu/parallel/ensemble.py:258-315``).
 
 Each position keeps only its own group's clean taps. (The JAX runner's
 zero-padded flat tap buffer, ``i2v_tpu/parallel/ensemble.py:127-192``,
@@ -28,12 +33,12 @@ from typing import Optional, Sequence
 import torch
 
 from ..attacks.core import Attack
-from ..attacks.i2v import MODIFIER_INIT
 from ..models.api import ImageModel
-from ..ops import kernels, pixel
+from ..ops import pixel
 from .mesh import Mesh, local_devices, make_mesh, move
-from .sharded import (_acc, _adam, _cat, _position, _position_grad, _slices, compute_dtype_of,
-                      frame_mask, pad_to_mesh, replicate, resolve_frame_chunk, snap_frame_chunk)
+from .sharded import (_acc, _cat, _load, _Loop, _position, _position_grad, _slices,
+                      compute_dtype_of, frame_mask, pad_to_mesh, replicate, resolve_frame_chunk,
+                      snap_frame_chunk)
 
 
 def ensemble_mesh(devices: Optional[Sequence] = None, model: Optional[int] = None) -> Mesh:
@@ -63,6 +68,7 @@ def make_ensemble_parallel_runner(
     coef_ce: bool = False,
     frame_chunk: int | str | None = None,
     return_modifier: bool = False,
+    graphs: bool = True,
 ):
     """``runner(clean01 (B,C,T,H,W) in [0,1], n_real=None, mod_init=None)
     -> (adv01 clips, per-step costs)`` with the surrogates split over the
@@ -79,6 +85,11 @@ def make_ensemble_parallel_runner(
       reference's scale the VGG group would otherwise hold the activations
       of its whole slice.
     - ``adaptive=True`` runs AENS (TPAMI_attack.py:255-320).
+    - ``graphs`` (default): on a card each position's step, and each
+      slice's Adam update, is a CUDA graph captured at the second step of
+      the first call of a batch layout and replayed from then on
+      (``sharded._Loop``, one a layout in ``runner.loops``); ``graphs=False``
+      runs the same steps eagerly.
 
     ``runner.value_and_grad(clean01, modifier, n_real=None)`` gives the
     first step's cost and gradient without a step; ``runner.coefficients()``
@@ -109,89 +120,81 @@ def make_ensemble_parallel_runner(
                                 coef_ce=coef_ce, n_taps=n_taps, remat=False)
     coeffs_box = [torch.ones(n_taps, dtype=torch.float32, device=home)]
 
-    def state0():
-        if not adaptive:
-            return None
-        return coeffs_box[0], torch.ones(n_taps, dtype=torch.float32, device=home)
-
-    def prepare(clean01, n_real):
-        """→ (B, frame slice f on its home device for each f, positions as
-        a (model, frames) list of lists)."""
+    def frame_slices(clean01, n_real):
+        """→ (B, frame slice f for each f (on the home device), the pad
+        mask's slices or Nones)."""
         clean01 = torch.as_tensor(clean01).to(home, torch.float32)
         b, _, t = clean01.shape[:3]
         frames = pixel.flatten_clip_to_frames(clean01)
         del clean01
         if (b * t) % cols:
             raise ValueError(f"{b * t} frames do not divide over the frames axis of {cols}")
-        n_local = b * t // cols
-        chunk = snap_frame_chunk(resolve_frame_chunk(frame_chunk, n_local, frames.shape[2:],
-                                                     compute_dtype), n_local)
-        slices = _slices(frames, cols)
         mask = frame_mask(b, t, n_real, home)
-        masks = [None] * cols if mask is None else _slices(mask, cols)
-        positions = [[_position(replicas[g, grid[g, f]], move(slices[f], grid[g, f]), chunk,
-                                None if masks[f] is None else move(masks[f], grid[g, f]),
-                                taps[g])
-                      for f in range(cols)] for g in range(m_size)]
-        return b, [move(s, d) for s, d in zip(slices, homes)], positions
+        return b, _slices(frames, cols), [None] * cols if mask is None else _slices(mask, cols)
 
-    def grad_and_state(positions, modifiers, state):
-        """→ (cost, each slice's gradient on its home device, next state)."""
+    def positions_of(slices, masks) -> list:
+        """The positions as a (model, frames) list of lists."""
+        n_local = slices[0].shape[0]
+        chunk = snap_frame_chunk(resolve_frame_chunk(frame_chunk, n_local, slices[0].shape[2:],
+                                                     compute_dtype), n_local)
+        return [[_position(replicas[g, grid[g, f]], move(slices[f], grid[g, f]), chunk,
+                           None if masks[f] is None else move(masks[f], grid[g, f]), taps[g])
+                 for f in range(cols)] for g in range(m_size)]
+
+    # the loops by batch layout, as the JAX runner's jit caches by shape
+    loops: dict = {}
+
+    def loop_for(clean01, n_real) -> tuple[int, _Loop]:
+        b, slices, masks = frame_slices(clean01, n_real)
+        key = (tuple(slices[0].shape), masks[0] is None)
+        loop = loops.get(key)
+        if loop is None:
+            loop = loops[key] = _Loop(
+                positions_of(slices, masks), home, steps=steps, step_size=step_size,
+                mu_dtype=None, adaptive=adaptive, aens_momentum=aens_momentum, n_taps=n_taps,
+                grad_of=grad_of, graphs=graphs)
+        else:
+            for q, pos in enumerate(loop.positions):
+                _load(pos, slices[q % cols], masks[q % cols])
+        return b, loop
+
+    def runner(clean01, n_real=None, mod_init=None):
+        b, loop = loop_for(clean01, n_real)
+        loop.reset(None if mod_init is None else _slices(mod_init, cols), None, coeffs_box[0])
+        for _ in range(steps):
+            loop.step()
+        if adaptive:
+            coeffs_box[0] = loop.coeffs.clone()
+        out = (pixel.unflatten_frames_to_clip(loop.adversarial(epsilon), b), loop.costs.clone())
+        if return_modifier:
+            out = out + (_cat([m.clone() for m in loop.modifiers], home),)
+        return out
+
+    def value_and_grad(clean01, modifier, n_real=None):
+        """The first step's cost and gradient, eagerly: each position's, the
+        gradients summed over the model axis on each slice's home, the cost
+        over every position on (0, 0)'s device, in position order."""
+        _, slices, masks = frame_slices(clean01, n_real)
+        positions = positions_of(slices, masks)
         coeffs = None
         if adaptive:
-            coeffs_prev, prev = state
-            coeffs = torch.softmax(torch.softmax(prev, dim=0) + aens_momentum * coeffs_prev, dim=0)
-        # every copy the step needs is queued before any position's work: a
-        # copy out of a card runs on its stream, behind the work queued there,
-        # and the card it goes to would wait for that work
-        mods = [[move(modifiers[f].detach(), positions[g][f].device) for f in range(cols)]
-                for g in range(m_size)]
-        devices = dict.fromkeys(q.device for row in positions for q in row)
-        coeffs_on = {} if coeffs is None else {d: move(coeffs, d) for d in devices}
-        cost, grads, signals = None, [None] * cols, [None] * m_size
+            ones = torch.ones(n_taps, dtype=torch.float32, device=home)
+            coeffs = torch.softmax(torch.softmax(ones, dim=0) + aens_momentum * coeffs_box[0],
+                                   dim=0)
+        mods = _slices(modifier, cols)
+        cost, grads = None, [None] * cols
         for g in range(m_size):
             for f in range(cols):
                 pos = positions[g][f]
-                c, s, gr = grad_of(pos, mods[g][f], coeffs_on.get(pos.device))
+                c, _, gr = grad_of(pos, mods[f].to(pos.frames),
+                                   None if coeffs is None else move(coeffs, pos.device))
                 cost = _acc(cost, c, home)
                 grads[f] = _acc(grads[f], gr, homes[f])
-                signals[g] = _acc(signals[g], s, home)
-        if not adaptive:
-            return cost, grads, state
-        return cost, grads, (coeffs, signals[0] if m_size == 1 else torch.cat(signals))
-
-    def runner(clean01, n_real=None, mod_init=None):
-        b, home_frames, positions = prepare(clean01, n_real)
-        inits = None if mod_init is None else _slices(mod_init, cols)
-        modifiers = [(torch.full_like(fr, MODIFIER_INIT) if inits is None
-                      else inits[f].to(fr).clone()).requires_grad_(True)
-                     for f, fr in enumerate(home_frames)]
-        opt = _adam(modifiers, step_size, None)
-        state, costs = state0(), []
-        for _ in range(steps):
-            cost, grads, state = grad_and_state(positions, modifiers, state)
-            for m, gr in zip(modifiers, grads):
-                m.grad = gr
-            opt.step()
-            costs.append(cost)
-        if adaptive:
-            coeffs_box[0] = state[0]
-        finals = [m.detach() for m in modifiers]
-        with torch.no_grad():
-            adv = _cat([kernels.rebuild_adv(fr, m, epsilon)
-                        for fr, m in zip(home_frames, finals)], home)
-        out = (pixel.unflatten_frames_to_clip(adv, b),
-               torch.stack(costs) if costs else adv.new_zeros(0))
-        return out + (_cat(finals, home),) if return_modifier else out
-
-    def value_and_grad(clean01, modifier, n_real=None):
-        _, home_frames, positions = prepare(clean01, n_real)
-        mods = [m.to(fr) for m, fr in zip(_slices(modifier, cols), home_frames)]
-        cost, grads, _ = grad_and_state(positions, mods, state0())
         return cost, _cat(grads, home)
 
     runner.value_and_grad = value_and_grad
     runner.coefficients = lambda: coeffs_box[0]
+    runner.loops = loops
     return runner
 
 
@@ -208,7 +211,7 @@ class EnsembleParallelAttack(Attack):
                  step_size: float = 0.005, adaptive: bool = False, aens_momentum: float = 0.0,
                  coef_ce: bool = False, frame_chunk: int | str | None = None,
                  name: str = "EnsembleParallelENS", multigrid: int = 0,
-                 multigrid_scale: int = 2):
+                 multigrid_scale: int = 2, graphs: bool = True):
         super().__init__(name, None, device=mesh.devices[0, 0])
         self.steps = steps
         self.mesh = mesh
@@ -221,11 +224,12 @@ class EnsembleParallelAttack(Attack):
             self._runner = make_multigrid_i2v_runner(
                 models, mesh, steps=steps, coarse_steps=multigrid, scale=multigrid_scale,
                 step_size=step_size, frame_chunk=frame_chunk,
-                runner_factory=make_ensemble_parallel_runner)
+                runner_factory=functools.partial(make_ensemble_parallel_runner, graphs=graphs))
         else:
             self._runner = make_ensemble_parallel_runner(
                 models, mesh, steps=steps, step_size=step_size, adaptive=adaptive,
-                aens_momentum=aens_momentum, coef_ce=coef_ce, frame_chunk=frame_chunk)
+                aens_momentum=aens_momentum, coef_ce=coef_ce, frame_chunk=frame_chunk,
+                graphs=graphs)
 
     def __call__(self, videos, labels=None, video_names=None) -> torch.Tensor:
         t_axis = 1 if pixel.is_u8_clips(videos) else 2

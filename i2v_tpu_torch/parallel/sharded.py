@@ -274,23 +274,6 @@ def _position_grad(pos: _Position, modifier: torch.Tensor, coeffs, *, epsilon: f
     return cost, signal, grad
 
 
-def _adam(params: list, step_size: float, opt_init) -> torch.optim.Adam:
-    """``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8, foreach=False)``
-    over the modifier's slices, for the model-axis runner (:mod:`.ensemble`),
-    which steps eagerly; ``opt_init``, one ``(step, exp_avg, exp_avg_sq)`` a
-    slice, resumes a saved state."""
-    opt = torch.optim.Adam(params, lr=step_size, betas=(0.9, 0.999), eps=1e-8,
-                           foreach=False, fused=False)
-    for param, (step, exp_avg, exp_avg_sq) in zip(params, opt_init or ()):
-        opt.state[param] = {
-            # torch keeps a non-capturable step as a float32 scalar on the CPU
-            "step": torch.as_tensor(step, dtype=torch.float32).detach().cpu().clone(),
-            "exp_avg": exp_avg.detach().to(param).clone(),
-            "exp_avg_sq": exp_avg_sq.detach().to(param).clone(),
-        }
-    return opt
-
-
 class _AdamMu:
     """``optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8, mu_dtype=...)``, the JAX
     runner's optimizer when ``mu_dtype`` is set (optax's ``scale_by_adam``,
@@ -343,8 +326,8 @@ class _AdamMu:
 
     def io_state(self):
         """``(count, mu, nu)``: the count as a float32 scalar, as
-        :func:`_adam_state` gives torch Adam's step, and ``mu`` in
-        ``mu_dtype``."""
+        :meth:`~i2v_tpu_torch.utils.graphs.TableAdam.state` gives torch
+        Adam's step, and ``mu`` in ``mu_dtype``."""
         return (torch.tensor(float(self.count)), self.mu.clone(), self.nu.clone())
 
 
@@ -366,41 +349,65 @@ def _local_chunk(frame_chunk, n_frames: int, hw, compute_dtype, n_positions: int
 
 
 class _Loop:
-    """The runner's static buffers and step graphs for one batch layout.
+    """A runner's static buffers and step graphs for one batch layout.
 
-    Each position holds its frames, clean taps, pad mask and gradient
-    buffer, its modifier slice and its slice's Adam state
-    (:class:`~i2v_tpu_torch.utils.graphs.TableAdam`), and its cost and AENS
-    signal of the step. The first position's device holds the per-step
-    costs and AENS's coefficients (those of the step under way) and
-    previous per-tap loss. One position on that device runs the whole step
-    as one graph. Over a mesh each position's chunks and Adam update are a
-    graph on its card, and the sums across positions, the coefficient update
-    and the copies between cards run between them, in position order."""
+    ``grid`` holds the positions as rows of columns: one row for this
+    module's runner (its positions in mesh order), one row a surrogate group
+    for the model-axis runner (:mod:`.ensemble`), where position (g, f) runs
+    group g's models over frame slice f. Each position holds its frames,
+    clean taps, pad mask and gradient buffer, and its cost and AENS signal
+    of the step. Column f's modifier and its Adam state
+    (:class:`~i2v_tpu_torch.utils.graphs.TableAdam`) live on row 0's
+    position, the column's home. The first position's device holds the
+    per-step costs and AENS's coefficients (those of the step under way)
+    and previous per-tap loss.
 
-    def __init__(self, positions: list, home: torch.device, *, steps: int, step_size: float,
+    One position on that device runs the whole step as one graph. Over a
+    mesh each position's chunks are a graph on its card, with its column's
+    Adam update in it where the grid has one row. With several rows each
+    column's Adam is a graph of its own on the column's home, after the
+    gradients of the column's positions are summed there over the rows. The
+    sums across positions, the coefficient update and the copies between
+    cards (the coefficients and, with several rows, each column's modifier,
+    to its positions) run between the graphs, in position order (row-major),
+    as the eager runners summed them."""
+
+    def __init__(self, grid: list, home: torch.device, *, steps: int, step_size: float,
                  mu_dtype, adaptive: bool, aens_momentum: float, n_taps: int, grad_of,
                  graphs: bool):
-        self.positions, self.home = positions, home
+        self.grid, self.home = grid, home
+        self.positions = [p for row in grid for p in row]
+        self.cols = len(grid[0])
         self.adaptive, self.momentum, self.grad_of = adaptive, aens_momentum, grad_of
-        self.modifiers = [torch.full_like(p.frames, MODIFIER_INIT) for p in positions]
+        self.modifiers = [torch.full_like(p.frames, MODIFIER_INIT) for p in grid[0]]
         self.adams = [TableAdam(m, step_size, steps, mu_dtype) for m in self.modifiers]
         self.costs = torch.zeros(steps, device=home)
         self.k = torch.zeros(1, dtype=torch.long, device=home)
-        self.whole = len(positions) == 1 and positions[0].device == home
+        self.whole = len(self.positions) == 1 and self.positions[0].device == home
+        self.summed = len(grid) > 1
+        # each position's modifier: its column's, or a copy on its card
+        self.mod_on = [m if p.device == m.device else torch.empty_like(m, device=p.device)
+                       for row in grid for p, m in zip(row, self.modifiers)]
         if adaptive:
             self.coeffs = torch.ones(n_taps, device=home)
             self.prev = torch.ones(n_taps, device=home)
             self.coeffs_on = [self.coeffs if p.device == home
-                              else torch.ones(n_taps, device=p.device) for p in positions]
+                              else torch.ones(n_taps, device=p.device) for p in self.positions]
+        self.adam_graphs: list = []
         if self.whole:
             self.graphs = [StepGraph(self._whole_step, home, enabled=graphs)]
-        else:
-            self.cost_on = [torch.zeros((), device=p.device) for p in positions]
-            self.signal_on = [torch.zeros(n_taps, device=p.device) if adaptive else None
-                              for p in positions]
-            self.graphs = [StepGraph(functools.partial(self._position_step, q), p.device,
-                                     enabled=graphs) for q, p in enumerate(positions)]
+            return
+        self.cost_on = [torch.zeros((), device=p.device) for p in self.positions]
+        self.signal_on = [torch.zeros(len(range(n_taps)[p.taps]), device=p.device)
+                          if adaptive else None for p in self.positions]
+        self.graphs = [StepGraph(functools.partial(self._position_step, q), p.device,
+                                 enabled=graphs) for q, p in enumerate(self.positions)]
+        if self.summed:
+            self.grad_on = [p.grad_buf if p.grad_buf is not None else torch.empty_like(p.frames)
+                            for p in self.positions]
+            self.grad_sum = [torch.empty_like(m) for m in self.modifiers]
+            self.adam_graphs = [StepGraph(functools.partial(self._adam_step, f), m.device,
+                                          enabled=graphs) for f, m in enumerate(self.modifiers)]
 
     def reset(self, inits, opt_init, coeffs0) -> None:
         for q, (m, adam) in enumerate(zip(self.modifiers, self.adams)):
@@ -433,13 +440,20 @@ class _Loop:
         adam.step(grad)
 
     def _position_step(self, q: int) -> None:
-        cost, signal, grad = self.grad_of(self.positions[q], self.modifiers[q],
+        cost, signal, grad = self.grad_of(self.positions[q], self.mod_on[q],
                                           self.coeffs_on[q] if self.adaptive else None)
         with torch.no_grad():
             self.cost_on[q].copy_(cost)
             if signal is not None:
                 self.signal_on[q].copy_(signal)
+            if self.summed:
+                if grad is not self.grad_on[q]:
+                    self.grad_on[q].copy_(grad)
+                return
         self.adams[q].step(grad)
+
+    def _adam_step(self, f: int) -> None:
+        self.adams[f].step(self.grad_sum[f])
 
     def step(self) -> None:
         if self.whole:
@@ -448,22 +462,50 @@ class _Loop:
         with torch.no_grad():
             if self.adaptive:
                 self._next_coeffs()
-                # the coefficients go out to every card before any position's
-                # work is queued (see ensemble.py: a copy queues behind its
-                # card's work)
+            # the copies go out to every card before any position's work is
+            # queued (see ensemble.py: a copy queues behind its card's work)
+            if self.adaptive:
                 for c in self.coeffs_on:
                     if c is not self.coeffs:
                         c.copy_(self.coeffs)
+            for q, m in enumerate(self.mod_on):
+                held = self.modifiers[q % self.cols]
+                if m is not held:
+                    m.copy_(held)
         for graph in self.graphs:
             graph()
         with torch.no_grad():
-            cost = signal = None
-            for c, s in zip(self.cost_on, self.signal_on):
-                cost, signal = _acc(cost, c, self.home), _acc(signal, s, self.home)
+            for f, total in enumerate(self.grad_sum if self.summed else ()):
+                acc = None
+                for q in range(f, len(self.positions), self.cols):
+                    acc = _acc(acc, self.grad_on[q], total.device)
+                total.copy_(acc)
+        for graph in self.adam_graphs:
+            graph()
+        with torch.no_grad():
+            cost = None
+            for c in self.cost_on:
+                cost = _acc(cost, c, self.home)
             self.costs.index_copy_(0, self.k, cost.reshape(1))
             self.k.add_(1)
             if self.adaptive:
-                self.prev.copy_(signal)
+                # each group's taps summed over its row, the groups in order
+                rows = [self.signal_on[g * self.cols:(g + 1) * self.cols]
+                        for g in range(len(self.grid))]
+                signals = []
+                for row in rows:
+                    acc = None
+                    for s in row:
+                        acc = _acc(acc, s, self.home)
+                    signals.append(acc)
+                self.prev.copy_(signals[0] if len(signals) == 1 else torch.cat(signals))
+
+    def adversarial(self, epsilon: float) -> torch.Tensor:
+        """The (B·T, 3, H, W) adversarial frames of the modifiers, whole on
+        the first position's device (K1 once a column)."""
+        with torch.no_grad():
+            return _cat([kernels.rebuild_adv(p.frames, m, epsilon)
+                         for p, m in zip(self.grid[0], self.modifiers)], self.home)
 
 
 def make_sharded_i2v_runner(
@@ -607,7 +649,7 @@ def make_sharded_i2v_runner(
         loop = loops.get(key)
         if loop is None:
             loop = loops[key] = _Loop(
-                positions_of(frames, mask), home, steps=steps, step_size=step_size,
+                [positions_of(frames, mask)], home, steps=steps, step_size=step_size,
                 mu_dtype=mu_dtype, adaptive=adaptive, aens_momentum=aens_momentum,
                 n_taps=n_taps, grad_of=grad_of, graphs=graphs)
         else:
@@ -628,10 +670,7 @@ def make_sharded_i2v_runner(
             loop.step()
         if adaptive:
             coeffs_box[0] = loop.coeffs.clone()
-        with torch.no_grad():
-            adv = _cat([kernels.rebuild_adv(p.frames, m, epsilon)
-                        for p, m in zip(loop.positions, loop.modifiers)], home)
-        out = (pixel.unflatten_frames_to_clip(adv, b), loop.costs.clone())
+        out = (pixel.unflatten_frames_to_clip(loop.adversarial(epsilon), b), loop.costs.clone())
         if return_modifier:
             out = out + (_cat([m.clone() for m in loop.modifiers], home),)
         if opt_state_io:

@@ -38,7 +38,11 @@ Python, which runs once, at capture. The capture's tally of them is added to
 :class:`TableAdam` is Adam as a capture-ready step: the per-step scalars
 (bias corrections, the step size) come from a small device table that the
 host fills before the loop, in the arithmetic of the eager optimizer it
-stands for, indexed by a device step counter.
+stands for, indexed by a device step counter. :class:`DrawTable` does the
+same for a loop's random draws (DI-FGSM's resize and pads,
+TemporalTranslation's random shifts): the host makes a whole call's draws
+from the call's generator before the loop, in the order the eager loop
+made them a step, and each step reads its row on the device.
 """
 
 from __future__ import annotations
@@ -248,3 +252,26 @@ class TableAdam:
     def state(self):
         return (torch.tensor(float(self.count0 + self.steps)), self.exp_avg.clone(),
                 self.exp_avg_sq.clone())
+
+
+class DrawTable:
+    """A loop's host draws as a capture-ready read: a ``(steps, width)``
+    int64 table on ``device``, one row a step. :meth:`fill` copies a call's
+    rows in (once a call, before the loop; not capture-ready) and restarts
+    the device step counter ``k``; :meth:`row` gives the step's row as a
+    device tensor and moves ``k`` on, so that a captured step reads the next
+    row at every replay. Every reader of a step's draws (each clip-batch
+    chunk, each mesh piece) takes the one row the step read."""
+
+    def __init__(self, rows: np.ndarray, device):
+        self.table = torch.from_numpy(np.array(rows, dtype=np.int64)).to(device)
+        self.k = torch.zeros(1, dtype=torch.long, device=device)
+
+    def fill(self, rows: np.ndarray) -> None:
+        self.table.copy_(torch.from_numpy(np.array(rows, dtype=np.int64)))
+        self.k.zero_()
+
+    def row(self) -> torch.Tensor:
+        row = self.table.index_select(0, self.k)[0]
+        self.k.add_(1)
+        return row

@@ -20,7 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread, torch_rng_restored  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LEVERS = ("f32_chunk", "f32_ulp", "bf16", "multigrid", "multigrid_cs12", "f16_egress")

@@ -11,7 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread, torch_rng_restored  # noqa: E402,F401
 
 from i2v_tpu.cli import attack as jattack_cli  # noqa: E402
 from i2v_tpu.cli import attack_ucf101 as jattack_ucf101_cli  # noqa: E402

@@ -16,7 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread, torch_rng_restored  # noqa: E402,F401
 
 from i2v_tpu_torch.ops import pixel  # noqa: E402
 from tools import torch_baseline_anchor as anchor  # noqa: E402

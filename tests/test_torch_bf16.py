@@ -36,7 +36,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread, torch_rng_restored  # noqa: E402,F401
 
 from flax import linen as fnn  # noqa: E402
 from i2v_tpu.eval import transfer as jtransfer  # noqa: E402

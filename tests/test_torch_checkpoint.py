@@ -17,7 +17,7 @@ from flax import serialization
 
 torch = pytest.importorskip("torch")
 
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread, torch_rng_restored  # noqa: E402,F401
 
 from i2v_tpu.models import convert as jconvert  # noqa: E402
 from i2v_tpu.models import get_image_models as jget_image_models  # noqa: E402

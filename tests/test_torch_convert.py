@@ -31,7 +31,7 @@ from flax import serialization  # noqa: E402
 
 from tests.test_convert import (TorchAlexNet, TorchBottleneck, TorchMiniViT,  # noqa: E402
                                 TorchSqueezeNet11, _randomize_bn)
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread, torch_rng_restored  # noqa: E402,F401
 
 from i2v_tpu.models import convert as jcv  # noqa: E402
 from i2v_tpu_torch.models import convert as cv  # noqa: E402

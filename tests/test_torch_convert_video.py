@@ -37,7 +37,7 @@ from flax import serialization  # noqa: E402
 from tests.test_convert_video import (TorchMiniI3D, TorchMiniSlowFast,  # noqa: E402
                                       TorchMiniTPNFull, TorchNLBottleneck3D)
 from tests.test_convert_video import _randomize_bn as _jax_randomize_bn  # noqa: E402
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread, torch_rng_restored  # noqa: E402,F401
 
 from i2v_tpu.models import i3d as ji3d  # noqa: E402
 from i2v_tpu.models import tpn as jtpn  # noqa: E402

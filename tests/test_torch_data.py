@@ -19,7 +19,7 @@ from PIL import Image
 
 torch = pytest.importorskip("torch")
 
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread, torch_rng_restored  # noqa: E402,F401
 
 from i2v_tpu.data import kinetics as jkinetics  # noqa: E402
 from i2v_tpu.data import native as jnative  # noqa: E402

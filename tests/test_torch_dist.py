@@ -20,7 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread, torch_rng_restored  # noqa: E402,F401
 
 from i2v_tpu.parallel import dist as jdist  # noqa: E402
 from i2v_tpu_torch.cli import common, evaluate, image_main  # noqa: E402

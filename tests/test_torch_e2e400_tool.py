@@ -21,7 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread, torch_rng_restored  # noqa: E402,F401
 
 import tools.e2e_400 as jtool  # noqa: E402
 import tools.perf_probe as jprobe  # noqa: E402

@@ -19,7 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread, torch_rng_restored  # noqa: E402,F401
 
 from i2v_tpu.eval import gradcam as jgradcam  # noqa: E402
 from i2v_tpu.models import ImageModel as JImageModel  # noqa: E402

@@ -12,7 +12,9 @@ building blocks. Also held:
     for bit, and its state round trip;
   - no step reads anything back to the host: one step of each runs under a
     dispatch mode that raises on ``aten._local_scalar_dense``,
-    ``aten.nonzero`` and ``aten.is_nonzero``;
+    ``aten.nonzero`` and ``aten.is_nonzero`` (DIFGSM, TemporalTranslation,
+    the model-axis runner and the Grad-CAM evaluator among them, whose
+    eager forms tests/test_torch_graphs_rest.py holds them to);
   - a second batch of one shape reuses the first's loop (one cache entry)
     and gives what a fresh engine gives;
   - the runner and BIM against the JAX package at the tolerances of
@@ -35,7 +37,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread, torch_rng_restored  # noqa: E402,F401
 
 import i2v_tpu.attacks as jattacks  # noqa: E402
 from i2v_tpu.models import get_image_models as jget_image_models  # noqa: E402
@@ -46,7 +48,7 @@ from i2v_tpu.parallel import sharded as jsharded  # noqa: E402
 from i2v_tpu_torch import attacks  # noqa: E402
 from i2v_tpu_torch.attacks import core  # noqa: E402
 from i2v_tpu_torch.attacks.i2v import MODIFIER_INIT, _collect_taps  # noqa: E402
-from i2v_tpu_torch.eval import transfer  # noqa: E402
+from i2v_tpu_torch.eval import gradcam, transfer  # noqa: E402
 from i2v_tpu_torch.models import (ImageModel, VideoModel, build_image_model,  # noqa: E402
                                   get_video_model, i3d, tap_keys_for)
 from i2v_tpu_torch.models.convert import from_jax_params  # noqa: E402
@@ -54,7 +56,7 @@ from i2v_tpu_torch.models.registry import random_init_  # noqa: E402
 from i2v_tpu_torch.ops import grads as grad_ops  # noqa: E402
 from i2v_tpu_torch.ops import kernels, pixel  # noqa: E402
 from i2v_tpu_torch.parallel import mesh as pmesh  # noqa: E402
-from i2v_tpu_torch.parallel import multigrid, replicas, sharded  # noqa: E402
+from i2v_tpu_torch.parallel import ensemble, multigrid, replicas, sharded  # noqa: E402
 from i2v_tpu_torch.utils import artifacts, graphs  # noqa: E402
 
 EPS = 16 / 255
@@ -312,6 +314,12 @@ SIGN_METHODS = {
     "TIFGSM3D": lambda m: attacks.TIFGSM3D(m, steps=STEPS, kernlen=3),
     "TAP": lambda m: attacks.TAP(m, steps=STEPS),
 }
+# the steps that read a draw table: held under the no-host-read mode only
+# (tests/test_torch_graphs_rest.py holds them to their old eager loop)
+DRAWN = {
+    "DIFGSM": lambda m: attacks.DIFGSM(m, steps=STEPS),
+    "DIFGSM-momentum": lambda m: attacks.DIFGSM(m, steps=STEPS, momentum=True),
+}
 
 
 def _ref_of(atk, clean_pieces, label_pieces):
@@ -492,18 +500,43 @@ def _steps_of(kind, i2v_models, aens_models, video):
         r.predict(clips, None, torch.tensor([0, 1]))
         f = next(iter(r._forwards.values()))
         return (lambda: None), [f.graph.step]
-    atk = SIGN_METHODS[kind](video)
-    pieces = [clips[:1], clips[1:]] if kind == "SGM-momentum" else [clips]
+    if kind.startswith("ensemble"):
+        models = _image_models({"resnet": [1, 2], "vgg": [1, 2]})
+        runner = ensemble.make_ensemble_parallel_runner(
+            models, ensemble.ensemble_mesh([CPU] * 4, model=2), steps=2,
+            adaptive=kind == "ensemble-aens", frame_chunk=4)
+        runner(clean)
+        loop = next(iter(runner.loops.values()))
+        return (lambda: loop.reset(None, None, torch.ones(4)),
+                [g.step for g in loop.graphs + loop.adam_graphs])
+    if kind == "cam":
+        module, taps = build_image_model("resnet", 2, tiny=True, truncate=False, input_hw=HW)
+        random_init_(module, torch.Generator().manual_seed(0))
+        evaluator = gradcam.CamEvaluator(ImageModel("resnet", module.eval().requires_grad_(False),
+                                                    taps))
+        evaluator(pixel.flatten_clip_to_frames(clean))
+        return (lambda: None), [s.graph.step for s in evaluator.steps.values()]
+    if kind.startswith("TT"):
+        atk = attacks.TemporalTranslation(video, dict(kernlen=3, chunk=3, momentum=True,
+                                                      move_type=kind[3:]), steps=2)
+        atk._attack_pieces([clips], [torch.tensor([1, 2])], [CPU])
+        loop = next(iter(atk._loops.values()))
+        return (lambda: (loop.k.zero_(), [t.k.zero_() for t in loop.tables])), \
+            [g.step for g in loop.grad_graphs]
+    atk = {**SIGN_METHODS, **DRAWN}[kind](video)
+    pieces = [clips[:1], clips[1:]] if kind in ("SGM-momentum", "DIFGSM-momentum") else [clips]
     labels = [torch.tensor([1]), torch.tensor([2])][:len(pieces)] if len(pieces) > 1 \
         else [torch.tensor([1, 2])]
     atk._attack_pieces(pieces, labels, [CPU] * len(pieces))
     loop = next(iter(atk._loops.values()))
-    return loop.k.zero_, [g.step for g in loop.grad_graphs + loop.update_graphs]
+    return ((lambda: (loop.k.zero_(), [t.k.zero_() for t in loop.tables])),
+            [g.step for g in loop.grad_graphs + loop.update_graphs])
 
 
 @pytest.mark.parametrize("kind", ["runner", "runner-mu", "runner-mesh", "adam-engine", "ilaf",
                                   "BIM", "MIFGSM", "SGM-momentum", "SIM", "TIFGSM3D", "TAP",
-                                  "eval"])
+                                  "eval", "DIFGSM", "DIFGSM-momentum", "TT-adj", "TT-random",
+                                  "ensemble", "ensemble-aens", "cam"])
 def test_no_capture_ready_step_reads_back_to_the_host(i2v_models, aens_models, video, kind):
     reset, steps = _steps_of(kind, i2v_models, aens_models, video)
     reset()

@@ -19,6 +19,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from tests.torch_threads import torch_rng_restored  # noqa: E402,F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = """
@@ -90,3 +92,32 @@ def test_the_measurement_tools_load_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+def _imported_roots(path: str) -> set:
+    """The top-level names of every module a Python file imports, at any
+    depth of its code (function-level imports included)."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_chip_smoke_and_every_port_file_name_no_jax_module():
+    """``chip_smoke.py`` and every file of ``i2v_tpu_torch`` import nothing
+    of JAX, Flax, Optax or the JAX package, not even inside a function
+    (which the import test above does not run)."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "i2v_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 40
+    banned = {"jax", "jaxlib", "flax", "optax", "i2v_tpu"}
+    leaks = {os.path.relpath(f, REPO): sorted(_imported_roots(f) & banned) for f in files}
+    assert not {f: r for f, r in leaks.items() if r}

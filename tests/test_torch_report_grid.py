@@ -17,7 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread, torch_rng_restored  # noqa: E402,F401
 
 from i2v_tpu.cli import report as jreport  # noqa: E402
 from i2v_tpu.cli import run_grid as jrun_grid  # noqa: E402

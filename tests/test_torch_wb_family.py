@@ -23,6 +23,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests.torch_threads import torch_rng_restored  # noqa: E402,F401
+
 import i2v_tpu.attacks as jattacks  # noqa: E402
 from i2v_tpu.models import i3d as ji3d  # noqa: E402
 from i2v_tpu.models.api import VideoModel as JVideoModel  # noqa: E402
@@ -178,18 +180,22 @@ def test_chunked_difgsm_equals_the_full_batch_at_the_same_seed(bundles, videos, 
 
 
 def test_chunked_grad_fn_restarts_every_chunk_at_the_steps_draw(bundles, videos):
+    """Every chunk of a step gets the step's one row of the call's draws
+    (the loop reads the row once a step and hands it to each chunk)."""
     _, pb = bundles
     seen = []
 
-    def grad_fn(adv, labels, generator):
-        seen.append(diversity.draw(generator, LOW, HIGH))
+    def grad_fn(adv, labels, draws):
+        seen.append(draws)
         return torch.zeros(()), torch.zeros_like(adv)
 
-    gen = torch.Generator().manual_seed(3)
+    rows = torch.from_numpy(diversity.draw_table(torch.Generator().manual_seed(3), 2, LOW, HIGH))
+    row0, row1 = rows[0], rows[1]
     clean01 = pixel.unnormalize(torch.from_numpy(videos), channel_axis=1)
-    _chunked(grad_fn, 2, 1)(clean01, torch.from_numpy(LABELS), gen)
-    _chunked(grad_fn, 2, 1)(clean01, torch.from_numpy(LABELS), gen)
-    assert seen[0] == seen[1] and seen[2] == seen[3] and seen[0] != seen[2]
+    _chunked(grad_fn, 2, 1)(clean01, torch.from_numpy(LABELS), row0)
+    _chunked(grad_fn, 2, 1)(clean01, torch.from_numpy(LABELS), row1)
+    assert seen[0] is row0 and seen[1] is row0 and seen[2] is row1 and seen[3] is row1
+    assert not torch.equal(row0, row1)
 
 
 # -- TI and TAP smoothing -----------------------------------------------------

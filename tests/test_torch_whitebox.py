@@ -22,7 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread, torch_rng_restored  # noqa: E402,F401
 
 import i2v_tpu.attacks as jattacks  # noqa: E402
 from i2v_tpu.models import i3d as ji3d  # noqa: E402

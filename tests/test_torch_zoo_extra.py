@@ -19,7 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread, torch_rng_restored  # noqa: E402,F401
 
 from i2v_tpu.models import registry as jregistry  # noqa: E402
 from i2v_tpu_torch.models import build_image_model, get_image_models  # noqa: E402

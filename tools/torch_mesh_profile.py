@@ -43,6 +43,12 @@ on cuda:0 alone and over ``attack_mesh(data=4)`` of four cards (or of
 cuda:0 four times on a machine with fewer), each with its steps eager
 (``graphs=False``) and as replayed CUDA graphs, in turns (eager, graphed,
 graphed, eager), a warm-up call and the best of two timed calls each.
+
+    python tools/torch_mesh_profile.py --model_axis [--steps 3]
+
+times the model-axis runner the same way: ENS-I2V at B=16 over
+``ensemble_mesh(model=4)`` of four cards (or of cuda:0 four times),
+``frame_chunk="auto"``, eager and graphed in turns.
 """
 
 from __future__ import annotations
@@ -180,6 +186,41 @@ def bim_rows(result: dict, steps: int) -> None:
                   f"{[round(w, 4) for w in walls]} s), K3 {kernels.launches['sign_step']} a call")
 
 
+def model_axis_rows(result: dict, steps: int) -> None:
+    """ENS-I2V at B=16 through the model-axis runner, eager and graphed in
+    turns."""
+    from i2v_tpu_torch.data import synthetic
+    from i2v_tpu_torch.models import get_image_models
+    from i2v_tpu_torch.ops import kernels
+    from i2v_tpu_torch.parallel import ensemble
+
+    n = torch.cuda.device_count()
+    ds = synthetic.SyntheticAttackDataset(n_samples=CLIPS)
+    clean01 = torch.from_numpy(np.stack([ds.clip01(i) for i in range(CLIPS)])).cuda()
+    surr = get_image_models(list(ENS), ENS, device="cuda:0")
+    cards = [torch.device("cuda", i) for i in range(4)] if n >= 4 else [torch.device("cuda", 0)] * 4
+    mesh = ensemble.ensemble_mesh(cards, model=4)
+    for graphs in (False, True, True, False):
+        runner = ensemble.make_ensemble_parallel_runner(surr, mesh, steps=steps,
+                                                        frame_chunk="auto", graphs=graphs)
+        runner(clean01)
+        walls = []
+        for _ in range(2):
+            _sync_all()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            runner(clean01)
+            _sync_all()
+            walls.append(time.perf_counter() - t0)
+        name = f"ENS B={CLIPS} --model_parallel 4 over {cards}, {'graphed' if graphs else 'eager'}"
+        row = result["paths"].setdefault(name, {"steps_per_s": []})
+        row["steps_per_s"].append(steps / min(walls))
+        print(f"[mesh profile] {name}: {steps / min(walls):.4f} steps/s (best of "
+              f"{[round(w, 4) for w in walls]} s), K1/K2 {kernels.launches['rebuild_fwd']}/"
+              f"{kernels.launches['rebuild_bwd']} a call")
+        del runner
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=3, help="Adam steps a runner call")
@@ -188,6 +229,8 @@ def main(argv=None) -> dict:
                    help="also trace one call of each runner path into DIR")
     p.add_argument("--bim", action="store_true",
                    help="time BIM at B=4 on one card and over a data mesh, eager and graphed")
+    p.add_argument("--model_axis", action="store_true",
+                   help="time ENS at B=16 over the model axis, eager and graphed")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("torch_mesh_profile: no CUDA device is available")
@@ -206,8 +249,8 @@ def main(argv=None) -> dict:
               "steps": args.steps, "precision": common.apply_matmul_precision(
                   argparse.Namespace(matmul_precision="float32")), "paths": {}}
     print(f"[mesh profile] {n} card(s): {result['cards']}")
-    if args.bim:
-        bim_rows(result, args.steps)
+    if args.bim or args.model_axis:
+        (bim_rows if args.bim else model_axis_rows)(result, args.steps)
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
