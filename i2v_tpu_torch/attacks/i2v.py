@@ -30,6 +30,7 @@ import torch
 from ..models.api import ImageModel, VideoModel
 from ..ops import kernels, losses, pixel
 from ..utils.graphs import StepGraph, TableAdam
+from ..utils.profiling import next_number, span
 from .core import Attack
 
 MODIFIER_INIT = 0.01 / 255  # reference: image_attacks.py:197,304,436
@@ -80,15 +81,18 @@ class AdamModifierLoop:
             else:
                 for held, s in zip(self.state, state0):
                     held.copy_(s)
-        for _ in range(self.steps):
-            self.graph()
-        with torch.no_grad():
-            adv01 = kernels.rebuild_adv(self.frames, self.modifier, self.epsilon)
-        records = None
-        if self.steps:
-            records = tuple(r.clone() for r in self.records)
-            records = records if len(records) > 1 else records[0]
-        state = None if self.state is None else tuple(s.clone() for s in self.state)
+        device = self.frames.device
+        with span("i2v.steps", device=device):
+            for _ in range(self.steps):
+                self.graph()
+        with span("i2v.handback", device=device):
+            with torch.no_grad():
+                adv01 = kernels.rebuild_adv(self.frames, self.modifier, self.epsilon)
+            records = None
+            if self.steps:
+                records = tuple(r.clone() for r in self.records)
+                records = records if len(records) > 1 else records[0]
+            state = None if self.state is None else tuple(s.clone() for s in self.state)
         return adv01, records, state
 
 
@@ -143,23 +147,26 @@ class _FrameAttack(Attack):
 
     def _run(self, clean01):
         """→ (adv01 clips, stacked per-step records, final state)."""
-        b = clean01.shape[0]
-        frames = pixel.flatten_clip_to_frames(clean01)
-        key = tuple(frames.shape)
-        if key not in self._loops:
-            with torch.no_grad():
-                clean_taps = _collect_taps(self.models, frames)
-            self._loops[key] = (AdamModifierLoop(
-                self._make_loss(clean_taps), frames, steps=self.steps,
-                step_size=self.step_size, epsilon=self.epsilon, graphs=self.graphs), clean_taps)
-        else:
-            loop, clean_taps = self._loops[key]
-            loop.frames.copy_(frames)
-            with torch.no_grad():
-                for held, new in zip(clean_taps, _collect_taps(self.models, loop.frames)):
-                    held.copy_(new)
-        adv_frames, records, state = self._loops[key][0].run(self._state0())
-        return pixel.unflatten_frames_to_clip(adv_frames, b), records, state
+        with span("i2v.call", unit=next_number("i2v.call"), device=clean01.device):
+            b = clean01.shape[0]
+            with span("i2v.clean_taps", device=clean01.device):
+                frames = pixel.flatten_clip_to_frames(clean01)
+                key = tuple(frames.shape)
+                if key not in self._loops:
+                    with torch.no_grad():
+                        clean_taps = _collect_taps(self.models, frames)
+                    self._loops[key] = (AdamModifierLoop(
+                        self._make_loss(clean_taps), frames, steps=self.steps,
+                        step_size=self.step_size, epsilon=self.epsilon, graphs=self.graphs),
+                        clean_taps)
+                else:
+                    loop, clean_taps = self._loops[key]
+                    loop.frames.copy_(frames)
+                    with torch.no_grad():
+                        for held, new in zip(clean_taps, _collect_taps(self.models, loop.frames)):
+                            held.copy_(new)
+            adv_frames, records, state = self._loops[key][0].run(self._state0())
+            return pixel.unflatten_frames_to_clip(adv_frames, b), records, state
 
     def _attack01(self, clean01, labels):
         # labels unused: the image-guided objectives are label-free feature

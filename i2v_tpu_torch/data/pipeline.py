@@ -56,7 +56,7 @@ def threaded_prefetch(make_iter: Callable[[], Iterator], depth: int = 1) -> Iter
         finally:
             put(done)
 
-    t = threading.Thread(target=worker, daemon=True)
+    t = threading.Thread(target=worker, name="prefetch", daemon=True)
     t.start()
     try:
         while True:

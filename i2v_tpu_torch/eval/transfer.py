@@ -13,7 +13,10 @@ package's schemas byte for byte:
     success rate = 100 − top-1)
 
 Each batch is read from disk by a prefetch thread into pinned host memory
-and uploaded with ``non_blocking=True``; forwards run under
+and uploaded with ``non_blocking=True``; while a profiler runs, the thread
+records its read, pin and upload as spans (``ingest.*``) and the loop its
+wait for each batch (``eval.ingest_wait``), forwards and fetches, under one
+``eval.sweep`` a call (:mod:`i2v_tpu_torch.utils.profiling`). Forwards run under
 ``torch.inference_mode()`` and top-1 is computed on the device, so only the
 predictions and the accuracy come back. The serial mode swaps models as the
 reference does (reference.py:124-125: ``del`` and ``empty_cache``); the
@@ -49,6 +52,7 @@ from ..models.video_zoo import VIDEO_BUILDERS, get_video_model
 from ..parallel.mesh import Mesh, Sharding, attack_mesh, move
 from ..parallel.replicas import replicas_for
 from ..utils import AverageMeter, artifacts
+from ..utils.profiling import next_number, span
 
 
 def accuracy_and_preds(logits: torch.Tensor, labels: torch.Tensor):
@@ -97,40 +101,55 @@ def _make_uploader(mesh: Optional[Mesh], device: torch.device):
     pin = home.type == "cuda"
     warned: list = []
 
-    def upload(clips: np.ndarray, labels: np.ndarray):
+    def upload(clips: np.ndarray, labels: np.ndarray, unit):
         clips_t = torch.from_numpy(clips)
         labels_t = torch.from_numpy(labels.astype(np.int64))
-        if pin:
-            clips_t, labels_t = clips_t.pin_memory(), labels_t.pin_memory()
-        dlabels = move(labels_t, home)
-        if sharding is not None and clips.shape[0] % sharding.n_pieces == 0:
-            return sharding.split(clips_t).pieces, dlabels
-        if sharding is not None and not warned:
-            warned.append(True)
-            warnings.warn(
-                f"dp eval: batch of {clips.shape[0]} does not divide the {mesh.size}-position "
-                "mesh; running this batch on a single device (pick a batch_size divisible by "
-                "the device count to keep eval data-parallel)")
-        return move(clips_t, home), dlabels
+        with span("ingest.pin", unit=unit):
+            if pin:
+                clips_t, labels_t = clips_t.pin_memory(), labels_t.pin_memory()
+        with span("ingest.upload", unit=unit):
+            dlabels = move(labels_t, home)
+            if sharding is not None and clips.shape[0] % sharding.n_pieces == 0:
+                return sharding.split(clips_t).pieces, dlabels
+            if sharding is not None and not warned:
+                warned.append(True)
+                warnings.warn(
+                    f"dp eval: batch of {clips.shape[0]} does not divide the {mesh.size}-position "
+                    "mesh; running this batch on a single device (pick a batch_size divisible by "
+                    "the device count to keep eval data-parallel)")
+            return move(clips_t, home), dlabels
 
     return upload
 
 
 def _prefetched_uploads(files_batches: Sequence[Sequence[str]], run_dir: str,
-                        device: torch.device, mesh: Optional[Mesh] = None):
+                        device: torch.device, mesh: Optional[Mesh] = None, sweep=None):
     """Iterator of (device clips or their mesh pieces, device labels, host
     labels). The worker thread reads each batch, pins it (for a card) and
     starts its upload, so that disk reads and the copy overlap the
     consumer's forwards. At most three batches are on the device (in use,
-    queued, in the worker's hands): a B=16 batch is 308 MB."""
+    queued, in the worker's hands): a B=16 batch is 308 MB. The worker's
+    spans name their batch ``(sweep, index)``."""
     upload = _make_uploader(mesh, device)
 
     def uploaded():
-        for files in files_batches:
-            clips, labels = artifacts.load_adv_batch(run_dir, files)
-            yield upload(clips, labels) + (labels,)
+        for step, files in enumerate(files_batches):
+            with span("ingest.read", unit=(sweep, step)):
+                clips, labels = artifacts.load_adv_batch(run_dir, files)
+            yield upload(clips, labels, (sweep, step)) + (labels,)
 
     return threaded_prefetch(uploaded)
+
+
+def _waited(batches, n: int, sweep: int):
+    """``(index, seconds waited, batch)`` of the first ``n`` of ``batches``:
+    each blocking ``next`` is the span ``eval.ingest_wait``, and the same
+    ``perf_counter`` readings give the loop's ``data_time``."""
+    for step in range(n):
+        t0 = time.perf_counter()
+        with span("eval.ingest_wait", unit=(sweep, step)):
+            batch = next(batches)
+        yield step, time.perf_counter() - t0, batch
 
 
 def _sync(device: torch.device) -> None:
@@ -159,22 +178,27 @@ def reference_eval(bundle, files_batches: Sequence[Sequence[str]], run_dir: str,
     data_time, batch_time, top1 = AverageMeter(), AverageMeter(), AverageMeter()
     predictions: list[int] = []
     labels_all: list[int] = []
-    replicas = replicas_for(bundle, mesh, graphs=graphs)
-    positions = None if mesh is None else mesh.positions
-    end = time.time()
-    with torch.inference_mode():
-        for step, (clips, dlabels, labels) in enumerate(
-                _prefetched_uploads(files_batches, run_dir, bundle.device, mesh)):
-            data_time.update(time.time() - end)
-            _, acc, preds = replicas.predict(clips, positions, dlabels)
-            predictions += preds.cpu().tolist()
-            labels_all += labels.tolist()
-            top1.update(float(acc), len(labels))
-            batch_time.update(time.time() - end)
-            end = time.time()
-            if step % 5 == 0:
-                _log_progress(log, step, len(files_batches), data_time, batch_time,
-                              {"": top1}, "validation")
+    sweep = next_number("eval.sweep")
+    with span("eval.sweep", unit=sweep):
+        replicas = replicas_for(bundle, mesh, graphs=graphs)
+        positions = None if mesh is None else mesh.positions
+        with torch.inference_mode():
+            batches = _prefetched_uploads(files_batches, run_dir, bundle.device, mesh, sweep)
+            end = time.perf_counter()
+            for step, wait, (clips, dlabels, labels) in _waited(batches, len(files_batches), sweep):
+                data_time.update(wait)
+                with span("eval.forward", unit=(sweep, step)):
+                    _, acc, preds = replicas.predict(clips, positions, dlabels)
+                with span("eval.fetch", unit=(sweep, step)):
+                    predictions += preds.cpu().tolist()
+                    top1.update(float(acc), len(labels))
+                labels_all += labels.tolist()
+                now = time.perf_counter()
+                batch_time.update(now - end)
+                end = now
+                if step % 5 == 0:
+                    _log_progress(log, step, len(files_batches), data_time, batch_time,
+                                  {"": top1}, "validation")
     return predictions, labels_all, top1.avg
 
 
@@ -190,28 +214,33 @@ def single_pass_eval(bundles: dict, files_batches: Sequence[Sequence[str]], run_
     ``mesh``, each batch is cut over its positions. Each model's forward is
     a graph as in :func:`reference_eval`."""
     device = next(iter(bundles.values())).device
-    replicas = {name: replicas_for(b, mesh, graphs=graphs) for name, b in bundles.items()}
-    positions = None if mesh is None else mesh.positions
     data_time, batch_time = AverageMeter(), AverageMeter()
     top1 = {name: AverageMeter() for name in bundles}
     predictions: dict = {name: [] for name in bundles}
     labels_all: list[int] = []
-    end = time.time()
-    with torch.inference_mode():
-        for step, (clips, dlabels, labels) in enumerate(
-                _prefetched_uploads(files_batches, run_dir, device, mesh)):
-            data_time.update(time.time() - end)
-            pending = {name: r.predict(clips, positions, dlabels)[1:]
-                       for name, r in replicas.items()}
-            labels_all += labels.tolist()
-            for name, (acc, preds) in pending.items():
-                predictions[name] += preds.cpu().tolist()
-                top1[name].update(float(acc), len(labels))
-            batch_time.update(time.time() - end)
-            end = time.time()
-            if step % 5 == 0:
-                _log_progress(log, step, len(files_batches), data_time, batch_time, top1,
-                              "validation (single pass, all models)")
+    sweep = next_number("eval.sweep")
+    with span("eval.sweep", unit=sweep):
+        replicas = {name: replicas_for(b, mesh, graphs=graphs) for name, b in bundles.items()}
+        positions = None if mesh is None else mesh.positions
+        with torch.inference_mode():
+            batches = _prefetched_uploads(files_batches, run_dir, device, mesh, sweep)
+            end = time.perf_counter()
+            for step, wait, (clips, dlabels, labels) in _waited(batches, len(files_batches), sweep):
+                data_time.update(wait)
+                with span("eval.forward", unit=(sweep, step)):
+                    pending = {name: r.predict(clips, positions, dlabels)[1:]
+                               for name, r in replicas.items()}
+                with span("eval.fetch", unit=(sweep, step)):
+                    for name, (acc, preds) in pending.items():
+                        predictions[name] += preds.cpu().tolist()
+                        top1[name].update(float(acc), len(labels))
+                labels_all += labels.tolist()
+                now = time.perf_counter()
+                batch_time.update(now - end)
+                end = now
+                if step % 5 == 0:
+                    _log_progress(log, step, len(files_batches), data_time, batch_time, top1,
+                                  "validation (single pass, all models)")
     return predictions, labels_all, {n: m.avg for n, m in top1.items()}
 
 

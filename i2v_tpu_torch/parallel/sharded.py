@@ -56,6 +56,7 @@ from ..attacks.i2v import MODIFIER_INIT, _collect_taps
 from ..models.api import ImageModel
 from ..ops import kernels, losses, pixel
 from ..utils.graphs import StepGraph, TableAdam
+from ..utils.profiling import next_number, span
 from .mesh import Mesh, Sharded, move
 
 # The byte budget of ``frame_chunk="auto"``: one chunk's input frames in the
@@ -659,25 +660,30 @@ def make_sharded_i2v_runner(
         return b, loop
 
     def runner(clean01, n_real=None, mod_init=None, opt_init=None):
-        b, loop = loop_for(clean01, n_real)
-        inits = None if mod_init is None else _slices(mod_init, n_pos)
-        if opt_init is not None:
-            count, first, second = opt_init
-            opt_init = [(count, m, v) for m, v in zip(_slices(first, n_pos),
-                                                     _slices(second, n_pos))]
-        loop.reset(inits, opt_init, coeffs_box[0])
-        for _ in range(steps):
-            loop.step()
-        if adaptive:
-            coeffs_box[0] = loop.coeffs.clone()
-        out = (pixel.unflatten_frames_to_clip(loop.adversarial(epsilon), b), loop.costs.clone())
-        if return_modifier:
-            out = out + (_cat([m.clone() for m in loop.modifiers], home),)
-        if opt_state_io:
-            states = [adam.state() for adam in loop.adams]
-            out = out + ((states[0][0], _cat([s[1] for s in states], home),
-                          _cat([s[2] for s in states], home)),)
-        return out
+        with span("i2v.call", unit=next_number("i2v.call"), device=home):
+            with span("i2v.clean_taps", device=home):
+                b, loop = loop_for(clean01, n_real)
+            inits = None if mod_init is None else _slices(mod_init, n_pos)
+            if opt_init is not None:
+                count, first, second = opt_init
+                opt_init = [(count, m, v) for m, v in zip(_slices(first, n_pos),
+                                                         _slices(second, n_pos))]
+            loop.reset(inits, opt_init, coeffs_box[0])
+            with span("i2v.steps", device=home):
+                for _ in range(steps):
+                    loop.step()
+            with span("i2v.handback", device=home):
+                if adaptive:
+                    coeffs_box[0] = loop.coeffs.clone()
+                out = (pixel.unflatten_frames_to_clip(loop.adversarial(epsilon), b),
+                       loop.costs.clone())
+                if return_modifier:
+                    out = out + (_cat([m.clone() for m in loop.modifiers], home),)
+                if opt_state_io:
+                    states = [adam.state() for adam in loop.adams]
+                    out = out + ((states[0][0], _cat([s[1] for s in states], home),
+                                  _cat([s[2] for s in states], home)),)
+            return out
 
     def value_and_grad(clean01, modifier, n_real=None):
         b, t, frames = frame_slices(clean01)

@@ -82,8 +82,8 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
 class StepGraph:
     """A capture-ready ``step()``, run eagerly once and then replayed as one
     CUDA graph on ``device``; ``enabled=False`` (or a device that is not a
-    card) runs every call eagerly. ``capture_s`` is the capture's one-off
-    host seconds (None until captured)."""
+    card) runs every call eagerly. Each capture adds its one-off host
+    seconds to ``captures``."""
 
     def __init__(self, step: Callable[[], None], device, *, enabled: bool = True):
         self.step = step
@@ -91,7 +91,6 @@ class StepGraph:
         self.enabled = enabled and self.device.type == "cuda"
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: dict = {}
-        self.capture_s: Optional[float] = None
         self._warm = False
 
     def __call__(self) -> None:
@@ -140,9 +139,8 @@ class StepGraph:
                 gc.enable()
         self.graph, self.launches = graph, {k: n for k, n in tally.items() if n}
         _live[self.device].add(self)
-        self.capture_s = time.perf_counter() - t0
         captures["graphs"] += 1
-        captures["seconds"] += self.capture_s
+        captures["seconds"] += time.perf_counter() - t0
 
 
 class TableAdam:
