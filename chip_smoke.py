@@ -12,7 +12,9 @@ raises and the script exits non-zero:
   3. kernels   — each kernel is bit-identical to its plain PyTorch version at
                  the main paths' shapes, at ragged sizes and misaligned
                  views, with planted ties and NaNs; kernel and plain version
-                 timed with CUDA events
+                 timed with CUDA events; the conv epilogue (bias_act) also
+                 against torch.relu(F.conv2d(x, w, b) + r) and timed beside
+                 torch.relu(t.add_(b)) at three surrogate shapes
   4. slice     — 20-step full-width ENS-I2V through the port's image CLI over
                  two synthetic clips; artifacts checked, and the launch
                  counters show that every Adam step went through K1 and K2
@@ -230,11 +232,21 @@ SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's clock: longer than the enqueue
 # sheet, SXM part, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# the launch counters of i2v_tpu_torch.ops.kernels: K1-K3 and the conv epilogue
+K1_TO_K3 = ("rebuild_fwd", "rebuild_bwd", "sign_step")
+COUNTED = K1_TO_K3 + ("bias_act",)
 KERNEL_WORK = {            # (bytes, float32 operations) an element
     "rebuild_fwd": (12, 5),   # read clean, m; write out; 2 clamps, 1 add
     "rebuild_bwd": (16, 8),   # read clean, m, g; write dm; 2 clamps, 1 add, 4 compares, 1 select
     "sign_step": (16, 9),     # read adv, g, clean; write out; sign, 1 mul, 3 adds, 2 clamps
 }
+# the conv epilogue at the surrogates' shapes over 256 frames, the runner's
+# chunk: (label, y's shape, with a residual); its bound is 8 bytes an element,
+# 12 with the residual (read y (and r), write y), over HBM_BYTES_PER_S
+BIAS_ACT_SHAPES = (("VGG-16 conv1_2", (256, 64, 224, 224), False),
+                   ("ResNet-101 layer1 conv3 + residual", (256, 256, 56, 56), True),
+                   ("SqueezeNet-1.1 Fire 2 expand3x3", (256, 64, 55, 55), False))
+BIAS_ACT_ITERS = 20
 SF_FAST_STRIDE = 2         # SlowFast-R50's fast pathway samples every 2nd frame
 AENS_CLIPS, AENS_STEPS = 2, 10
 AENS_MOMENTUM = 0.8        # > 0, so that carried-over coefficients show in clip 2
@@ -473,6 +485,82 @@ def _chunk_shapes(kernels, pixel, gen, eps32: float, err: dict) -> list:
     return facts
 
 
+def _bias_act_planted(shape, dtype, residual: bool, gen: torch.Generator):
+    y = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    b = (0.01 * torch.randn(shape[1], device="cuda", generator=gen)).to(dtype)
+    r = torch.randn(shape, device="cuda", generator=gen).to(dtype) if residual else None
+    flat = y.view(-1)
+    for k, v in enumerate((float("nan"), -0.0, 0.0, float("inf"), -float("inf"))):
+        flat[(k * 7919) % flat.numel()] = v
+    b[0] = -0.0
+    return y, b, r
+
+
+def _bias_act(kernels, pixel, gen: torch.Generator) -> dict:
+    """The conv epilogue: bit-identical to its plain version and to
+    ``torch.relu(F.conv2d(x, w, b) + r)`` (a conv then the epilogue), in
+    float32 at BIAS_ACT_SHAPES and in bfloat16, on ragged planes and on a
+    view one element into its buffer (the scalar path), NaN, ±inf and ±0
+    planted; then timed in place at BIAS_ACT_SHAPES against its byte bound,
+    its plain version and ``torch.relu(t.add_(b) (+ r))``."""
+    import torch.nn.functional as F
+
+    err = 0.0
+    cases = [(label, shape, res, torch.float32, 0) for label, shape, res in BIAS_ACT_SHAPES]
+    cases += [("bf16 " + BIAS_ACT_SHAPES[1][0], BIAS_ACT_SHAPES[1][1], True, torch.bfloat16, 0),
+              ("ragged 13^2", (256, 384, 13, 13), False, torch.float32, 0),
+              ("ragged 111^2 bf16", (8, 64, 111, 111), True, torch.bfloat16, 0),
+              ("a view 1 element in", (4, 64, 56, 56), True, torch.float32, 1)]
+    for label, shape, res, dtype, offset in cases:
+        y, b, r = _bias_act_planted(shape, dtype, res, gen)
+        if offset:
+            y = torch.cat([y.view(-1)[:offset], y.view(-1)])[offset:].view(shape)
+        want = pixel.bias_act(y.clone(), b, None if r is None else r.clone())
+        got = kernels.launch_bias_act(y, b, r)
+        same = torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                           want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+        if not same:
+            raise RuntimeError(f"bias_act differs from its plain version ({label} {shape})")
+        del y, r, want, got
+    # through a conv: the surrogates' composition, small enough to keep quick
+    x = torch.randn(32, 64, 56, 56, device="cuda", generator=gen)
+    w = torch.randn(256, 64, 1, 1, device="cuda", generator=gen) / 8
+    b = 0.01 * torch.randn(256, device="cuda", generator=gen)
+    r = torch.randn(32, 256, 56, 56, device="cuda", generator=gen)
+    want = torch.relu(F.conv2d(x, w, b) + r)
+    got = kernels.launch_bias_act(F.conv2d(x, w, None), b, r)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise RuntimeError("bias_act after a conv differs from torch.relu(F.conv2d(x, w, b) + r)")
+    torch.cuda.synchronize()
+    del x, w, b, r, want, got
+
+    facts, first = [], None
+    for label, shape, res in BIAS_ACT_SHAPES:
+        y = torch.rand(shape, device="cuda", generator=gen)
+        b = 0.01 * torch.randn(shape[1], device="cuda", generator=gen)
+        r = torch.rand(shape, device="cuda", generator=gen) if res else None
+        bound = y.numel() * (12 if res else 8) / HBM_BYTES_PER_S * 1e3
+        kern = lambda: kernels.launch_bias_act(y, b, r)  # noqa: E731
+        plain = lambda: pixel.bias_act(y, b, r)  # noqa: E731
+        lib = ((lambda: torch.relu(y.add_(b.view(1, -1, 1, 1)) + r)) if res  # noqa: E731
+               else (lambda: torch.relu(y.add_(b.view(1, -1, 1, 1)))))
+        k1, p1, l1 = (_time_ms(f, BIAS_ACT_ITERS) for f in (kern, plain, lib))
+        l2, p2, k2 = (_time_ms(f, BIAS_ACT_ITERS) for f in (lib, plain, kern))
+        ms = ((k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2)
+        facts.append(f"{label} {shape}: kernel {ms[0]:.4f} ms ({k1:.4f}, {k2:.4f}), bound "
+                     f"{bound:.4f} ms by bytes ({bound / ms[0]:.1%} of it), plain {ms[1]:.4f} "
+                     f"ms, torch.relu(t.add_(b){' + r' if res else ''}) {ms[2]:.4f} ms")
+        if first is None:
+            first = (ms, bound)
+        del y, r
+        torch.cuda.empty_cache()
+    print("[kernels] bias_act bit-identical to its plain version at "
+          + ", ".join(f"{c[1]}" for c in cases) + " (NaN, ±inf and ±0 planted), and after a "
+          "conv to torch.relu(F.conv2d(x, w, b) + r); " + "; ".join(facts), flush=True)
+    (k_ms, p_ms, l_ms), bound = first
+    return {"err": err, "times": (k_ms, p_ms), "bound": (bound, "bytes"), "library": l_ms}
+
+
 def phase_kernels(kernels, pixel) -> dict:
     eps32 = float(np.float32(EPS))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -541,7 +629,12 @@ def phase_kernels(kernels, pixel) -> dict:
           + "; ".join(f"{k}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, bound "
                       f"{bounds[k][0]:.4f} ms by {bounds[k][1]} "
                       f"({bounds[k][0] / t[0]:.0%} of it)" for k, t in times.items()))
-    return {"err": err, "times": times, "bounds": bounds}
+    epilogue = _bias_act(kernels, pixel, gen)
+    err["bias_act"] = epilogue["err"]
+    times["bias_act"] = epilogue["times"]
+    bounds["bias_act"] = epilogue["bound"]
+    return {"err": err, "times": times, "bounds": bounds,
+            "library": {"bias_act": epilogue["library"]}}
 
 
 def _costs(run_dir: str) -> dict:
@@ -580,7 +673,7 @@ def phase_slice(kernels, image_main, synthetic, pixel_mean_std) -> tuple[dict, s
     counts = dict(kernels.launches)
     want = {"rebuild_fwd": SLICE_CLIPS * (SLICE_STEPS + 1),
             "rebuild_bwd": SLICE_CLIPS * SLICE_STEPS, "sign_step": 0}
-    if counts != want:
+    if _of(counts, want) != want:
         raise RuntimeError(f"launch counts {counts}, expected {want}")
 
     ds = synthetic.SyntheticAttackDataset(n_samples=SLICE_CLIPS)
@@ -717,7 +810,7 @@ def phase_whitebox(kernels, attack_cli, synthetic, pixel_mean_std) -> int:
         attack_cli.run(args)
         counts = dict(kernels.launches)
         want = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": clips * WB_STEPS}
-        if counts != want:
+        if _of(counts, want) != want:
             raise RuntimeError(f"{method}: launch counts {counts}, expected {want}")
         k3 += counts["sign_step"]
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -760,7 +853,7 @@ def phase_whitebox_slowfast(kernels, attack_cli, synthetic, pixel, pixel_mean_st
     attack_cli.run(args)
     counts = dict(kernels.launches)
     want = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": WB_STEPS}
-    if counts != want:
+    if _of(counts, want) != want:
         raise RuntimeError(f"SlowFast BIM: launch counts {counts}, expected {want}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     ds = synthetic.SyntheticAttackDataset(n_samples=1)
@@ -875,6 +968,12 @@ def _want(clips: int, steps: int) -> dict:
     return {"rebuild_fwd": clips * (steps + 1), "rebuild_bwd": clips * steps, "sign_step": 0}
 
 
+def _of(counts: dict, want: dict) -> dict:
+    """The counters of ``counts`` that ``want`` names: a path's K1-K3 counts
+    are checked, while the conv epilogue counts wherever a surrogate runs."""
+    return {k: counts[k] for k in want}
+
+
 def _run_counted(kernels, label: str, want: dict, fn):
     """``fn()`` with the counters set to 0 just before it; fails unless the
     counts read just after are ``want``. Returns (fn's result, counts, peak GiB)."""
@@ -882,7 +981,7 @@ def _run_counted(kernels, label: str, want: dict, fn):
     kernels.reset_launches()
     out = fn()
     counts = dict(kernels.launches)
-    if counts != want:
+    if _of(counts, want) != want:
         raise RuntimeError(f"{label}: launch counts {counts}, expected {want}")
     return out, counts, torch.cuda.max_memory_allocated() / 2**30
 
@@ -1761,8 +1860,8 @@ def phase_converters(kernels, synthetic, pixel, card: str, tmp: str) -> None:
         else:
             os.environ["I2V_TPU_CKPTS"] = saved
         shutil.rmtree(ckpts, ignore_errors=True)
-    if any(kernels.launches.values()):
-        raise RuntimeError(f"the converters launched a kernel: {kernels.launches}")
+    if any(kernels.launches[k] for k in K1_TO_K3):
+        raise RuntimeError(f"the converters launched K1-K3: {kernels.launches}")
     torch.cuda.empty_cache()
     print(f"[converters] on {card}, TF32 off: " + "; ".join(facts)
           + f"; phase wall {time.time() - t0:.2f} s")
@@ -1799,7 +1898,7 @@ def phase_real_data(kernels, image_main, attack_cli, attack_ucf101, evaluate_cli
            "I2V_TPU_CKPTS": ckpts}
     saved_env = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
-    totals = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
+    totals = dict.fromkeys(COUNTED, 0)
     try:
         # -- decode backends and the host half of ingest
         backend = decode.backend()
@@ -2150,7 +2249,7 @@ def phase_zoo_gradcam(kernels, image_main, synthetic, get_bundle, pixel_mean_std
     from i2v_tpu_torch.cli import run_grid
 
     t0 = time.time()
-    totals = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
+    totals = dict.fromkeys(COUNTED, 0)
     facts = []
 
     def add(counts):
@@ -2201,7 +2300,7 @@ def phase_zoo_gradcam(kernels, image_main, synthetic, get_bundle, pixel_mean_std
             gargv = ["--used_adv", runs["densenet"], "--device", "cuda",
                      "--matmul_precision", "float32", "--out", cam_dir, *png]
             t1 = time.time()
-            _, counts, cam_peak = _run_counted(kernels, "gradcam", {k: 0 for k in totals},
+            _, counts, cam_peak = _run_counted(kernels, "gradcam", {k: 0 for k in K1_TO_K3},
                                                lambda: gradcam_cli.main(gargv))
             cam_wall = time.time() - t1
         finally:
@@ -2235,7 +2334,7 @@ def phase_zoo_gradcam(kernels, image_main, synthetic, get_bundle, pixel_mean_std
         # -- cli.evaluate -> cli.report on the I2V run
         ev = evaluate_cli.arg_parse(["--adv_path", runs["densenet"], "--device", "cuda",
                                      "--matmul_precision", "float32"])
-        acc, counts, _ = _run_counted(kernels, "evaluate", {k: 0 for k in totals},
+        acc, counts, _ = _run_counted(kernels, "evaluate", {k: 0 for k in K1_TO_K3},
                                       lambda: evaluate_cli.run(ev, get_bundle=get_bundle))
         table = report_cli.main(["--runs", runs["densenet"], "--format", "markdown"])
         lines = table.split("\n")
@@ -2344,7 +2443,7 @@ def phase_bf16(kernels, evaluate_cli, synthetic, pixel, card: str, tmp: str) -> 
 
     t0 = time.time()
     bf16, f32 = torch.bfloat16, torch.float32
-    facts, totals = [], {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
+    facts, totals = [], dict.fromkeys(COUNTED, 0)
     tf32_off = argparse.Namespace(matmul_precision="float32")
     cli_common.apply_matmul_precision(tf32_off)
     ds = synthetic.SyntheticAttackDataset(n_samples=BF16_CLIPS)
@@ -2418,7 +2517,7 @@ def phase_bf16(kernels, evaluate_cli, synthetic, pixel, card: str, tmp: str) -> 
         argv = ["--adv_path", run_dir, "--device", "cuda", "--single_pass"] + flags
         evaluate_cli.run(evaluate_cli.arg_parse(argv), get_bundle=models[d].get)  # warm-up
         args = evaluate_cli.arg_parse(argv)
-        _, counts, peak = _run_counted(kernels, f"evaluate {d}", {k: 0 for k in totals},
+        _, counts, peak = _run_counted(kernels, f"evaluate {d}", {k: 0 for k in K1_TO_K3},
                                        lambda: evaluate_cli.run(args, get_bundle=models[d].get))
         tp[d] = (args.throughput["single_pass"], peak)
         with open(os.path.join(run_dir, REPORT_CSV)) as f:
@@ -2602,7 +2701,7 @@ def _whitebox_mesh(kernels, synthetic, pixel) -> tuple[list, dict]:
         return adv, time.perf_counter() - ts
 
     kernels.sign_step_project = recording
-    facts, totals = [], {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
+    facts, totals = [], dict.fromkeys(COUNTED, 0)
     try:
         one = attacks.BIM(bundle, steps=MD_WB_STEPS)
         timed(one, videos)
@@ -2632,7 +2731,7 @@ def _whitebox_mesh(kernels, synthetic, pixel) -> tuple[list, dict]:
                     # graphs, which no Python wrapper sees
                     first = list(seen)
                 counts = dict(kernels.launches)
-                if counts != want:
+                if _of(counts, want) != want:
                     raise RuntimeError(f"BIM over the mesh ({where}), call {call}: launch "
                                        f"counts {counts}, expected {want}")
                 for k in totals:
@@ -2704,7 +2803,7 @@ def phase_multi_device(kernels, image_main, evaluate_cli, synthetic, pixel_mean_
     cli_common.apply_matmul_precision(argparse.Namespace(matmul_precision="float32"))
     devices = _mesh_devices()
     where = "four cards" if len(set(devices)) >= 4 else "one card four times"
-    totals, facts = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}, []
+    totals, facts = dict.fromkeys(COUNTED, 0), []
 
     def add(counts):
         for k in totals:
@@ -2766,7 +2865,7 @@ def phase_multi_device(kernels, image_main, evaluate_cli, synthetic, pixel_mean_
     kernels.reset_launches()
     two_batches()
     counts = dict(kernels.launches)
-    if counts != want:
+    if _of(counts, want) != want:
         raise RuntimeError(f"mesh ENS: launch counts {counts}, expected {want}")
     add(counts)
     adv01 = torch.cat(advs)
@@ -2918,7 +3017,7 @@ def phase_multi_device(kernels, image_main, evaluate_cli, synthetic, pixel_mean_
             p.kill()
     want = {"rebuild_fwd": 2 * 3, "rebuild_bwd": 2 * 2, "sign_step": 0}   # 2 clips at B=1
     for rank, child in enumerate(children):
-        if child["rank"] != rank or child["world"] != 2 or child["launches"] != want:
+        if child["rank"] != rank or child["world"] != 2 or _of(child["launches"], want) != want:
             raise RuntimeError(f"process {rank} reported {child}, expected launches {want}")
         add(child["launches"])
     run_two = os.path.join(out_dir, "Image-ImageGuidedFML2_Adam_MultiModels-2-synthetic-two")
@@ -2972,7 +3071,7 @@ def _printed_launches(stdout: str) -> dict:
 
 def _check_launches(label: str, got: dict, fwd: int, bwd: int, sign: int) -> None:
     want = {"rebuild_fwd": fwd, "rebuild_bwd": bwd, "sign_step": sign}
-    if got != want:
+    if _of(got, want) != want:
         raise RuntimeError(f"{label}: launches {got}, want {want}")
 
 
@@ -3000,7 +3099,7 @@ def phase_measurement_tools(card: str, tmp: str) -> dict:
     t0 = time.time()
     torch.cuda.empty_cache()
     probe = _tool("torch_perf_probe")
-    counts = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
+    counts = dict.fromkeys(COUNTED, 0)
     facts = []
 
     def add(got):
@@ -3271,7 +3370,7 @@ def _loop_twins(kernels, label: str, make, tmp: str, *, work: int, unit: str = "
     if eager["counts"] != graphed["counts"]:
         raise RuntimeError(f"{label}: launches eager {eager['counts']} vs graphed "
                            f"{graphed['counts']}")
-    if want is not None and graphed["counts"] != want:
+    if want is not None and _of(graphed["counts"], want) != want:
         raise RuntimeError(f"{label}: launches {graphed['counts']}, expected {want}")
     if graphed["captures"] == 0:
         raise RuntimeError(f"{label}: the graphed run captured nothing")
@@ -3341,7 +3440,7 @@ def phase_compiled_loops(kernels, synthetic, pixel, card: str, tmp: str) -> dict
     gc.collect()
     torch.cuda.empty_cache()
     cli_common.apply_matmul_precision(argparse.Namespace(matmul_precision="float32"))
-    totals = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
+    totals = dict.fromkeys(COUNTED, 0)
 
     def add(counts):
         for k in totals:
@@ -3512,7 +3611,7 @@ def phase_compiled_loops(kernels, synthetic, pixel, card: str, tmp: str) -> dict
     _loop_twins(kernels, f"Grad-CAM evaluator B={LOOP_CAM_BATCH}, "
                 f"{len(cams)} CAM models", cam_make, tmp,
                 work=LOOP_CAM_BATCH * LOOP_EVAL_BATCHES, unit="clips", atol=CAM_ATOL,
-                want=dict.fromkeys(totals, 0))
+                want=dict.fromkeys(K1_TO_K3, 0))
     del cams
 
     # -- evaluation: logits bit for bit, then the single pass and a fused run
@@ -3645,14 +3744,17 @@ def main() -> None:
              "rebuild_bwd": ("i2v_tpu_torch/csrc/rebuild_adv.cu",
                              "i2v_tpu/ops/pallas_kernels.py:149"),
              "sign_step": ("i2v_tpu_torch/csrc/sign_step.cu",
-                           "i2v_tpu/ops/pallas_kernels.py:94")}
+                           "i2v_tpu/ops/pallas_kernels.py:94"),
+             # XLA fuses the conv epilogue into the conv: no TPU kernel
+             "bias_act": ("i2v_tpu_torch/csrc/bias_act.cu", None)}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": counts[k],
          "max_abs_err": measured["err"][k], "ms": measured["times"][k][0],
          "plain_ms": measured["times"][k][1], "bound_ms": measured["bounds"][k][0],
          "bound_by": measured["bounds"][k][1],
-         # no single PyTorch call computes any of the three functions
-         "library_ms": None}
+         # no single PyTorch call computes K1-K3; the epilogue's yardstick is
+         # torch.relu(t.add_(b)) at VGG-16's conv1_2 over 256 frames
+         "library_ms": measured["library"].get(k)}
         for k, (src, rep) in where.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

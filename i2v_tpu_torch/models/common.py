@@ -10,7 +10,10 @@ PyTorch counterpart of :mod:`i2v_tpu.models.common`:
     network and hooks the middle; the taps are identical).
   - BatchNorm is folded into the preceding conv (:func:`.convert.fold_bn`),
     so the convs carry a bias and there is no BN module (DenseNet, which is
-    pre-activation, keeps a frozen affine instead).
+    pre-activation, keeps a frozen affine instead). On a card, ResNet's,
+    VGG-16's, AlexNet's and SqueezeNet's convs run without their bias, and
+    the bias, residual and ReLU after each come in one in-place pass
+    (:func:`conv_act`).
   - Every image module's forward takes ``tap_offset`` ({tap: tensor}),
     added to the tap activation in-flow (Grad-CAM's exact ∂/∂tap).
   - Every image and video module takes a compute ``dtype`` (float32 by
@@ -31,6 +34,8 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops import kernels
 
 
 class Conv2d(nn.Conv2d):
@@ -88,6 +93,29 @@ def check_dtype_on_device(dtype: torch.dtype, device) -> None:
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, padding: int = 0) -> nn.Conv2d:
     """2-D conv with symmetric integer padding and bias."""
     return Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding, bias=True)
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    # a function of its own, so that a CPU test can take the card's path
+    return x.is_cuda
+
+
+def conv_act(conv: nn.Conv2d, x: torch.Tensor, residual: torch.Tensor | None = None,
+             relu: bool = True) -> torch.Tensor:
+    """``act(conv(x) (+ residual))``, act ReLU or the identity. On a card
+    the conv runs without its bias and
+    :func:`~i2v_tpu_torch.ops.kernels.bias_act` adds the bias and the
+    residual and applies the ReLU in one pass, in place on the conv's
+    output: the same bits as the ops below, which run everywhere else (the
+    CPU, the meta device) as they are written."""
+    if _on_card(x):
+        w = conv.weight
+        return kernels.bias_act(conv._conv_forward(x.to(w.dtype), w, None), conv.bias,
+                                residual, relu)
+    y = conv(x)
+    if residual is not None:
+        y = y + residual
+    return F.relu(y) if relu else y
 
 
 def max_pool(x: torch.Tensor, kernel: int, stride: int, padding: int = 0,

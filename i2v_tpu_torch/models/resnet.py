@@ -14,10 +14,10 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..ops import pixel
-from .common import Linear, add_offset, collect_tap, conv, deepest, max_pool, set_compute_dtype
+from .common import (Linear, add_offset, collect_tap, conv, conv_act, deepest, max_pool,
+                     set_compute_dtype)
 
 
 class Bottleneck(nn.Module):
@@ -30,10 +30,10 @@ class Bottleneck(nn.Module):
         self.downsample = conv(in_ch, features * 4, 1, stride) if downsample else None
 
     def forward(self, x):
-        residual = x if self.downsample is None else self.downsample(x)
-        y = F.relu(self.conv1(x))
-        y = F.relu(self.conv2(y))
-        return F.relu(self.conv3(y) + residual)
+        residual = x if self.downsample is None else conv_act(self.downsample, x, relu=False)
+        y = conv_act(self.conv1, x)
+        y = conv_act(self.conv2, y)
+        return conv_act(self.conv3, y, residual)
 
 
 class ResNet(nn.Module):
@@ -68,7 +68,7 @@ class ResNet(nn.Module):
         respect to it at 0 is the exact ∂/∂(tap) that Grad-CAM needs."""
         taps = {}
         x = pixel.normalize(x01, channel_axis=1).to(self.dtype)
-        x = F.relu(self.stem(x))
+        x = conv_act(self.stem, x)
         x = max_pool(x, 3, 2, 1)
         for stage in range(self.n_stages):
             for block in range(self.stage_sizes[stage]):

@@ -23,7 +23,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import pixel
-from .common import Linear, add_offset, collect_tap, conv, deepest, max_pool, set_compute_dtype
+from .common import (Linear, add_offset, collect_tap, conv, conv_act, deepest, max_pool,
+                     set_compute_dtype)
 
 _VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
               512, 512, 512, "M", 512, 512, 512, "M")
@@ -86,7 +87,7 @@ class VGG16(nn.Module):
             if kind == "pool":
                 x = max_pool(x, 2, 2)
             else:
-                x = add_offset(F.relu(getattr(self, f"conv{idx}")(x)), tap_offset, idx + 1)
+                x = add_offset(conv_act(getattr(self, f"conv{idx}"), x), tap_offset, idx + 1)
                 collect_tap(taps, self.taps, idx + 1, x)
         if self.headless:
             return None, taps
@@ -127,7 +128,7 @@ class AlexNet(nn.Module):
         taps = {}
         x = pixel.normalize(x01, channel_axis=1).to(self.dtype)
         for conv_idx, pool_after in self.plan:
-            x = add_offset(F.relu(getattr(self, f"conv{conv_idx}")(x)), tap_offset,
+            x = add_offset(conv_act(getattr(self, f"conv{conv_idx}"), x), tap_offset,
                            conv_idx + 1)
             collect_tap(taps, self.taps, conv_idx + 1, x)
             if pool_after:
@@ -149,9 +150,9 @@ class Fire(nn.Module):
         reference's scalar-depth SqueezeNet tap (``expand3x3_activation``).
         ``offset`` is added in-flow to whichever tensor is the tap: e3 by
         default, the concat when ``offset_on_concat`` (list-depth taps)."""
-        s = F.relu(self.squeeze(x))
-        e1 = F.relu(self.expand1x1(s))
-        e3 = F.relu(self.expand3x3(s))
+        s = conv_act(self.squeeze, x)
+        e1 = conv_act(self.expand1x1, s)
+        e3 = conv_act(self.expand3x3, s)
         if offset is not None and not offset_on_concat:
             e3 = e3 + offset
         out = torch.cat([e1, e3], dim=1)
@@ -195,7 +196,7 @@ class SqueezeNet11(nn.Module):
     def forward(self, x01, tap_offset=None):
         taps = {}
         x = pixel.normalize(x01, channel_axis=1).to(self.dtype)
-        x = F.relu(self.conv0(x))
+        x = conv_act(self.conv0, x)
         x = max_pool(x, 3, 2, ceil_mode=True)
         for idx, pool_before in self.plan:
             if pool_before:

@@ -14,10 +14,18 @@ every step of the white-box sign attacks. Replaces the Pallas
 kernel in ``csrc/sign_step.cu``. No gradient flows through it: the attack
 engine does not differentiate through its pixel update.
 
+``bias_act(y, bias, residual, relu)`` — the epilogue of a biased conv,
+``act(y + bias[c] (+ residual))`` with act ReLU or the identity, in place on
+the conv's output: the surrogates run each conv in cuDNN without its bias
+and this one pass after it (:func:`i2v_tpu_torch.models.common.conv_act`).
+Replaces no Pallas kernel: XLA fuses the epilogue into the conv on the TPU.
+The CUDA kernel is ``csrc/bias_act.cu``; its gradient is the one autograd
+takes through ``relu`` (``threshold_backward``), so it stays differentiable.
+
 Each source is built with ``nvcc`` for sm_90a at first use (:mod:`._build`).
-All three kernels are elementwise and bound by device-memory bytes (12, 16
-and 16 bytes an element); each makes one grid-stride pass with 16-byte
-vector accesses and a scalar tail; the sources say more.
+All four kernels are elementwise and bound by device-memory bytes (12, 16,
+16, and 8 or 12 bytes an element); each makes one pass with 16-byte vector
+accesses where the shapes and pointers allow; the sources say more.
 
 Dispatch: a tensor on the CPU takes the plain version in
 :mod:`i2v_tpu_torch.ops.pixel`; a CUDA tensor launches the kernel or raises.
@@ -34,6 +42,7 @@ import concurrent.futures
 import contextlib
 import ctypes
 import functools
+import math
 import threading
 
 import numpy as np
@@ -41,7 +50,7 @@ import torch
 
 from . import _build, pixel
 
-launches = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0}
+launches = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0, "bias_act": 0}
 # K2 launches from the autograd engine's thread of each card, so the counts
 # take a lock: ``+=`` on a dict entry is a read, an add and a write
 _launches_lock = threading.Lock()
@@ -84,7 +93,7 @@ def capture_tally():
             _tally = None
 
 
-_PTR, _N, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+_PTR, _N, _F32, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
 # the C entry points of each csrc/{name}.cu and their argument types; every
 # pointer and the stream go as c_void_p, so that ctypes never cuts them
 SOURCES = {
@@ -95,12 +104,14 @@ SOURCES = {
     "sign_step": {
         "sign_step_project": [_PTR, _PTR, _PTR, _PTR, _N, _F32, _F32, _PTR],
     },
+    "bias_act": {
+        "bias_act": [_PTR, _PTR, _PTR, _N, _N, _I, _I, _I, _PTR],
+    },
 }
 
 
-@functools.lru_cache(maxsize=None)
-def library(name: str) -> _build.BuiltLibrary:
-    """Build (once per process) and load ``csrc/{name}.cu``."""
+def _load(name: str) -> _build.BuiltLibrary:
+    """Build ``csrc/{name}.cu`` (unless built already) and load it."""
     lib = _build.build(name)
     for fn, argtypes in SOURCES[name].items():
         getattr(lib.cdll, fn).argtypes = argtypes
@@ -108,11 +119,19 @@ def library(name: str) -> _build.BuiltLibrary:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
 def build_all() -> dict[str, _build.BuiltLibrary]:
-    """Build every kernel source at once, one ``nvcc`` each, in parallel."""
+    """Build every kernel source at once, one ``nvcc`` each, in parallel,
+    and load them (once per process)."""
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
-        futures = {name: pool.submit(library, name) for name in SOURCES}
+        futures = {name: pool.submit(_load, name) for name in SOURCES}
         return {name: f.result() for name, f in futures.items()}
+
+
+def library(name: str) -> _build.BuiltLibrary:
+    """``csrc/{name}.cu``, loaded: the first kernel a process launches
+    builds them all, in parallel."""
+    return build_all()[name]
 
 
 def _check(name: str, *tensors: torch.Tensor) -> None:
@@ -224,3 +243,80 @@ def sign_step_project(adv01: torch.Tensor, grad: torch.Tensor, clean01: torch.Te
         return launch_sign_step(adv01.detach(), grad.detach(), clean01.detach(), alpha32, eps32)
     return pixel.sign_step_project(adv01.detach(), grad.detach(), clean01.detach(),
                                    alpha32, eps32)
+
+
+# the dtypes bias_act's kernel takes, and the code its C entry point reads
+BIAS_ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def launch_bias_act(y: torch.Tensor, bias: torch.Tensor, residual: torch.Tensor | None = None,
+                    relu: bool = True) -> torch.Tensor:
+    """``y = act(y + bias[c] (+ residual))`` in place on the card; returns ``y``."""
+    name = "bias_act"
+    tensors = [y, bias] + ([] if residual is None else [residual])
+    if y.dtype not in BIAS_ACT_DTYPES:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got {y.dtype}")
+    if any(t.dtype != y.dtype for t in tensors):
+        raise TypeError(f"{name}: dtypes {[t.dtype for t in tensors]} differ")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    if y.dim() < 2 or bias.shape != (y.shape[1],):
+        raise ValueError(f"{name}: y {tuple(y.shape)} needs a bias of shape (C,), "
+                         f"got {tuple(bias.shape)}")
+    if residual is not None and residual.shape != y.shape:
+        raise ValueError(f"{name}: residual {tuple(residual.shape)} is not y's "
+                         f"{tuple(y.shape)}")
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: expected CUDA tensors, got one on {t.device}")
+        if t.device != y.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {y.device}")
+    planes = y.shape[0] * y.shape[1]
+    if planes >= 2**31:
+        raise ValueError(f"{name}: {planes} planes; the kernel's grid takes fewer than 2^31")
+    with torch.cuda.device(y.device):
+        err = library(name).cdll.bias_act(
+            y.data_ptr(), bias.data_ptr(), None if residual is None else residual.data_ptr(),
+            planes, math.prod(y.shape[2:]), y.shape[1], BIAS_ACT_DTYPES[y.dtype], int(relu),
+            _stream(y))
+    _raise_on(err, name)
+    count_launch(name)
+    return y
+
+
+class BiasAct(torch.autograd.Function):
+    """``act(y + bias[c] (+ residual))`` in place on ``y``: the kernel on the
+    card, the plain version elsewhere. The backward is autograd's own for
+    ``relu`` (``threshold_backward`` against the output), handed to ``y``
+    and to ``residual`` as an add hands it, and summed over every axis but
+    the channels for ``bias``; built of differentiable ops, so a double
+    backward (Grad-CAM's) goes through it."""
+
+    @staticmethod
+    def forward(ctx, y, bias, residual, relu):
+        if y.is_cuda:
+            launch_bias_act(y, bias, residual, relu)
+        else:
+            pixel.bias_act(y, bias, residual, relu)
+        ctx.mark_dirty(y)
+        ctx.relu, ctx.has_residual = relu, residual is not None
+        if relu:
+            ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.relu:
+            (out,) = ctx.saved_tensors
+            grad = torch.ops.aten.threshold_backward(grad, out, 0)
+        dbias = None
+        if ctx.needs_input_grad[1]:
+            dbias = grad.sum([0] + list(range(2, grad.dim())))
+        return grad, dbias, grad if ctx.has_residual else None, None
+
+
+def bias_act(y: torch.Tensor, bias: torch.Tensor, residual: torch.Tensor | None = None,
+             relu: bool = True) -> torch.Tensor:
+    """Differentiable ``act(y + bias[c] (+ residual))``, in place on ``y``
+    (which must not be a leaf that requires a gradient), returned."""
+    return BiasAct.apply(y, bias, residual, relu)

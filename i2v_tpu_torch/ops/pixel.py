@@ -4,9 +4,9 @@ PyTorch counterpart of :mod:`i2v_tpu.ops.pixel`. Clips at the artifact
 boundary are ``(B, C, T, H, W)`` float32 in the *normalized* domain; inside
 the attacks a clip becomes an NCHW frame batch ``(B·T, C, H, W)``.
 
-``rebuild_adv`` and ``sign_step_project`` here are the plain versions of the
-hand-written kernels in :mod:`i2v_tpu_torch.ops.kernels`: the CPU path, and
-the oracle each kernel must match bit for bit on the card.
+``rebuild_adv``, ``sign_step_project`` and ``bias_act`` here are the plain
+versions of the hand-written kernels in :mod:`i2v_tpu_torch.ops.kernels`:
+the CPU path, and the oracle each kernel must match bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -89,6 +89,18 @@ def sign_step_project(adv01: torch.Tensor, grad: torch.Tensor, clean01: torch.Te
     [0,1] projection. A NaN gradient gives a NaN pixel (:func:`sign_keep_nan`)."""
     stepped = adv01 + step_size * sign_keep_nan(grad)
     return project_linf(stepped, clean01, epsilon)
+
+
+def bias_act(y: torch.Tensor, bias: torch.Tensor, residual: torch.Tensor | None = None,
+             relu: bool = True) -> torch.Tensor:
+    """``act(y + bias[c] (+ residual))`` in place on ``y`` (N, C, ...), act
+    ReLU or the identity: the ops a biased conv's output meets after cuDNN
+    in PyTorch (``output.add_(bias)``, the add, ``relu``), one rounding an
+    op, returned."""
+    y.add_(bias.view((-1,) + (1,) * (y.dim() - 2)))
+    if residual is not None:
+        y.add_(residual)
+    return y.relu_() if relu else y
 
 
 @functools.lru_cache(maxsize=None)
