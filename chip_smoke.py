@@ -14,7 +14,11 @@ raises and the script exits non-zero:
                  views, with planted ties and NaNs; kernel and plain version
                  timed with CUDA events; the conv epilogue (bias_act) also
                  against torch.relu(F.conv2d(x, w, b) + r) and timed beside
-                 torch.relu(t.add_(b)) at three surrogate shapes
+                 torch.relu(t.add_(b)) at three surrogate shapes; Swin-B's
+                 window attention (window_attn) against its plain path at the
+                 four stages' shapes at B=16, unshifted and shifted, float32
+                 and bfloat16, timed beside the plain path and
+                 F.scaled_dot_product_attention with the bias as its mask
   4. slice     — 20-step full-width ENS-I2V through the port's image CLI over
                  two synthetic clips; artifacts checked, and the launch
                  counters show that every Adam step went through K1 and K2
@@ -183,6 +187,12 @@ raises and the script exits non-zero:
                  (UNSTEADY's rule), launches equal, each B=16 peak within
                  LOOP_PEAK_SLACK_GIB of its eager twin's; printed: steps/s or
                  clips/s, idle share, peak GiB and the capture's one-off seconds
+ 32. swin      — full-width Video Swin-B (random weights, TF32 off) over the
+                 slice's adversarial clips through cli.evaluate --models
+                 swin3d_b at batch 1, serially and with --single_pass: one
+                 capture, 24 window_attn launches a forward (eager and
+                 replayed), identical one-model reports; its logits of the
+                 clips within SWIN_LOGIT_TOL of those with the plain attention
 Phase 3 also holds K1/K2 to their plain versions at the chunked runner's
 shapes: a 512-frame call (B=16), a 128-frame chunk that starts 128 frames
 into a 512-frame modifier, and a 112² call (multigrid's coarse phase).
@@ -191,8 +201,9 @@ family, tt, remat, ucf101, chunked aens, chunk equality, multigrid, real
 data's ENS, twin, BIM and UCF-101 runs, zoo + gradcam's DenseNet and ViT
 runs, Grad-CAM, evaluation and grid, bf16's ENS, evaluations and
 mu_dtype AENS, multi-device's mesh runner, --model_parallel runs,
-model-axis AENS, evaluations and white-box mesh BIM, and every compiled
-loops case, eager and graphed; converters, which launches none) is driven
+model-axis AENS, evaluations and white-box mesh BIM, every compiled loops
+case, eager and graphed, and swin's evaluations; converters, which launches
+none) is driven
 with the launch counters set to 0 just before it and read just after; the
 two launched processes of multi-device and the measurement tools'
 processes count their own and print them, and their counts join the
@@ -205,6 +216,7 @@ those paths, its error, times and bound; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import socket
 import subprocess
@@ -232,9 +244,10 @@ SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's clock: longer than the enqueue
 # sheet, SXM part, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# the launch counters of i2v_tpu_torch.ops.kernels: K1-K3 and the conv epilogue
+# the launch counters of i2v_tpu_torch.ops.kernels: K1-K3, the conv epilogue
+# and Swin-B's window attention
 K1_TO_K3 = ("rebuild_fwd", "rebuild_bwd", "sign_step")
-COUNTED = K1_TO_K3 + ("bias_act",)
+COUNTED = K1_TO_K3 + ("bias_act", "window_attn")
 KERNEL_WORK = {            # (bytes, float32 operations) an element
     "rebuild_fwd": (12, 5),   # read clean, m; write out; 2 clamps, 1 add
     "rebuild_bwd": (16, 8),   # read clean, m, g; write dm; 2 clamps, 1 add, 4 compares, 1 select
@@ -247,6 +260,22 @@ BIAS_ACT_SHAPES = (("VGG-16 conv1_2", (256, 64, 224, 224), False),
                    ("ResNet-101 layer1 conv3 + residual", (256, 256, 56, 56), True),
                    ("SqueezeNet-1.1 Fire 2 expand3x3", (256, 64, 55, 55), False))
 BIAS_ACT_ITERS = 20
+# Swin-B's window attention at B=16 over 32x224^2: (label, heads, the stage's
+# (T, H, W) grid of tokens); window (8, 7, 7), shift (4, 3, 3), which
+# get_window_size clips to (4, 0, 0) in stage 4, whose 7x7 grid is its window
+SWIN_WINDOW, SWIN_SHIFT, SWIN_HEAD_DIM = (8, 7, 7), (4, 3, 3), 32
+WINDOW_ATTN_SHAPES = (("stage 1", 4, (16, 56, 56)), ("stage 2", 8, (16, 28, 28)),
+                      ("stage 3", 16, (16, 14, 14)), ("stage 4", 32, (16, 7, 7)))
+WINDOW_ATTN_BATCH, WINDOW_ATTN_ITERS = 16, 10
+# kernel vs plain path, |got - want| <= atol + rtol·|want|: float32 softmax and
+# sums in another order (3.2e-6 at most on outputs of scale ~1, PERF.md §6);
+# in bfloat16 both round the same float32 result once (2^-8 relative)
+WINDOW_ATTN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (8e-3, 1e-5)}
+SWIN_BLOCKS = 24          # one window_attn launch a block: depths (2, 2, 18, 2)
+# Swin-B's logits with the kernel against the plain attention, max|diff| over
+# the logits' std: float32 rounding through 24 blocks (the benchmark's
+# logit_gap reads 1.6e-6 on the card; TF32 gives 2.7e-3, PERF.md §6)
+SWIN_LOGIT_TOL = 1e-4
 SF_FAST_STRIDE = 2         # SlowFast-R50's fast pathway samples every 2nd frame
 AENS_CLIPS, AENS_STEPS = 2, 10
 AENS_MOMENTUM = 0.8        # > 0, so that carried-over coefficients show in clip 2
@@ -561,6 +590,84 @@ def _bias_act(kernels, pixel, gen: torch.Generator) -> dict:
     return {"err": err, "times": (k_ms, p_ms), "bound": (bound, "bytes"), "library": l_ms}
 
 
+def _window_attn(kernels, gen: torch.Generator) -> dict:
+    """Swin-B's window attention: the kernel against its plain path
+    (``swin3d.window_attention_plain``, the kernel's oracle) at
+    WINDOW_ATTN_SHAPES at B=16, unshifted and shifted, in float32 and
+    bfloat16, within WINDOW_ATTN_TOL; then timed in float32, in turns with
+    the plain path and, on unshifted blocks, with
+    ``F.scaled_dot_product_attention`` given the bias as its mask."""
+    import torch.nn.functional as F
+
+    from i2v_tpu_torch.models import swin3d
+
+    facts, first, err = [], None, 0.0
+    for label, heads, grid in WINDOW_ATTN_SHAPES:
+        for shift in ((0, 0, 0), SWIN_SHIFT):
+            geo = swin3d.window_geometry(grid, SWIN_WINDOW, shift)
+            n, windows = geo.tokens, WINDOW_ATTN_BATCH * math.prod(geo.counts)
+            table = 0.5 * torch.randn(swin3d.table_rows(SWIN_WINDOW), heads, device="cuda",
+                                      generator=gen)
+            qkv = torch.randn(windows, n, 3, heads, SWIN_HEAD_DIM, device="cuda", generator=gen)
+            kind = "shifted" if geo.shifted else "unshifted"
+            for dtype in (torch.float32, torch.bfloat16):
+                x = qkv.to(dtype)
+                kernels.reset_launches()
+                got = swin3d.window_attention(x, table, geo)
+                want = swin3d.window_attention_plain(x, table, geo)
+                if kernels.launches["window_attn"] != 1 or got.dtype != dtype:
+                    raise RuntimeError(f"window_attn {label} {kind}: launches "
+                                       f"{kernels.launches['window_attn']}, dtype {got.dtype}")
+                diff = (got.float() - want.float()).abs()
+                rtol, atol = WINDOW_ATTN_TOL[dtype]
+                if not got.isfinite().all() or (diff > atol + rtol * want.float().abs()).any():
+                    raise RuntimeError(f"window_attn differs from its plain path ({label} {kind}, "
+                                       f"{dtype}): max |diff| {float(diff.max()):.3g}")
+                if dtype == torch.float32:
+                    err = max(err, float(diff.max()))
+                del x, got, want, diff
+            flops = 4 * windows * heads * n * n * SWIN_HEAD_DIM
+            nbytes = 4 * windows * heads * n * SWIN_HEAD_DIM * 4 + table.numel() * 4
+            by_ops, by_bytes = flops / F32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            bound = (max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes")
+            kern = lambda: swin3d.window_attention(qkv, table, geo)  # noqa: E731
+            plain = lambda: swin3d.window_attention_plain(qkv, table, geo)  # noqa: E731
+            fns = [kern, plain]
+            if not geo.shifted:  # one dense bias serves every window
+                index = swin3d._relative_index(geo.full_window, n, qkv.device)
+                bias = table[index].permute(2, 0, 1).contiguous()
+                q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+                fns.append(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+                lib = fns[-1]().transpose(1, 2).reshape(windows, n, heads * SWIN_HEAD_DIM)
+                lib_diff = float((lib - plain()).abs().max())
+                if not lib_diff <= 1e-4:  # the yardstick computes the same attention
+                    raise RuntimeError(f"SDPA differs from the plain path ({label}): {lib_diff}")
+                del lib
+            first_turn = [_time_ms(f, WINDOW_ATTN_ITERS) for f in fns]
+            second_turn = [_time_ms(f, WINDOW_ATTN_ITERS) for f in reversed(fns)][::-1]
+            ms = [(a + b) / 2 for a, b in zip(first_turn, second_turn)]
+            library = ms[2] if len(ms) > 2 else None
+            facts.append(f"{label} {kind} ({windows * heads} window-heads of {n} x "
+                         f"{SWIN_HEAD_DIM}): kernel {ms[0]:.4f} ms ({first_turn[0]:.4f}, "
+                         f"{second_turn[0]:.4f}), bound {bound[0]:.4f} ms by {bound[1]} "
+                         f"({bound[0] / ms[0]:.1%} of it), plain {ms[1]:.4f} ms"
+                         + (f", SDPA with the bias as its mask {library:.4f} ms" if library
+                            else ""))
+            if first is None:
+                first = (ms[0], ms[1], bound, library)
+            del qkv, table, fns, kern, plain
+            if not geo.shifted:
+                del q, k, v, bias
+            torch.cuda.empty_cache()
+    kernels.reset_launches()
+    print(f"[kernels] window_attn within {WINDOW_ATTN_TOL[torch.float32]} (rtol, atol) of its "
+          f"plain path in float32 (max |diff| {err:.3g}) and "
+          f"{WINDOW_ATTN_TOL[torch.bfloat16]} in bfloat16 at B={WINDOW_ATTN_BATCH}, unshifted "
+          "and shifted; " + "; ".join(facts), flush=True)
+    k_ms, p_ms, bound, library = first
+    return {"err": err, "times": (k_ms, p_ms), "bound": bound, "library": library}
+
+
 def phase_kernels(kernels, pixel) -> dict:
     eps32 = float(np.float32(EPS))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -633,8 +740,12 @@ def phase_kernels(kernels, pixel) -> dict:
     err["bias_act"] = epilogue["err"]
     times["bias_act"] = epilogue["times"]
     bounds["bias_act"] = epilogue["bound"]
+    attention = _window_attn(kernels, gen)
+    err["window_attn"] = attention["err"]
+    times["window_attn"] = attention["times"]
+    bounds["window_attn"] = attention["bound"]
     return {"err": err, "times": times, "bounds": bounds,
-            "library": {"bias_act": epilogue["library"]}}
+            "library": {"bias_act": epilogue["library"], "window_attn": attention["library"]}}
 
 
 def _costs(run_dir: str) -> dict:
@@ -2437,9 +2548,9 @@ def phase_bf16(kernels, evaluate_cli, synthetic, pixel, card: str, tmp: str) -> 
     import argparse
 
     from i2v_tpu_torch.cli import common as cli_common
-    from i2v_tpu_torch.models import get_image_models, get_video_model, video_zoo
+    from i2v_tpu_torch.models import get_image_models, get_video_model
     from i2v_tpu_torch.parallel import sharded
-    from i2v_tpu_torch.utils import artifacts
+    from i2v_tpu_torch.utils import VIDEO_MODEL_NAMES, artifacts
 
     t0 = time.time()
     bf16, f32 = torch.bfloat16, torch.float32
@@ -2510,7 +2621,7 @@ def phase_bf16(kernels, evaluate_cli, synthetic, pixel, card: str, tmp: str) -> 
     # -- the six video models, bf16 and float32, through cli.evaluate --single_pass
     tb = time.time()
     models = {d: {n: get_video_model(n, device="cuda", dtype=d)
-                  for n in video_zoo.VIDEO_BUILDERS} for d in (bf16, f32)}
+                  for n in VIDEO_MODEL_NAMES} for d in (bf16, f32)}
     build_s = time.time() - tb
     tp, reports = {}, {}
     for d, flags in ((bf16, ["--bf16"]), (f32, ["--matmul_precision", "float32"])):
@@ -2522,7 +2633,7 @@ def phase_bf16(kernels, evaluate_cli, synthetic, pixel, card: str, tmp: str) -> 
         tp[d] = (args.throughput["single_pass"], peak)
         with open(os.path.join(run_dir, REPORT_CSV)) as f:
             reports[d] = [row.split(",") for row in f.read().split("\n")[1:1 + BF16_CLIPS]]
-    names = list(video_zoo.VIDEO_BUILDERS)
+    names = list(VIDEO_MODEL_NAMES)
     agree = {n: sum(r16[i + 1] == r32[i + 1] for r16, r32 in zip(reports[bf16], reports[f32]))
              / BF16_CLIPS for i, n in enumerate(names)}
     clips, _ = artifacts.load_adv_batch(run_dir, artifacts.list_adv_files(run_dir))
@@ -3431,10 +3542,10 @@ def phase_compiled_loops(kernels, synthetic, pixel, card: str, tmp: str) -> dict
     from i2v_tpu_torch.cli import gradcam as gradcam_cli
     from i2v_tpu_torch.eval.fused import FusedGenerateEvaluate
     from i2v_tpu_torch.eval.transfer import single_pass_eval
-    from i2v_tpu_torch.models import get_image_models, get_video_model, tap_keys_for, video_zoo
+    from i2v_tpu_torch.models import get_image_models, get_video_model, tap_keys_for
     from i2v_tpu_torch.parallel import attack_mesh, multigrid, sharded
     from i2v_tpu_torch.parallel.replicas import Replicas
-    from i2v_tpu_torch.utils import artifacts
+    from i2v_tpu_torch.utils import VIDEO_MODEL_NAMES, artifacts
 
     t0 = time.time()
     gc.collect()
@@ -3623,7 +3734,7 @@ def phase_compiled_loops(kernels, synthetic, pixel, card: str, tmp: str) -> dict
     x = torch.from_numpy(norm).cuda()
     for dtype in (torch.bfloat16, torch.float32):
         bundles = {n: get_video_model(n, device="cuda", dtype=dtype)
-                   for n in video_zoo.VIDEO_BUILDERS}
+                   for n in VIDEO_MODEL_NAMES}
         for n, b in bundles.items():
             eager = Replicas(b, graphs=False).logits(x, None).clone()
             graphed = Replicas(b)
@@ -3644,7 +3755,7 @@ def phase_compiled_loops(kernels, synthetic, pixel, card: str, tmp: str) -> dict
         _loop_twins(kernels, f"single pass B=16 {str(dtype).split('.')[-1]}, six models",
                     sp_make, tmp, work=16 * LOOP_EVAL_BATCHES, unit="clips")
         del bundles
-    bundles = {n: get_video_model(n, device="cuda") for n in video_zoo.VIDEO_BUILDERS}
+    bundles = {n: get_video_model(n, device="cuda") for n in VIDEO_MODEL_NAMES}
 
     def fused_make(graphs):
         atk = attacks.ImageGuidedFML2_Adam_MultiModels(surr, steps=LOOP_STEPS, graphs=graphs)
@@ -3666,6 +3777,76 @@ def phase_compiled_loops(kernels, synthetic, pixel, card: str, tmp: str) -> dict
     torch.cuda.empty_cache()
     print(f"[compiled loops] done in {time.time() - t0:.2f} s ({card})", flush=True)
     return totals
+
+
+def phase_swin(kernels, evaluate_cli, get_video_model, run_dir: str) -> dict:
+    """Full-width Video Swin-B over the slice's adversarial clips through
+    the evaluation CLI (``--models swin3d_b``) at batch 1, serially and then
+    in one pass, the model built once: the serial run's first forward is
+    eager, its second captured and replayed, and every later one replayed.
+    Each forward launches the window-attention kernel once a block, counted
+    from a reset at the phase's start; the two reports are identical and of
+    the one model's schema; the card's logits of the clips with the kernel
+    lie within SWIN_LOGIT_TOL of those with the plain attention. Returns
+    the launch counts."""
+    import argparse
+
+    from i2v_tpu_torch.cli import common as cli_common
+    from i2v_tpu_torch.models import swin3d
+    from i2v_tpu_torch.utils import artifacts, graphs
+
+    t0 = time.time()
+    cli_common.apply_matmul_precision(argparse.Namespace(matmul_precision="float32"))
+    bundle = get_video_model("swin3d_b", device="cuda")
+    files = artifacts.list_adv_files(run_dir)
+    captured = graphs.captures["graphs"]
+    kernels.reset_launches()
+    reports, rates = {}, {}
+    for mode in ("serial", "single pass"):
+        argv = ["--adv_path", run_dir, "--device", "cuda", "--matmul_precision", "float32",
+                "--models", "swin3d_b", "--batch_size", "1"]
+        args = evaluate_cli.arg_parse(argv + (["--single_pass"] if mode == "single pass" else []))
+        acc = evaluate_cli.run(args, get_bundle=lambda name: bundle)
+        with open(os.path.join(run_dir, REPORT_CSV)) as f:
+            reports[mode] = (f.read(), acc)
+        rates[mode] = next(iter(args.throughput.values()))["clips_per_sec"]
+    counts = dict(kernels.launches)
+    forwards = 2 * len(files)
+    want = {"window_attn": SWIN_BLOCKS * forwards, "rebuild_fwd": 0, "rebuild_bwd": 0,
+            "sign_step": 0, "bias_act": 0}
+    if _of(counts, want) != want or graphs.captures["graphs"] != captured + 1:
+        raise RuntimeError(f"swin: launch counts {counts}, expected {want}; "
+                           f"{graphs.captures['graphs'] - captured} capture(s), expected 1")
+    if reports["serial"] != reports["single pass"]:
+        raise RuntimeError(f"swin: serial and single-pass reports differ: {reports}")
+    rows = reports["serial"][0].split("\n")
+    if rows[0] != "gt_label,swin3d_b-pre" or len(rows) != 402 or list(reports["serial"][1]) \
+            != ["swin3d_b"]:
+        raise RuntimeError(f"swin: reports off the schema: {rows[:3]}…, {len(rows)} lines")
+
+    clips, _ = artifacts.load_adv_batch(run_dir, files)
+    x = torch.from_numpy(clips).cuda()
+    with torch.inference_mode():
+        logits = bundle.apply_norm(x).float()
+        kernel_path = swin3d.window_attention
+        swin3d.window_attention = swin3d.window_attention_plain
+        try:
+            plain = bundle.apply_norm(x).float()
+        finally:
+            swin3d.window_attention = kernel_path
+    gap = float((logits - plain).abs().max() / plain.std())
+    if not gap <= SWIN_LOGIT_TOL:
+        raise RuntimeError(f"swin: logits with the kernel off those with the plain attention "
+                           f"by {gap:.3g} of their std (limit {SWIN_LOGIT_TOL})")
+    print(f"[swin] Video Swin-B at full width (32x224^2, 400 classes, random weights, TF32 "
+          f"off) over {len(files)} adversarial clips at batch 1: serial "
+          f"{rates['serial']:.3f} clips/s (the first forward eager, the second captured), "
+          f"single pass {rates['single pass']:.3f} clips/s (replayed); one capture; "
+          f"launches {counts} ({SWIN_BLOCKS} a forward over {forwards}); reports identical, "
+          f"top-1 {reports['serial'][1]}; logits with the kernel vs the plain attention "
+          f"{gap:.3g} of their std (limit {SWIN_LOGIT_TOL}); phase wall "
+          f"{time.time() - t0:.2f} s", flush=True)
+    return counts
 
 
 def main() -> None:
@@ -3735,8 +3916,10 @@ def main() -> None:
                                    card, tmp)
         measured_tools = phase_measurement_tools(card, tmp)
         loops = phase_compiled_loops(kernels, synthetic, pixel, card, tmp)
+        swin = phase_swin(kernels, evaluate_cli, get_video_model, slice_dir)
         for k in counts:
-            counts[k] += real[k] + zoo[k] + bf16[k] + multi[k] + measured_tools[k] + loops[k]
+            counts[k] += (real[k] + zoo[k] + bf16[k] + multi[k] + measured_tools[k] + loops[k]
+                          + swin[k])
     print(f"[done] every phase passed in {time.time() - t0:.2f} s after the device check")
 
     where = {"rebuild_fwd": ("i2v_tpu_torch/csrc/rebuild_adv.cu",
@@ -3746,14 +3929,18 @@ def main() -> None:
              "sign_step": ("i2v_tpu_torch/csrc/sign_step.cu",
                            "i2v_tpu/ops/pallas_kernels.py:94"),
              # XLA fuses the conv epilogue into the conv: no TPU kernel
-             "bias_act": ("i2v_tpu_torch/csrc/bias_act.cu", None)}
+             "bias_act": ("i2v_tpu_torch/csrc/bias_act.cu", None),
+             # the JAX package has no Swin: no TPU kernel
+             "window_attn": ("i2v_tpu_torch/csrc/window_attn.cu", None)}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": counts[k],
          "max_abs_err": measured["err"][k], "ms": measured["times"][k][0],
          "plain_ms": measured["times"][k][1], "bound_ms": measured["bounds"][k][0],
          "bound_by": measured["bounds"][k][1],
          # no single PyTorch call computes K1-K3; the epilogue's yardstick is
-         # torch.relu(t.add_(b)) at VGG-16's conv1_2 over 256 frames
+         # torch.relu(t.add_(b)) at VGG-16's conv1_2 over 256 frames, window
+         # attention's F.scaled_dot_product_attention with the bias as its
+         # mask at Swin-B's unshifted stage-1 blocks, B=16
          "library_ms": measured["library"].get(k)}
         for k, (src, rep) in where.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

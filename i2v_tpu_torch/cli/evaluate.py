@@ -3,7 +3,8 @@
     python -m i2v_tpu_torch.cli.evaluate --adv_path <run-dir-or-name>
 
 Runs every ``*adv*.npy`` artifact of the run directory through the six video
-models (or ``--models``) and writes ``results_all_models_prediction.csv`` and
+models (or ``--models``, which may name Video Swin-B, ``swin3d_b``) and
+writes ``results_all_models_prediction.csv`` and
 ``top1_acc_all_models.json`` into it, with the JAX CLI's schemas. Attack
 success rate = 100 − top-1. ``--bf16`` builds the models to compute in
 bfloat16. ``--data_parallel`` cuts each batch over every card of the process
@@ -29,7 +30,8 @@ def arg_parse(argv=None, n_classes: int = 400):
                    help="run directory, or a run name under I2V_TPU_OPT_PATH")
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--models", nargs="*", default=None,
-                   help="subset of video models (default: all six)")
+                   help="video models to evaluate (default: the reference's six; "
+                        "swin3d_b, Video Swin-B, only where named)")
     p.add_argument("--ucf101", action="store_true")
     p.add_argument("--tiny", action="store_true",
                    help="width-reduced video models (checkpoint-free runs)")

@@ -48,10 +48,10 @@ import numpy as np
 import torch
 
 from ..data.pipeline import threaded_prefetch
-from ..models.video_zoo import VIDEO_BUILDERS, get_video_model
+from ..models.video_zoo import get_video_model
 from ..parallel.mesh import Mesh, Sharding, attack_mesh, move
 from ..parallel.replicas import replicas_for
-from ..utils import AverageMeter, artifacts
+from ..utils import VIDEO_MODEL_NAMES, AverageMeter, artifacts
 from ..utils.profiling import next_number, span
 
 
@@ -92,50 +92,54 @@ def order_predictions_by_label(labels, preds, n_classes: int) -> np.ndarray:
 
 
 def _make_uploader(mesh: Optional[Mesh], device: torch.device):
-    """Host clips and labels → (the clips on the device, or a list of one
-    piece a mesh position; the labels on the first device). A batch that
-    does not divide over the mesh goes whole to its first device, with one
-    warning for the run."""
+    """→ (``upload``, whether host batches are pinned): ``upload`` takes host
+    clips (a tensor, pinned for a card) and labels → (the clips on the
+    device, or a list of one piece a mesh position; the labels on the first
+    device). A batch that does not divide over the mesh goes whole to its
+    first device, with one warning for the run."""
     sharding = None if mesh is None else Sharding(mesh, tuple(mesh.axis_names))
     home = device if mesh is None else mesh.positions[0]
     pin = home.type == "cuda"
     warned: list = []
 
-    def upload(clips: np.ndarray, labels: np.ndarray, unit):
-        clips_t = torch.from_numpy(clips)
+    def upload(clips_t: torch.Tensor, labels: np.ndarray, unit):
         labels_t = torch.from_numpy(labels.astype(np.int64))
         with span("ingest.pin", unit=unit):
             if pin:
-                clips_t, labels_t = clips_t.pin_memory(), labels_t.pin_memory()
+                labels_t = labels_t.pin_memory()
         with span("ingest.upload", unit=unit):
             dlabels = move(labels_t, home)
-            if sharding is not None and clips.shape[0] % sharding.n_pieces == 0:
+            if sharding is not None and clips_t.shape[0] % sharding.n_pieces == 0:
                 return sharding.split(clips_t).pieces, dlabels
             if sharding is not None and not warned:
                 warned.append(True)
                 warnings.warn(
-                    f"dp eval: batch of {clips.shape[0]} does not divide the {mesh.size}-position "
+                    f"dp eval: batch of {clips_t.shape[0]} does not divide the {mesh.size}-position "
                     "mesh; running this batch on a single device (pick a batch_size divisible by "
                     "the device count to keep eval data-parallel)")
             return move(clips_t, home), dlabels
 
-    return upload
+    return upload, pin
 
 
 def _prefetched_uploads(files_batches: Sequence[Sequence[str]], run_dir: str,
                         device: torch.device, mesh: Optional[Mesh] = None, sweep=None):
     """Iterator of (device clips or their mesh pieces, device labels, host
-    labels). The worker thread reads each batch, pins it (for a card) and
-    starts its upload, so that disk reads and the copy overlap the
-    consumer's forwards. At most three batches are on the device (in use,
-    queued, in the worker's hands): a B=16 batch is 308 MB. The worker's
-    spans name their batch ``(sweep, index)``."""
-    upload = _make_uploader(mesh, device)
+    labels). The worker thread reads each batch straight into a pinned host
+    buffer (for a card; from PyTorch's caching host allocator, which hands a
+    buffer out again once its copy has completed) and starts its upload, so
+    that disk reads and the copy overlap the consumer's forwards. At most
+    three batches are on the device (in use, queued, in the worker's
+    hands): a B=16 batch is 308 MB. The worker's spans name their batch
+    ``(sweep, index)``."""
+    upload, pin = _make_uploader(mesh, device)
 
     def uploaded():
         for step, files in enumerate(files_batches):
             with span("ingest.read", unit=(sweep, step)):
-                clips, labels = artifacts.load_adv_batch(run_dir, files)
+                clips = torch.empty(artifacts.batch_shape(run_dir, files), dtype=torch.float32,
+                                    pin_memory=pin)
+                _, labels = artifacts.load_adv_batch(run_dir, files, out=clips.numpy())
             yield upload(clips, labels, (sweep, step)) + (labels,)
 
     return threaded_prefetch(uploaded)
@@ -276,8 +280,9 @@ def evaluate_run(
     throughput: Optional[dict] = None,
     log=print,
 ) -> dict:
-    """Evaluate a run directory against the video models (default: all six)
-    and write the two reports into it. Returns ``{model: top1}``.
+    """Evaluate a run directory against the video models (default: the
+    reference's six, ``VIDEO_MODEL_NAMES``; ``swin3d_b`` where named) and
+    write the two reports into it. Returns ``{model: top1}``.
 
     ``dtype`` is the models' compute dtype. ``get_bundle(name)`` supplies a
     model in place of ``get_video_model(name, device=device, dtype=dtype,
@@ -302,7 +307,7 @@ def evaluate_run(
         raise FileNotFoundError(f"no adv artifacts under {run_dir!r}")
     batches = artifacts.batch_files(files, batch_size)
     if model_names is None:
-        model_names = list(VIDEO_BUILDERS)
+        model_names = list(VIDEO_MODEL_NAMES)
     throughput = {} if throughput is None else throughput
 
     def build(name):

@@ -27,6 +27,11 @@ and read the JAX package's ``{I2V_TPU_CKPTS}/{name}.msgpack`` files
 (``{"params": tree}`` in Flax's msgpack format, :mod:`.checkpoint`) with
 neither flax nor msgpack installed.
 
+``convert_swin3d`` maps the published Video Swin checkpoint (mmaction's
+layout, ``backbone.*`` and ``cls_head.fc_cls.*``) onto the port's
+:mod:`.swin3d` names, which the video registry lays over the random init
+from ``{I2V_TPU_CKPTS}/swin3d_b.pth``.
+
 The checkpoint converters are here too, the counterparts of
 ``i2v_tpu.models.convert`` without flax: ``convert_resnet``,
 ``convert_vgg16``, ``convert_alexnet``, ``convert_squeezenet11``,
@@ -411,6 +416,30 @@ def checkpoint_path(name: str, ckpt_dir: Optional[str] = None) -> str:
     """``{ckpt_dir or $I2V_TPU_CKPTS or ./checkpoints}/{name}.msgpack``."""
     ckpt_dir = ckpt_dir or os.environ.get("I2V_TPU_CKPTS", "./checkpoints")
     return os.path.join(ckpt_dir, f"{name}.msgpack")
+
+
+def convert_swin3d(sd: Mapping) -> dict:
+    """The published Video Swin checkpoint's state dict (mmaction's layout,
+    optionally under ``"state_dict"``) → the port's :mod:`.swin3d` names:
+    ``backbone.{patch_embed,layers.{i}.blocks.{j}.{norm1,attn.qkv,attn.proj,
+    attn.relative_position_bias_table,norm2,mlp.fc1,mlp.fc2},
+    layers.{i}.downsample.{norm,reduction},norm}.*`` lose ``backbone.``,
+    ``cls_head.fc_cls.*`` becomes ``fc.*``, and each
+    ``relative_position_index`` is dropped (the port computes it). Values
+    come back as float32 tensors."""
+    sd = sd.get("state_dict", sd)
+    out = {}
+    for key, value in sd.items():
+        if key.endswith("relative_position_index"):
+            continue
+        if key.startswith("backbone."):
+            name = key[len("backbone."):]
+        elif key.startswith("cls_head.fc_cls."):
+            name = "fc." + key[len("cls_head.fc_cls."):]
+        else:
+            raise KeyError(f"{key!r} is not a key of a Video Swin checkpoint")
+        out[name] = torch.as_tensor(value).float()
+    return out
 
 
 def save_params(params: dict, name: str, ckpt_dir: Optional[str] = None) -> str:

@@ -39,6 +39,7 @@ import torch.nn as nn
 
 from . import densenet as _densenet
 from . import resnet as _resnet
+from . import swin3d as _swin3d
 from . import vgg as _vgg
 from . import vit as _vit
 from .api import ImageModel
@@ -120,7 +121,9 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     registration order, from ``generator``; zero the biases. Norms (DenseNet's
     frozen BN, LayerNorm) get ones and zeros, ViT's class token zeros and its
     position embedding a normal of std 0.02 from the same generator (Flax's
-    initializers). The draws are float32 whatever the weights' dtype, so
+    initializers); Swin's relative-position bias tables a truncated normal
+    of std 0.02 (the published init), and its bias-free merging linears no
+    bias. The draws are float32 whatever the weights' dtype, so
     that a bfloat16 module gets its float32 twin's weights, rounded."""
     with torch.no_grad():
         for m in module.modules():
@@ -130,7 +133,8 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 w = torch.empty(m.weight.shape, dtype=torch.float32, device=m.weight.device)
                 nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
                 m.weight.copy_(w)
-                nn.init.zeros_(m.bias)
+                if m.bias is not None:  # Swin's patch merging has none
+                    nn.init.zeros_(m.bias)
             elif isinstance(m, _densenet.FrozenBN):
                 nn.init.ones_(m.scale)
                 nn.init.zeros_(m.bias)
@@ -140,6 +144,10 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(m, _vit.ViT):
                 nn.init.zeros_(m.cls_token)
                 nn.init.normal_(m.pos_embed, std=0.02, generator=generator)
+            elif isinstance(m, _swin3d.WindowAttention3D):
+                # the published init of Swin's relative-position bias table
+                nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02,
+                                      generator=generator)
     return module
 
 

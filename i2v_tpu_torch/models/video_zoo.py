@@ -1,9 +1,15 @@
 """Video-model registry: the reference's six model names (utils.py:8-15),
-their builders and tap tables.
+their builders and tap tables, and Video Swin-B (``swin3d_b``), a transfer
+target the reference does not have: it is evaluated only where it is named
+(the six are ``utils.VIDEO_MODEL_NAMES``).
 
 PyTorch counterpart of :mod:`i2v_tpu.models.video_zoo`: I3D, SlowFast and
-TPN, each at ResNet-50 and ResNet-101 depth. Weights: a full-width model
-loads ``{I2V_TPU_CKPTS}/{name}[_ucf101].msgpack``, the JAX package's
+TPN, each at ResNet-50 and ResNet-101 depth. Swin-B's weights come from
+``{I2V_TPU_CKPTS}/swin3d_b.pth``, the published Kinetics-400 checkpoint
+(``swin_base_patch244_window877_kinetics400_1k.pth``, renamed) mapped by
+:func:`.convert.convert_swin3d`, laid over the random init as below.
+Weights of the six: a full-width model loads
+``{I2V_TPU_CKPTS}/{name}[_ucf101].msgpack``, the JAX package's
 checkpoint converted from gluoncv (Flax msgpack, read by :mod:`.checkpoint`
 without flax), where the file exists. The file is laid over the random init
 that is drawn first, on the CPU from a seeded ``torch.Generator`` (the same
@@ -23,10 +29,11 @@ import warnings
 
 import torch
 
-from . import i3d, slowfast, tpn
+from . import i3d, slowfast, swin3d, tpn
 from .api import VideoModel
 from .common import check_dtype_on_device, set_compute_dtype
-from .convert import checkpoint_path, from_jax_params, load_params, missing_modules
+from .convert import (checkpoint_path, convert_swin3d, from_jax_params, load_params,
+                      missing_modules)
 from .registry import random_init_
 
 VIDEO_BUILDERS = {
@@ -36,6 +43,7 @@ VIDEO_BUILDERS = {
     "slowfast_resnet101": slowfast.slowfast_resnet101,
     "tpn_resnet50": tpn.tpn_resnet50,
     "tpn_resnet101": tpn.tpn_resnet101,
+    "swin3d_b": swin3d.swin3d_b,
 }
 TINY_BUILDERS = {
     "i3d_resnet50": i3d.i3d_tiny,
@@ -44,6 +52,7 @@ TINY_BUILDERS = {
     "slowfast_resnet101": slowfast.slowfast_tiny,
     "tpn_resnet50": tpn.tpn_tiny,
     "tpn_resnet101": tpn.tpn_tiny,
+    "swin3d_b": swin3d.swin3d_tiny,
 }
 
 # per-architecture target layers (reference: base_attacks.py:737-743)
@@ -51,12 +60,14 @@ TAP_TAPS = {
     "i3d": ("res_layer1", "res_layer2"),
     "slowfast": ("slow_res2", "slow_res3", "fast_res2", "fast_res3"),
     "tpn": ("layer1", "layer2"),
+    "swin3d": ("stage1", "stage2"),
 }
 # ILAF mid-layers (reference: image_attacks.py:513-519)
 ILAF_TAPS = {
     "i3d": ("res_layer2",),
     "slowfast": ("slow_res2", "fast_res2"),
     "tpn": ("layer2",),
+    "swin3d": ("stage2",),
 }
 
 
@@ -91,7 +102,7 @@ def get_video_model(name: str, *, device: torch.device | str, tiny: bool = False
     module = (TINY_BUILDERS if tiny else VIDEO_BUILDERS)[name](**kw)
     random_init_(module, torch.Generator().manual_seed(seed))
     if not tiny:
-        _load_checkpoint(module, name, ucf101)
+        CHECKPOINT_LOADERS.get(name, _load_checkpoint)(module, name, ucf101)
     module = set_compute_dtype(module, dtype).to(device).eval().requires_grad_(False)
     return VideoModel(name=name, module=module, tap_keys=taps)
 
@@ -112,3 +123,26 @@ def _load_checkpoint(module, name: str, ucf101: bool) -> None:
         warnings.warn(f"checkpoint for {name!r} left {len(missing)} module(s) at random init: "
                       f"{missing[:8]}{'…' if len(missing) > 8 else ''} — transfer numbers "
                       "are NOT valid until these convert (see convert_gluoncv --report)")
+
+
+def _load_swin_checkpoint(module, name: str, ucf101: bool) -> None:
+    """Lay ``{I2V_TPU_CKPTS}/{name}.pth``, the published checkpoint mapped
+    by :func:`.convert.convert_swin3d`, over ``module``'s init where the
+    file exists (the part the module has, when it is truncated); warn
+    without it, and name what the file left at random init."""
+    path = os.path.splitext(checkpoint_path(name))[0] + ".pth"
+    if ucf101 or not os.path.exists(path):
+        warnings.warn(f"no checkpoint for {name!r}{' (ucf101)' if ucf101 else ''} at "
+                      f"{path!r}; using random init")
+        return
+    state = convert_swin3d(torch.load(path, map_location="cpu", weights_only=True))
+    own = module.state_dict()
+    missing = module.load_state_dict({k: v for k, v in state.items() if k in own},
+                                     strict=False).missing_keys
+    if missing:
+        warnings.warn(f"checkpoint for {name!r} left {len(missing)} parameter(s) at random "
+                      f"init: {missing[:8]}{'…' if len(missing) > 8 else ''}")
+
+
+# the models whose checkpoint is not the JAX package's msgpack, and its loader
+CHECKPOINT_LOADERS = {"swin3d_b": _load_swin_checkpoint}

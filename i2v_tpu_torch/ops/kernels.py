@@ -22,10 +22,21 @@ Replaces no Pallas kernel: XLA fuses the epilogue into the conv on the TPU.
 The CUDA kernel is ``csrc/bias_act.cu``; its gradient is the one autograd
 takes through ``relu`` (``threshold_backward``), so it stays differentiable.
 
+``launch_window_attn(qkv, table, ...)`` — the core of the Video Swin
+Transformer's window attention (:mod:`i2v_tpu_torch.models.swin3d`),
+``softmax(q·scale·kᵀ + bias + mask)·v`` of every (window, head) in one
+launch, forward only, from the partitioned qkv into the projection's layout.
+Replaces no Pallas kernel: the JAX package has no Swin. The CUDA kernel is
+``csrc/window_attn.cu``; it computes in float32 on the CUDA cores whatever
+PyTorch's TF32 flags say. It counts in ``launches["window_attn"]`` as the
+other kernels count: one a block of an eager forward, and a captured
+forward's at each replay.
+
 Each source is built with ``nvcc`` for sm_90a at first use (:mod:`._build`).
-All four kernels are elementwise and bound by device-memory bytes (12, 16,
-16, and 8 or 12 bytes an element); each makes one pass with 16-byte vector
-accesses where the shapes and pointers allow; the sources say more.
+The first four kernels are elementwise and bound by device-memory bytes (12,
+16, 16, and 8 or 12 bytes an element); each makes one pass with 16-byte
+vector accesses where the shapes and pointers allow; window attention is
+bound by float32 arithmetic; the sources say more.
 
 Dispatch: a tensor on the CPU takes the plain version in
 :mod:`i2v_tpu_torch.ops.pixel`; a CUDA tensor launches the kernel or raises.
@@ -50,7 +61,8 @@ import torch
 
 from . import _build, pixel
 
-launches = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0, "bias_act": 0}
+launches = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0, "bias_act": 0,
+            "window_attn": 0}
 # K2 launches from the autograd engine's thread of each card, so the counts
 # take a lock: ``+=`` on a dict entry is a read, an add and a write
 _launches_lock = threading.Lock()
@@ -106,6 +118,9 @@ SOURCES = {
     },
     "bias_act": {
         "bias_act": [_PTR, _PTR, _PTR, _N, _N, _I, _I, _I, _PTR],
+    },
+    "window_attn": {
+        "window_attn_fwd": [_PTR, _PTR, _PTR, _N] + [_I] * 13 + [_F32, _I, _PTR],
     },
 }
 
@@ -320,3 +335,51 @@ def bias_act(y: torch.Tensor, bias: torch.Tensor, residual: torch.Tensor | None 
     """Differentiable ``act(y + bias[c] (+ residual))``, in place on ``y``
     (which must not be a leaf that requires a gradient), returned."""
     return BiasAct.apply(y, bias, residual, relu)
+
+
+# the dtypes window attention's kernel takes, and the code its C entry point reads
+WINDOW_ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+WINDOW_ATTN_HEAD_DIM = 32
+WINDOW_ATTN_MAX_TOKENS = 392
+
+
+def launch_window_attn(qkv: torch.Tensor, table: torch.Tensor, *, window, full_window, shift,
+                       counts) -> torch.Tensor:
+    """``softmax(q·hd^-0.5·kᵀ + table[index[:N, :N]] (+ mask))·v`` of every
+    (window, head) on the card: qkv (windows, N, 3, heads, 32), the windows
+    of each clip in (D, H, W) order, ``counts`` of them along each axis;
+    ``window`` and ``shift`` the used ones, ``full_window`` the configured
+    one, whose relative index reads ``table`` (rows, heads), float32. →
+    (windows, N, heads·32) in qkv's dtype."""
+    name = "window_attn"
+    if qkv.dtype not in WINDOW_ATTN_DTYPES:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got {qkv.dtype}")
+    if table.dtype != torch.float32:
+        raise TypeError(f"{name}: the bias table must be float32, got {table.dtype}")
+    if not (qkv.is_cuda and table.is_cuda) or qkv.device != table.device:
+        raise ValueError(f"{name}: expected CUDA tensors on one card, got {qkv.device} "
+                         f"and {table.device}")
+    if not (qkv.is_contiguous() and table.is_contiguous()) or qkv.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel takes contiguous, 16-byte aligned tensors")
+    if qkv.dim() != 5 or qkv.shape[2] != 3 or qkv.shape[4] != WINDOW_ATTN_HEAD_DIM:
+        raise ValueError(f"{name}: qkv {tuple(qkv.shape)} is not (windows, N, 3, heads, "
+                         f"{WINDOW_ATTN_HEAD_DIM})")
+    windows, n, _, heads, hd = qkv.shape
+    if n != math.prod(window) or n > WINDOW_ATTN_MAX_TOKENS:
+        raise ValueError(f"{name}: N = {n} is not the window {tuple(window)}'s tokens, or "
+                         f"over {WINDOW_ATTN_MAX_TOKENS}")
+    if any(w > f for w, f in zip(window, full_window)) or windows % math.prod(counts):
+        raise ValueError(f"{name}: window {tuple(window)} past {tuple(full_window)}, or "
+                         f"{windows} windows not whole clips of {tuple(counts)}")
+    if table.shape != (math.prod(2 * f - 1 for f in full_window), heads):
+        raise ValueError(f"{name}: table {tuple(table.shape)} is not the ({full_window}) "
+                         f"window's rows by {heads} heads")
+    out = torch.empty(windows, n, heads * hd, dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        err = library(name).cdll.window_attn_fwd(
+            qkv.data_ptr(), table.data_ptr(), out.data_ptr(), windows, heads, *counts,
+            *window, *shift, *full_window, float(np.float32(hd ** -0.5)),
+            WINDOW_ATTN_DTYPES[qkv.dtype], _stream(qkv))
+    _raise_on(err, name)
+    count_launch(name)
+    return out

@@ -83,15 +83,61 @@ def batch_files(files: Sequence[str], batch_size: int) -> list[list[str]]:
             for i in range(0, len(files), batch_size)]
 
 
-def load_adv_batch(run_dir: str, files: Iterable[str]):
-    """Load a file batch → (clips (B,3,T,H,W) f32, labels (B,) i32)."""
-    clips, labels = [], []
-    for f in files:
-        clips.append(np.load(os.path.join(run_dir, f)))
-        labels.append(label_of(f))
-    # compact (f16) artifacts cast back to the protocol's f32 here
-    return (np.stack(clips).astype(np.float32, copy=False),
-            np.asarray(labels, dtype=np.int32))
+_HEADER_READERS = {(1, 0): np.lib.format.read_array_header_1_0,
+                   (2, 0): np.lib.format.read_array_header_2_0}
+
+
+def _npy_header(path: str):
+    """(shape, fortran_order, dtype, data offset) of a ``.npy`` file, or None
+    for a format version without a public header reader."""
+    with open(path, "rb") as f:
+        read = _HEADER_READERS.get(np.lib.format.read_magic(f))
+        if read is None:
+            return None
+        shape, fortran, dtype = read(f)
+        return shape, fortran, dtype, f.tell()
+
+
+def _read_into(path: str, out: np.ndarray) -> None:
+    """The array of ``path`` into ``out`` (C-contiguous float32): read
+    straight from the file where it holds float32 in C order, the one copy
+    the read makes; otherwise loaded and cast (compact f16 artifacts)."""
+    header = _npy_header(path)
+    if header is not None and header[0] == out.shape and not header[1] \
+            and header[2] == out.dtype:
+        with open(path, "rb") as f:
+            f.seek(header[3])
+            if f.readinto(memoryview(out).cast("B")) != out.nbytes:
+                raise ValueError(f"{path!r} ends before its {out.shape} array")
+        return
+    arr = np.load(path)
+    if arr.shape != out.shape:
+        raise ValueError(f"{path!r} holds {arr.shape}, not the batch's {out.shape}")
+    out[...] = arr
+
+
+def batch_shape(run_dir: str, files: Sequence[str]) -> tuple:
+    """(B, 3, T, H, W) of a file batch, from its first file's header."""
+    header = _npy_header(os.path.join(run_dir, files[0]))
+    shape = header[0] if header is not None else np.load(os.path.join(run_dir, files[0])).shape
+    return (len(files),) + tuple(shape)
+
+
+def load_adv_batch(run_dir: str, files: Iterable[str], out: np.ndarray | None = None):
+    """Load a file batch → (clips (B,3,T,H,W) f32, labels (B,) i32). Each
+    clip is read into its row of ``out`` (a C-contiguous float32 array of
+    :func:`batch_shape`, such as a pinned host buffer), or of a new array;
+    compact (f16) artifacts are cast back to the protocol's f32 there."""
+    files = list(files)
+    shape = batch_shape(run_dir, files)
+    if out is None:
+        out = np.empty(shape, dtype=np.float32)
+    if out.shape != shape or out.dtype != np.float32 or not out.flags.c_contiguous:
+        raise ValueError(f"out {out.shape} {out.dtype} is not a C-contiguous float32 batch of "
+                         f"{shape}")
+    for i, f in enumerate(files):
+        _read_into(os.path.join(run_dir, f), out[i])
+    return out, np.asarray([label_of(f) for f in files], dtype=np.int32)
 
 
 def save_loss_info(run_dir: str, loss_info: dict, shard_index: int = 1) -> str:

@@ -87,14 +87,14 @@ def read_marks(run_dir: str) -> list:
 def build_pipeline(run_dir: str, args):
     from i2v_tpu_torch.eval.fused import FusedGenerateEvaluate
     from i2v_tpu_torch.models import get_image_models, get_video_model
-    from i2v_tpu_torch.models.video_zoo import VIDEO_BUILDERS
+    from i2v_tpu_torch.utils import VIDEO_MODEL_NAMES
     from i2v_tpu_torch.parallel.sharded import ShardedImageGuidedAttack
 
     device = args.device
     surrogates = get_image_models(ENS_NAMES, ENS_DEPTHS, device=device, dtype=torch.bfloat16)
     attack = ShardedImageGuidedAttack(surrogates, steps=args.steps, step_size=0.005,
                                       frame_chunk=256, param_dtype=torch.bfloat16)
-    names = list(VIDEO_BUILDERS)
+    names = list(VIDEO_MODEL_NAMES)
     print(f"[e2e400] eval models ({len(names)}): {names}", flush=True)
     bundles = {n: get_video_model(n, device=device, dtype=torch.bfloat16) for n in names}
     return FusedGenerateEvaluate(attack, bundles, run_dir=run_dir, n_classes=args.clips,

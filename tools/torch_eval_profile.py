@@ -96,6 +96,7 @@ from i2v_tpu_torch.cli import common  # noqa: E402
 from i2v_tpu_torch.data.synthetic import SyntheticAttackDataset  # noqa: E402
 from i2v_tpu_torch.eval.transfer import reference_eval, single_pass_eval  # noqa: E402
 from i2v_tpu_torch.models import get_image_models, get_video_model, video_zoo  # noqa: E402
+from i2v_tpu_torch.utils import VIDEO_MODEL_NAMES  # noqa: E402
 from i2v_tpu_torch.utils import artifacts  # noqa: E402
 
 MODES = ("float32", "default")
@@ -248,7 +249,7 @@ def attack_paths(tmp: str, graphs: bool = True):
 
     def fused():
         atk = image_attack("--attack_method", "ImageGuidedFML2_Adam_MultiModels")
-        bundles = {n: get_video_model(n, device=device) for n in video_zoo.VIDEO_BUILDERS}
+        bundles = {n: get_video_model(n, device=device) for n in VIDEO_MODEL_NAMES}
 
         def batch():
             f = FusedGenerateEvaluate(atk, bundles, run_dir=os.path.join(tmp, "fused"),
@@ -542,7 +543,7 @@ def main(argv=None) -> dict:
             print(f"[precision] {prec}; models in {args.dtype}")
             for graphs in GRAPH_MODES[args.graphs]:
                 g_label = "graphed" if graphs else "eager"
-                for name in video_zoo.VIDEO_BUILDERS:
+                for name in VIDEO_MODEL_NAMES:
                     bundle = get_video_model(name, device="cuda", dtype=dtype)
                     warm_s, preds = timed_eval(bundle, batches, tmp, graphs)
                     # a second warm-up: a graphed forward is captured at its second batch
@@ -585,7 +586,7 @@ def main(argv=None) -> dict:
                     del bundle
                     torch.cuda.empty_cache()
                 bundles = {name: get_video_model(name, device="cuda", dtype=dtype)
-                           for name in video_zoo.VIDEO_BUILDERS}
+                           for name in VIDEO_MODEL_NAMES}
 
                 def one_pass():
                     return single_pass_eval(bundles, batches, tmp, log=lambda *_: None,
