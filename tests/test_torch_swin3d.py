@@ -10,7 +10,9 @@ another order would differ by ~1e-6; they run the same ops here) at shapes
 that exercise padding, clipped windows and shifts, shift masks and several
 windows along every axis; each planted fault below fails that comparison.
 The ``gpu`` tests hold ``window_attn_fwd_kernel`` to the plain path at the
-four stages' shapes, a clipped and a padded shape, in float32 and bfloat16;
+four stages' shapes, a clipped and a padded shape, windows whose N leaves
+tails in the kernel's tiles and a launch of fewer window-heads than SMs, in
+float32 and bfloat16;
 a captured forward to its eager step 0, bit for bit; and count 24 launches
 (one a block) in a full-depth forward. The file imports neither JAX nor the
 JAX package, so that it runs on a machine with a card:
@@ -19,6 +21,7 @@ Without a card those tests skip."""
 
 import math
 import os
+import re
 import sys
 
 import numpy as np
@@ -286,6 +289,20 @@ def test_random_init_draws_the_table_and_skips_the_missing_bias():
     assert torch.equal(module.norm.weight, torch.ones_like(module.norm.weight))
 
 
+def test_benchmark_reads_the_kernel_by_its_name():
+    """The benchmark's window-attention metrics find the kernel in a trace by
+    ``port_bench.window_attn.KERNEL``: it must name the one ``__global__``
+    kernel of ``csrc/window_attn.cu``, so that a rename fails here."""
+    from port_bench import window_attn as bench_window_attn
+
+    src = os.path.join(os.path.dirname(swin3d.__file__), os.pardir, "csrc", "window_attn.cu")
+    with open(src) as f:
+        text = f.read()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                       text)
+    assert names == [bench_window_attn.KERNEL]
+
+
 # -- on the card ------------------------------------------------------------
 
 @pytest.fixture
@@ -297,11 +314,14 @@ def cuda():
     return torch.device("cuda")
 
 
-# (windows of a clip's grid, heads, grid, shift): Swin-B's four stages at
-# 32x224^2, both block kinds; a window clipped along T; a padded grid
+# (heads, grid of tokens): Swin-B's four stages at 32x224^2, both block kinds;
+# a window clipped along T; a padded grid; windows whose N fills neither the
+# kernel's 56-query warps nor its 28-key tiles (75 unshifted, 105 shifted along
+# H); 32 window-heads, fewer than the card has SMs
 CARD_SHAPES = {
     "stage1": (4, (16, 56, 56)), "stage2": (8, (16, 28, 28)), "stage3": (16, (16, 14, 14)),
     "stage4": (32, (16, 7, 7)), "clipped": (4, (4, 14, 14)), "padded": (8, (10, 9, 9)),
+    "tail75": (4, (3, 5, 5)), "tail105": (4, (3, 14, 5)), "few_heads": (4, (16, 7, 14)),
 }
 
 
