@@ -21,7 +21,8 @@ wait for each batch (``eval.ingest_wait``), forwards and fetches, under one
 predictions and the accuracy come back. The serial mode swaps models as the
 reference does (reference.py:124-125: ``del`` and ``empty_cache``); the
 single-pass mode keeps every model resident and runs each uploaded batch
-through all of them. ``dtype=torch.bfloat16`` builds the models to compute
+through all of them. Both run one batch loop (``_eval_loop``), the serial
+mode over one model at a time. ``dtype=torch.bfloat16`` builds the models to compute
 in bfloat16 (``cli.evaluate --bf16``); top-1 can then differ from float32's
 on borderline clips.
 
@@ -169,54 +170,11 @@ def _log_progress(log, step: int, n: int, data_time, batch_time, top1: dict, tit
         log(f"top-1 accuracy{f' [{name}]' if name else ''}: {meter.avg:.2f}%")
 
 
-def reference_eval(bundle, files_batches: Sequence[Sequence[str]], run_dir: str, *,
-                   mesh: Optional[Mesh] = None, log=print, graphs: bool = True):
-    """Evaluate one model over artifact batches → (preds, labels, top1_avg).
-
-    Artifacts are normalized-domain clips (the protocol); the bundle's
-    ``apply_norm`` takes them as they are. With a ``mesh``, each batch is
-    cut over its positions (data-parallel evaluation). The forward and
-    top-1 of each batch shape are one CUDA graph on a card, held on the
-    bundle with its replicas (:func:`~i2v_tpu_torch.parallel.replicas.replicas_for`);
-    ``graphs=False`` runs them eagerly."""
-    data_time, batch_time, top1 = AverageMeter(), AverageMeter(), AverageMeter()
-    predictions: list[int] = []
-    labels_all: list[int] = []
-    sweep = next_number("eval.sweep")
-    with span("eval.sweep", unit=sweep):
-        replicas = replicas_for(bundle, mesh, graphs=graphs)
-        positions = None if mesh is None else mesh.positions
-        with torch.inference_mode():
-            batches = _prefetched_uploads(files_batches, run_dir, bundle.device, mesh, sweep)
-            end = time.perf_counter()
-            for step, wait, (clips, dlabels, labels) in _waited(batches, len(files_batches), sweep):
-                data_time.update(wait)
-                with span("eval.forward", unit=(sweep, step)):
-                    _, acc, preds = replicas.predict(clips, positions, dlabels)
-                with span("eval.fetch", unit=(sweep, step)):
-                    predictions += preds.cpu().tolist()
-                    top1.update(float(acc), len(labels))
-                labels_all += labels.tolist()
-                now = time.perf_counter()
-                batch_time.update(now - end)
-                end = now
-                if step % 5 == 0:
-                    _log_progress(log, step, len(files_batches), data_time, batch_time,
-                                  {"": top1}, "validation")
-    return predictions, labels_all, top1.avg
-
-
-def single_pass_eval(bundles: dict, files_batches: Sequence[Sequence[str]], run_dir: str, *,
-                     mesh: Optional[Mesh] = None, log=print, graphs: bool = True):
-    """Evaluate every model over each uploaded batch → ({model: preds},
-    labels, {model: top1_avg}).
-
-    The reference reads and uploads every artifact once per model
-    (reference.py:108-125); here each batch is read and uploaded once, and
-    every model's forward is issued before any result is fetched, so the
-    card runs them back to back. The reports are the serial mode's. With a
-    ``mesh``, each batch is cut over its positions. Each model's forward is
-    a graph as in :func:`reference_eval`."""
+def _eval_loop(bundles: dict, files_batches: Sequence[Sequence[str]], run_dir: str, *,
+               mesh: Optional[Mesh], log, graphs: bool, title: str):
+    """The one batch loop of both modes → ({name: preds}, labels, {name:
+    top1_avg}): each uploaded batch through every model of ``bundles``, all
+    forwards issued before any fetch; the serial mode's is one model."""
     device = next(iter(bundles.values())).device
     data_time, batch_time = AverageMeter(), AverageMeter()
     top1 = {name: AverageMeter() for name in bundles}
@@ -244,8 +202,38 @@ def single_pass_eval(bundles: dict, files_batches: Sequence[Sequence[str]], run_
                 end = now
                 if step % 5 == 0:
                     _log_progress(log, step, len(files_batches), data_time, batch_time, top1,
-                                  "validation (single pass, all models)")
+                                  title)
     return predictions, labels_all, {n: m.avg for n, m in top1.items()}
+
+
+def reference_eval(bundle, files_batches: Sequence[Sequence[str]], run_dir: str, *,
+                   mesh: Optional[Mesh] = None, log=print, graphs: bool = True):
+    """Evaluate one model over artifact batches → (preds, labels, top1_avg).
+
+    Artifacts are normalized-domain clips (the protocol); the bundle's
+    ``apply_norm`` takes them as they are. With a ``mesh``, each batch is
+    cut over its positions (data-parallel evaluation). The forward and
+    top-1 of each batch shape are one CUDA graph on a card, held on the
+    bundle with its replicas (:func:`~i2v_tpu_torch.parallel.replicas.replicas_for`);
+    ``graphs=False`` runs them eagerly."""
+    preds, labels, top1 = _eval_loop({"": bundle}, files_batches, run_dir, mesh=mesh, log=log,
+                                     graphs=graphs, title="validation")
+    return preds[""], labels, top1[""]
+
+
+def single_pass_eval(bundles: dict, files_batches: Sequence[Sequence[str]], run_dir: str, *,
+                     mesh: Optional[Mesh] = None, log=print, graphs: bool = True):
+    """Evaluate every model over each uploaded batch → ({model: preds},
+    labels, {model: top1_avg}).
+
+    The reference reads and uploads every artifact once per model
+    (reference.py:108-125); here each batch is read and uploaded once, and
+    every model's forward is issued before any result is fetched, so the
+    card runs them back to back. The reports are the serial mode's. With a
+    ``mesh``, each batch is cut over its positions. Each model's forward is
+    a graph as in :func:`reference_eval`."""
+    return _eval_loop(bundles, files_batches, run_dir, mesh=mesh, log=log, graphs=graphs,
+                      title="validation (single pass, all models)")
 
 
 def write_reports(run_dir: str, columns: dict, n_classes: int, model_val_acc: dict,

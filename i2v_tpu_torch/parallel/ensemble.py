@@ -23,22 +23,22 @@ position here holds its own list.) AENS's coefficients are one vector on
 position (0, 0)'s device: group g's taps sit at a static offset in it, each
 position adds its per-tap signal into its group's part, and the
 coefficients persist across runner calls.
+
+Only the layout is this module's: the grid of positions, their replicas and
+tap slices, and the chunk rule. The call, the loops by layout and
+``value_and_grad`` are the frame-sharded runner's own body
+(``sharded._make_runner``), and :class:`EnsembleParallelAttack` is its
+attack wrapper (``sharded.ShardedImageGuidedAttack``).
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Sequence
 
-import torch
-
-from ..attacks.core import Attack
 from ..models.api import ImageModel
-from ..ops import pixel
-from .mesh import Mesh, local_devices, make_mesh, move
-from .sharded import (_acc, _cat, _load, _Loop, _position, _position_grad, _slices,
-                      compute_dtype_of, frame_mask, pad_to_mesh, replicate, resolve_frame_chunk,
-                      snap_frame_chunk)
+from .mesh import Mesh, local_devices, make_mesh
+from .sharded import (ShardedImageGuidedAttack, _make_runner, _slices, _whole_frames,
+                      compute_dtype_of, replicate, resolve_frame_chunk, snap_frame_chunk)
 
 
 def ensemble_mesh(devices: Optional[Sequence] = None, model: Optional[int] = None) -> Mesh:
@@ -107,98 +107,27 @@ def make_ensemble_parallel_runner(
     counts = [sum(len(m.tap_keys) for m in grp) for grp in groups]
     offsets = [sum(counts[:g]) for g in range(m_size)]
     taps = [slice(o, o + c) for o, c in zip(offsets, counts)]
-    n_taps = sum(counts)
     compute_dtype = compute_dtype_of(models)
-    grid = mesh.devices                      # (model, frames)
-    home = grid[0, 0]
-    homes = [grid[0, f] for f in range(cols)]
+    devices = [list(row) for row in mesh.devices]      # (model, frames)
+    home = devices[0][0]
     replicas: dict = {}
-    for g in range(m_size):
-        for f in range(cols):
-            replicas.setdefault((g, grid[g, f]), replicate(groups[g], grid[g, f]))
-    grad_of = functools.partial(_position_grad, epsilon=epsilon, adaptive=adaptive,
-                                coef_ce=coef_ce, n_taps=n_taps, remat=False)
-    coeffs_box = [torch.ones(n_taps, dtype=torch.float32, device=home)]
+    placed = [[replicas.setdefault((g, d), replicate(groups[g], d)) for d in row]
+              for g, row in enumerate(devices)]
 
-    def frame_slices(clean01, n_real):
-        """→ (B, frame slice f for each f (on the home device), the pad
-        mask's slices or Nones)."""
-        clean01 = torch.as_tensor(clean01).to(home, torch.float32)
-        b, _, t = clean01.shape[:3]
-        frames = pixel.flatten_clip_to_frames(clean01)
-        del clean01
-        if (b * t) % cols:
-            raise ValueError(f"{b * t} frames do not divide over the frames axis of {cols}")
-        mask = frame_mask(b, t, n_real, home)
-        return b, _slices(frames, cols), [None] * cols if mask is None else _slices(mask, cols)
+    def frame_slices(clean01):
+        """→ (B, T, frame slice f for each f, on position (0, 0)'s device)."""
+        b, t, frames = _whole_frames(clean01, home, cols, f"the frames axis of {cols}")
+        return b, t, _slices(frames, cols)
 
-    def positions_of(slices, masks) -> list:
-        """The positions as a (model, frames) list of lists."""
-        n_local = slices[0].shape[0]
-        chunk = snap_frame_chunk(resolve_frame_chunk(frame_chunk, n_local, slices[0].shape[2:],
-                                                     compute_dtype), n_local)
-        return [[_position(replicas[g, grid[g, f]], move(slices[f], grid[g, f]), chunk,
-                           None if masks[f] is None else move(masks[f], grid[g, f]), taps[g])
-                 for f in range(cols)] for g in range(m_size)]
-
-    # the loops by batch layout, as the JAX runner's jit caches by shape
-    loops: dict = {}
-
-    def loop_for(clean01, n_real) -> tuple[int, _Loop]:
-        b, slices, masks = frame_slices(clean01, n_real)
-        key = (tuple(slices[0].shape), masks[0] is None)
-        loop = loops.get(key)
-        if loop is None:
-            loop = loops[key] = _Loop(
-                positions_of(slices, masks), home, steps=steps, step_size=step_size,
-                mu_dtype=None, adaptive=adaptive, aens_momentum=aens_momentum, n_taps=n_taps,
-                grad_of=grad_of, graphs=graphs)
-        else:
-            for q, pos in enumerate(loop.positions):
-                _load(pos, slices[q % cols], masks[q % cols])
-        return b, loop
-
-    def runner(clean01, n_real=None, mod_init=None):
-        b, loop = loop_for(clean01, n_real)
-        loop.reset(None if mod_init is None else _slices(mod_init, cols), None, coeffs_box[0])
-        for _ in range(steps):
-            loop.step()
-        if adaptive:
-            coeffs_box[0] = loop.coeffs.clone()
-        out = (pixel.unflatten_frames_to_clip(loop.adversarial(epsilon), b), loop.costs.clone())
-        if return_modifier:
-            out = out + (_cat([m.clone() for m in loop.modifiers], home),)
-        return out
-
-    def value_and_grad(clean01, modifier, n_real=None):
-        """The first step's cost and gradient, eagerly: each position's, the
-        gradients summed over the model axis on each slice's home, the cost
-        over every position on (0, 0)'s device, in position order."""
-        _, slices, masks = frame_slices(clean01, n_real)
-        positions = positions_of(slices, masks)
-        coeffs = None
-        if adaptive:
-            ones = torch.ones(n_taps, dtype=torch.float32, device=home)
-            coeffs = torch.softmax(torch.softmax(ones, dim=0) + aens_momentum * coeffs_box[0],
-                                   dim=0)
-        mods = _slices(modifier, cols)
-        cost, grads = None, [None] * cols
-        for g in range(m_size):
-            for f in range(cols):
-                pos = positions[g][f]
-                c, _, gr = grad_of(pos, mods[f].to(pos.frames),
-                                   None if coeffs is None else move(coeffs, pos.device))
-                cost = _acc(cost, c, home)
-                grads[f] = _acc(grads[f], gr, homes[f])
-        return cost, _cat(grads, home)
-
-    runner.value_and_grad = value_and_grad
-    runner.coefficients = lambda: coeffs_box[0]
-    runner.loops = loops
-    return runner
+    return _make_runner(
+        frame_slices,
+        lambda n, hw: snap_frame_chunk(resolve_frame_chunk(frame_chunk, n, hw, compute_dtype), n),
+        devices, placed, taps, steps=steps, step_size=step_size, epsilon=epsilon,
+        adaptive=adaptive, aens_momentum=aens_momentum, coef_ce=coef_ce, remat=False,
+        mu_dtype=None, return_modifier=return_modifier, opt_state_io=False, graphs=graphs)
 
 
-class EnsembleParallelAttack(Attack):
+class EnsembleParallelAttack(ShardedImageGuidedAttack):
     """The model-axis runner behind the attack classes' calling convention
     (``image_main --model_parallel N``), for ENS-I2V (image_attacks.py:
     372-376) and, with ``adaptive=True``, AENS-I2V-MF (TPAMI_attack.py:
@@ -207,36 +136,14 @@ class EnsembleParallelAttack(Attack):
     off. ``multigrid > 0`` runs the coarse-to-fine schedule with this
     runner in both phases (ENS only, as in the JAX package)."""
 
+    _factory = staticmethod(make_ensemble_parallel_runner)
+
     def __init__(self, models: Sequence[ImageModel], mesh: Mesh, *, steps: int,
                  step_size: float = 0.005, adaptive: bool = False, aens_momentum: float = 0.0,
                  coef_ce: bool = False, frame_chunk: int | str | None = None,
                  name: str = "EnsembleParallelENS", multigrid: int = 0,
                  multigrid_scale: int = 2, graphs: bool = True):
-        super().__init__(name, None, device=mesh.devices[0, 0])
-        self.steps = steps
-        self.mesh = mesh
-        if multigrid:
-            if adaptive:
-                raise ValueError("--multigrid does not compose with the adaptive AENS "
-                                 "coefficients (their per-tap signal is resolution-coupled)")
-            from .multigrid import make_multigrid_i2v_runner
-
-            self._runner = make_multigrid_i2v_runner(
-                models, mesh, steps=steps, coarse_steps=multigrid, scale=multigrid_scale,
-                step_size=step_size, frame_chunk=frame_chunk,
-                runner_factory=functools.partial(make_ensemble_parallel_runner, graphs=graphs))
-        else:
-            self._runner = make_ensemble_parallel_runner(
-                models, mesh, steps=steps, step_size=step_size, adaptive=adaptive,
-                aens_momentum=aens_momentum, coef_ce=coef_ce, frame_chunk=frame_chunk,
-                graphs=graphs)
-
-    def __call__(self, videos, labels=None, video_names=None) -> torch.Tensor:
-        t_axis = 1 if pixel.is_u8_clips(videos) else 2
-        videos, pad = pad_to_mesh(videos, 1, self.mesh.shape["frames"], t_axis)
-        clean01 = self._clean01(videos)
-        del videos
-        b = clean01.shape[0] - pad
-        adv01, costs = self._runner(clean01, n_real=b if pad else None)
-        self._record_costs(costs, video_names)
-        return pixel.normalize(adv01[:b] if pad else adv01, channel_axis=1)
+        super().__init__(models, mesh, steps=steps, step_size=step_size, adaptive=adaptive,
+                         aens_momentum=aens_momentum, coef_ce=coef_ce, name=name,
+                         frame_chunk=frame_chunk, multigrid=multigrid,
+                         multigrid_scale=multigrid_scale, graphs=graphs)

@@ -349,6 +349,16 @@ def _local_chunk(frame_chunk, n_frames: int, hw, compute_dtype, n_positions: int
     return snap_frame_chunk(local, n_frames // n_positions)
 
 
+def _whole_frames(clean01, home: torch.device, n: int, over: str):
+    """→ (B, T, the B·T frames on ``home``) of whole clips in [0,1], whose
+    B·T must divide over ``n`` (``over`` names them in the refusal)."""
+    clean01 = torch.as_tensor(clean01).to(home, torch.float32)
+    b, _, t = clean01.shape[:3]
+    if (b * t) % n:
+        raise ValueError(f"{b * t} frames do not divide over {over}")
+    return b, t, pixel.flatten_clip_to_frames(clean01)
+
+
 class _Loop:
     """A runner's static buffers and step graphs for one batch layout.
 
@@ -509,6 +519,109 @@ class _Loop:
                          for p, m in zip(self.grid[0], self.modifiers)], self.home)
 
 
+def _make_runner(split, chunk_of, devices: list, models: list, taps: list, *, steps: int,
+                 step_size: float, epsilon: float, adaptive: bool, aens_momentum: float,
+                 coef_ce: bool, remat: bool, mu_dtype, return_modifier: bool,
+                 opt_state_io: bool, graphs: bool):
+    """The runner over a grid of positions, for both layouts: this module's
+    one row over a mesh, and :mod:`.ensemble`'s surrogate groups as rows.
+    Position (g, f) runs ``models[g][f]`` on ``devices[g][f]`` over column
+    f's frames, its taps at ``taps[g]`` of the AENS coefficient vector.
+    ``split(clean01)`` gives (B, T, each column's frames) and
+    ``chunk_of(frames a position, hw)`` a position's chunk; all else, the
+    loops by layout, the call and ``value_and_grad``, is this one body (see
+    :func:`make_sharded_i2v_runner` for the runner's calling convention)."""
+    home, cols = devices[0][0], len(devices[0])
+    n_taps = taps[-1].stop
+    grad_of = functools.partial(_position_grad, epsilon=epsilon, adaptive=adaptive,
+                                coef_ce=coef_ce, n_taps=n_taps, remat=remat)
+
+    # AENS's coefficients persist across calls (TPAMI_attack.py:165,265)
+    coeffs_box = [torch.ones(n_taps, dtype=torch.float32, device=home)]
+
+    def columns(clean01, n_real):
+        """→ (B, each column's frames, each column's pad mask or Nones)."""
+        b, t, frames = split(clean01)
+        mask = frame_mask(b, t, n_real, home)
+        return b, frames, [None] * cols if mask is None else _slices(mask, cols)
+
+    def positions_of(frames: list, masks: list) -> list:
+        chunk = chunk_of(frames[0].shape[0], frames[0].shape[2:])
+        return [[_position(m, move(f, d), chunk, None if fm is None else move(fm, d), tap)
+                 for d, m, f, fm in zip(d_row, m_row, frames, masks)]
+                for d_row, m_row, tap in zip(devices, models, taps)]
+
+    # the loops by batch layout, as the JAX runner's jit caches by shape
+    loops: dict = {}
+
+    def loop_for(clean01, n_real) -> tuple[int, _Loop]:
+        b, frames, masks = columns(clean01, n_real)
+        key = (tuple(tuple(f.shape) for f in frames), masks[0] is None)
+        loop = loops.get(key)
+        if loop is None:
+            loop = loops[key] = _Loop(
+                positions_of(frames, masks), home, steps=steps, step_size=step_size,
+                mu_dtype=mu_dtype, adaptive=adaptive, aens_momentum=aens_momentum,
+                n_taps=n_taps, grad_of=grad_of, graphs=graphs)
+        else:
+            for q, pos in enumerate(loop.positions):
+                fm = masks[q % cols]
+                _load(pos, move(frames[q % cols], pos.device),
+                      None if fm is None else move(fm, pos.device))
+        return b, loop
+
+    def runner(clean01, n_real=None, mod_init=None, opt_init=None):
+        with span("i2v.call", unit=next_number("i2v.call"), device=home):
+            with span("i2v.clean_taps", device=home):
+                b, loop = loop_for(clean01, n_real)
+            inits = None if mod_init is None else _slices(mod_init, cols)
+            if opt_init is not None:
+                count, first, second = opt_init
+                opt_init = [(count, m, v) for m, v in zip(_slices(first, cols),
+                                                         _slices(second, cols))]
+            loop.reset(inits, opt_init, coeffs_box[0])
+            with span("i2v.steps", device=home):
+                for _ in range(steps):
+                    loop.step()
+            with span("i2v.handback", device=home):
+                if adaptive:
+                    coeffs_box[0] = loop.coeffs.clone()
+                out = (pixel.unflatten_frames_to_clip(loop.adversarial(epsilon), b),
+                       loop.costs.clone())
+                if return_modifier:
+                    out = out + (_cat([m.clone() for m in loop.modifiers], home),)
+                if opt_state_io:
+                    states = [adam.state() for adam in loop.adams]
+                    out = out + ((states[0][0], _cat([s[1] for s in states], home),
+                                  _cat([s[2] for s in states], home)),)
+            return out
+
+    def value_and_grad(clean01, modifier, n_real=None):
+        """The first step's cost and gradient, eagerly: the cost over every
+        position on the first one's device, each column's gradient summed
+        over the rows on the column's home, in position order."""
+        positions = positions_of(*columns(clean01, n_real)[1:])
+        coeffs = None
+        if adaptive:
+            ones = torch.ones(n_taps, dtype=torch.float32, device=home)
+            coeffs = torch.softmax(torch.softmax(ones, dim=0) + aens_momentum * coeffs_box[0],
+                                   dim=0)
+        mods = _slices(modifier, cols)
+        cost, grads = None, [None] * cols
+        for row in positions:
+            for f, pos in enumerate(row):
+                c, _, g = grad_of(pos, mods[f].to(pos.frames),
+                                  None if coeffs is None else move(coeffs, pos.device))
+                cost = _acc(cost, c, home)
+                grads[f] = _acc(grads[f], g, devices[0][f])
+        return cost, _cat(grads, home)
+
+    runner.value_and_grad = value_and_grad
+    runner.coefficients = lambda: coeffs_box[0]
+    runner.loops = loops
+    return runner
+
+
 def make_sharded_i2v_runner(
     models: Sequence[ImageModel],
     mesh: Optional[Mesh] = None,
@@ -602,11 +715,6 @@ def make_sharded_i2v_runner(
     n_pos = len(devices)
     n_taps = sum(len(m.tap_keys) for m in models)
     compute_dtype = compute_dtype_of(models)
-    grad_of = functools.partial(_position_grad, epsilon=epsilon, adaptive=adaptive,
-                                coef_ce=coef_ce, n_taps=n_taps, remat=remat)
-
-    # AENS's coefficients persist across calls (TPAMI_attack.py:165,265)
-    coeffs_box = [torch.ones(n_taps, dtype=torch.float32, device=home)]
 
     def frame_slices(clean01):
         """→ (B, T, each position's frames) of clips in [0,1], whole or laid
@@ -622,89 +730,17 @@ def make_sharded_i2v_runner(
                 raise ValueError(f"{rows.pieces[0].shape[0]} frames a mesh row do not divide "
                                  f"over its {cols} positions")
             return b, t, [_slices(row, cols)[p % cols] for p, row in enumerate(rows.pieces)]
-        clean01 = torch.as_tensor(clean01).to(home, torch.float32)
-        b, _, t = clean01.shape[:3]
-        frames = pixel.flatten_clip_to_frames(clean01)
-        del clean01
-        if (b * t) % n_pos:
-            raise ValueError(f"{b * t} frames do not divide over the mesh's {n_pos} positions")
+        b, t, frames = _whole_frames(clean01, home, n_pos, f"the mesh's {n_pos} positions")
         if n_pos == 1:
             return b, t, [frames]
         return b, t, [move(f, d) for f, d in zip(_slices(frames, n_pos), devices)]
 
-    def positions_of(frames: list, mask) -> list:
-        hw = frames[0].shape[2:]
-        chunk = _local_chunk(frame_chunk, frames[0].shape[0] * n_pos, hw, compute_dtype, n_pos)
-        masks = [None] * n_pos if mask is None else _slices(mask, n_pos)
-        return [_position(replicas[d], f, chunk, None if m is None else move(m, d),
-                          slice(0, n_taps))
-                for d, f, m in zip(devices, frames, masks)]
-
-    # the loops by batch layout, as the JAX runner's jit caches by shape
-    loops: dict = {}
-
-    def loop_for(clean01, n_real) -> tuple[int, _Loop]:
-        b, t, frames = frame_slices(clean01)
-        mask = frame_mask(b, t, n_real, home)
-        key = (tuple(tuple(f.shape) for f in frames), mask is None)
-        loop = loops.get(key)
-        if loop is None:
-            loop = loops[key] = _Loop(
-                [positions_of(frames, mask)], home, steps=steps, step_size=step_size,
-                mu_dtype=mu_dtype, adaptive=adaptive, aens_momentum=aens_momentum,
-                n_taps=n_taps, grad_of=grad_of, graphs=graphs)
-        else:
-            masks = [None] * n_pos if mask is None else _slices(mask, n_pos)
-            for pos, f, m in zip(loop.positions, frames, masks):
-                _load(pos, f, None if m is None else move(m, pos.device))
-        return b, loop
-
-    def runner(clean01, n_real=None, mod_init=None, opt_init=None):
-        with span("i2v.call", unit=next_number("i2v.call"), device=home):
-            with span("i2v.clean_taps", device=home):
-                b, loop = loop_for(clean01, n_real)
-            inits = None if mod_init is None else _slices(mod_init, n_pos)
-            if opt_init is not None:
-                count, first, second = opt_init
-                opt_init = [(count, m, v) for m, v in zip(_slices(first, n_pos),
-                                                         _slices(second, n_pos))]
-            loop.reset(inits, opt_init, coeffs_box[0])
-            with span("i2v.steps", device=home):
-                for _ in range(steps):
-                    loop.step()
-            with span("i2v.handback", device=home):
-                if adaptive:
-                    coeffs_box[0] = loop.coeffs.clone()
-                out = (pixel.unflatten_frames_to_clip(loop.adversarial(epsilon), b),
-                       loop.costs.clone())
-                if return_modifier:
-                    out = out + (_cat([m.clone() for m in loop.modifiers], home),)
-                if opt_state_io:
-                    states = [adam.state() for adam in loop.adams]
-                    out = out + ((states[0][0], _cat([s[1] for s in states], home),
-                                  _cat([s[2] for s in states], home)),)
-            return out
-
-    def value_and_grad(clean01, modifier, n_real=None):
-        b, t, frames = frame_slices(clean01)
-        positions = positions_of(frames, frame_mask(b, t, n_real, home))
-        coeffs = None
-        if adaptive:
-            ones = torch.ones(n_taps, dtype=torch.float32, device=home)
-            coeffs = torch.softmax(torch.softmax(ones, dim=0) + aens_momentum * coeffs_box[0],
-                                   dim=0)
-        cost, grads = None, []
-        for pos, mod in zip(positions, _slices(modifier, n_pos)):
-            c, _, g = grad_of(pos, mod.to(pos.frames),
-                              None if coeffs is None else move(coeffs, pos.device))
-            grads.append(g)
-            cost = _acc(cost, c, home)
-        return cost, _cat(grads, home)
-
-    runner.value_and_grad = value_and_grad
-    runner.coefficients = lambda: coeffs_box[0]
-    runner.loops = loops
-    return runner
+    return _make_runner(
+        frame_slices, lambda n, hw: _local_chunk(frame_chunk, n * n_pos, hw, compute_dtype, n_pos),
+        [devices], [[replicas[d] for d in devices]], [slice(0, n_taps)], steps=steps,
+        step_size=step_size, epsilon=epsilon, adaptive=adaptive, aens_momentum=aens_momentum,
+        coef_ce=coef_ce, remat=remat, mu_dtype=mu_dtype, return_modifier=return_modifier,
+        opt_state_io=opt_state_io, graphs=graphs)
 
 
 def pad_to_mesh(videos, data: int, cols: int, t_axis: int):
@@ -741,7 +777,10 @@ class ShardedImageGuidedAttack(Attack):
     the recorded costs nor AENS's coefficients) and which are sliced off
     (``i2v_tpu/parallel/sharded.py:401-440``); a batch laid out by the
     mesh's clip sharding (``make_input_pipeline(mesh=)``) goes in as its
-    pieces."""
+    pieces. :class:`~.ensemble.EnsembleParallelAttack` is this wrapper
+    around the model-axis runner (``_factory``)."""
+
+    _factory = staticmethod(make_sharded_i2v_runner)
 
     def __init__(self, models: Sequence[ImageModel], mesh: Optional[Mesh] = None, *, steps: int,
                  step_size: float, adaptive: bool = False, aens_momentum: float = 0.0,
@@ -753,6 +792,10 @@ class ShardedImageGuidedAttack(Attack):
                          device=models[0].device if mesh is None else mesh.positions[0])
         self.steps = steps
         self.mesh = mesh
+        if param_dtype is not None:
+            # cast once, here, for either runner and both multigrid phases
+            models = cast_param_storage(models, param_dtype)
+        factory = functools.partial(self._factory, graphs=graphs)
         if multigrid:
             if adaptive:
                 raise ValueError("--multigrid does not compose with the adaptive AENS "
@@ -761,13 +804,11 @@ class ShardedImageGuidedAttack(Attack):
 
             self._runner = make_multigrid_i2v_runner(
                 models, mesh, steps=steps, coarse_steps=multigrid, scale=multigrid_scale,
-                step_size=step_size, frame_chunk=frame_chunk, param_dtype=param_dtype,
-                graphs=graphs)
+                step_size=step_size, frame_chunk=frame_chunk, runner_factory=factory)
         else:
-            self._runner = make_sharded_i2v_runner(
-                models, mesh, steps=steps, step_size=step_size, adaptive=adaptive,
-                aens_momentum=aens_momentum, coef_ce=coef_ce, frame_chunk=frame_chunk,
-                param_dtype=param_dtype, graphs=graphs)
+            self._runner = factory(models, mesh, steps=steps, step_size=step_size,
+                                   adaptive=adaptive, aens_momentum=aens_momentum,
+                                   coef_ce=coef_ce, frame_chunk=frame_chunk)
 
     def __call__(self, videos, labels=None, video_names=None) -> torch.Tensor:
         pad = 0
@@ -776,11 +817,13 @@ class ShardedImageGuidedAttack(Attack):
         else:
             if self.mesh is not None:
                 t_axis = 1 if pixel.is_u8_clips(videos) else 2
-                videos, pad = pad_to_mesh(videos, self.mesh.shape["data"],
+                # a model-axis mesh has no clip axis: B·T pads over its frames alone
+                videos, pad = pad_to_mesh(videos, self.mesh.shape.get("data", 1),
                                           self.mesh.shape["frames"], t_axis)
             # the normalized clips are not kept: the runner's flattened frames
             # replace them on the device
             clean01 = self._clean01(videos)
+            del videos
         b = clean01.shape[0] - pad
         adv01, costs = self._runner(clean01, n_real=b if pad else None)
         self._record_costs(costs, video_names)

@@ -6,14 +6,15 @@ Held here:
     thread, nests, and a worker thread's spans are kept in memory (the
     profiler does not follow that thread);
   - a runner call (``make_sharded_i2v_runner``, a fresh call and a resumed
-    one) and an Adam-engine call each give one ``i2v.call`` with one
+    one; ``make_ensemble_parallel_runner`` over two model rows, likewise)
+    and an Adam-engine call each give one ``i2v.call`` with one
     ``i2v.clean_taps``, ``i2v.steps`` and ``i2v.handback`` under it;
   - ``single_pass_eval`` over three batches gives three ``eval.ingest_wait``
     and three of each ``ingest.*``, named by ``(sweep, batch)``, and its
     logged ``data_time`` is the wait the span measured;
   - ``profiling.trace()``'s ``trace.json`` holds the main thread's spans and
     the worker's, the worker's inside their ``eval.sweep``;
-  - the runner's and the engine's outputs are the same, bit for bit, with
+  - the runners' and the engine's outputs are the same, bit for bit, with
     the profiler on and off.
 """
 
@@ -35,7 +36,7 @@ from i2v_tpu_torch.eval import transfer  # noqa: E402
 from i2v_tpu_torch.models import ImageModel, build_image_model, get_video_model  # noqa: E402
 from i2v_tpu_torch.models.registry import random_init_  # noqa: E402
 from i2v_tpu_torch.ops import pixel  # noqa: E402
-from i2v_tpu_torch.parallel import sharded  # noqa: E402
+from i2v_tpu_torch.parallel import ensemble, sharded  # noqa: E402
 from i2v_tpu_torch.utils import artifacts, profiling  # noqa: E402
 
 HW, T, STEPS = 32, 4, 2
@@ -136,12 +137,24 @@ def _runner_calls(models):
     return first + second
 
 
+def _model_axis_calls(models):
+    # the one surrogate twice: two rows, so each column's gradient is summed
+    runner = ensemble.make_ensemble_parallel_runner(
+        models * 2, ensemble.ensemble_mesh([torch.device("cpu")] * 2, model=2), steps=STEPS,
+        return_modifier=True)
+    clean = _clips01(6)
+    first = runner(clean)
+    second = runner(clean, mod_init=first[2])
+    return first + second
+
+
 def _engine_calls(models):
     atk = attacks.ImageGuidedFML2_Adam_MultiModels(models, steps=STEPS)
     return atk._run(_clips01(4))[:2] + atk._run(_clips01(5))[:2]
 
 
-CALLS = {"runner": _runner_calls, "engine": _engine_calls}
+CALLS = {"runner": _runner_calls, "model_axis": _model_axis_calls,
+         "engine": _engine_calls}
 
 
 @pytest.mark.parametrize("path", sorted(CALLS))
