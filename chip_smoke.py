@@ -14,7 +14,8 @@ raises and the script exits non-zero:
                  views, with planted ties and NaNs; kernel and plain version
                  timed with CUDA events; the conv epilogue (bias_act) also
                  against torch.relu(F.conv2d(x, w, b) + r) and timed beside
-                 torch.relu(t.add_(b)) at three surrogate shapes; Swin-B's
+                 torch.relu(t.add_(b)) at three surrogate shapes and four
+                 of the video models' at B=16; Swin-B's
                  window attention (window_attn) against its plain path at the
                  four stages' shapes at B=16, unshifted and shifted, float32
                  and bfloat16, timed beside the plain path and
@@ -29,7 +30,9 @@ raises and the script exits non-zero:
   6. eval      — the six video models at full width (random weights) over
                  the slice's two adversarial clips through the port's
                  evaluation CLI, serially and in one pass, each model built
-                 once: identical reports of the reference's schemas
+                 once: identical reports of the reference's schemas; the conv
+                 epilogue (bias_act) launched once a conv, 698 a forward of
+                 the six, and no other kernel
   7. whitebox  — 10-step BIM over two clips and 10-step MIFGSM over one,
                  on full-width I3D-R50 (32x224^2, 400 classes) through the
                  port's attack CLI; artifacts checked, the CE cost rose, and
@@ -47,8 +50,9 @@ raises and the script exits non-zero:
                  coefficients carried over from clip 1 into clip 2
  12. dr        — 5-step full-width DR (ResNet-101, depth 2) over one clip
  13. fused     — 5-step ENS-I2V with --fused_eval all: the six full-width
-                 video models evaluate each clip in the same process; its
-                 CSV is cli.evaluate's over its artifacts; a float16 write
+                 video models evaluate each clip in the same process, the
+                 epilogue launched once a conv of the surrogates and of the
+                 video models; its CSV is cli.evaluate's over its artifacts; a float16 write
                  through the artifact writer; a --no_artifacts float16 shard
  14. ilaf      — 10-step cli.fine_tune on full-width I3D-R50 over the BIM
                  run's adv/ori pairs: K1/K2 every step, outputs in the ε-ball
@@ -138,7 +142,8 @@ raises and the script exits non-zero:
                  cost and gradient; AENS's coefficients after 3 steps); the six
                  full-width video models over the mesh runner's four clips, whole
                  and cut over attack_mesh (logits, and the reports of serial,
-                 mesh, mesh single-pass and cli.evaluate --data_parallel); two
+                 mesh, mesh single-pass and cli.evaluate --data_parallel, the
+                 epilogue launched once a conv of each forward); two
                  processes of image_main under the launcher's variables (gloo),
                  each on its half of four clips into one run directory, their
                  launch counts printed and checked, and cli.evaluate over the
@@ -248,17 +253,33 @@ F32_OPS_PER_S = 67e12
 # and Swin-B's window attention
 K1_TO_K3 = ("rebuild_fwd", "rebuild_bwd", "sign_step")
 COUNTED = K1_TO_K3 + ("bias_act", "window_attn")
+# the conv epilogue's launches in one forward of each full-width video model,
+# one a conv: I3D's stem, bottlenecks and five non-local blocks of four convs;
+# SlowFast's two stems, four laterals and both pathways' bottlenecks; TPN's
+# stem, bottlenecks and eleven neck convs. 698 a forward of the six
+VIDEO_EPILOGUES = {"i3d_resnet50": 73, "i3d_resnet101": 124, "slowfast_resnet50": 110,
+                   "slowfast_resnet101": 212, "tpn_resnet50": 64, "tpn_resnet101": 115}
+SIX_EPILOGUES = sum(VIDEO_EPILOGUES.values())
+# and in one forward of the ENS-I2V surrogates (ResNet-101 to stage 2, VGG-16
+# to features[20], SqueezeNet-1.1 to Fire 6, AlexNet to features[7])
+ENS_EPILOGUES = 46
 KERNEL_WORK = {            # (bytes, float32 operations) an element
     "rebuild_fwd": (12, 5),   # read clean, m; write out; 2 clamps, 1 add
     "rebuild_bwd": (16, 8),   # read clean, m, g; write dm; 2 clamps, 1 add, 4 compares, 1 select
     "sign_step": (16, 9),     # read adv, g, clean; write out; sign, 1 mul, 3 adds, 2 clamps
 }
 # the conv epilogue at the surrogates' shapes over 256 frames, the runner's
-# chunk: (label, y's shape, with a residual); its bound is 8 bytes an element,
-# 12 with the residual (read y (and r), write y), over HBM_BYTES_PER_S
+# chunk, and at the video models' over a batch of 16 clips, planes of T·H·W
+# from 25088 floats down to 196: (label, y's shape, with a residual); its
+# bound is 8 bytes an element, 12 with the residual (read y (and r), write
+# y), over HBM_BYTES_PER_S
 BIAS_ACT_SHAPES = (("VGG-16 conv1_2", (256, 64, 224, 224), False),
                    ("ResNet-101 layer1 conv3 + residual", (256, 256, 56, 56), True),
-                   ("SqueezeNet-1.1 Fire 2 expand3x3", (256, 64, 55, 55), False))
+                   ("SqueezeNet-1.1 Fire 2 expand3x3", (256, 64, 55, 55), False),
+                   ("I3D-R50 res2 conv3 + residual", (16, 256, 8, 56, 56), True),
+                   ("I3D-R50 res3 conv1", (16, 128, 8, 28, 28), False),
+                   ("I3D-R50 res5 conv3 + residual", (16, 2048, 8, 7, 7), True),
+                   ("SlowFast-R50 slow res5 conv3 + residual", (16, 2048, 4, 7, 7), True))
 BIAS_ACT_ITERS = 20
 # Swin-B's window attention at B=16 over 32x224^2: (label, heads, the stage's
 # (T, H, W) grid of tokens); window (8, 7, 7), shift (4, 3, 3), which
@@ -571,8 +592,9 @@ def _bias_act(kernels, pixel, gen: torch.Generator) -> dict:
         bound = y.numel() * (12 if res else 8) / HBM_BYTES_PER_S * 1e3
         kern = lambda: kernels.launch_bias_act(y, b, r)  # noqa: E731
         plain = lambda: pixel.bias_act(y, b, r)  # noqa: E731
-        lib = ((lambda: torch.relu(y.add_(b.view(1, -1, 1, 1)) + r)) if res  # noqa: E731
-               else (lambda: torch.relu(y.add_(b.view(1, -1, 1, 1)))))
+        bc = b.view((1, -1) + (1,) * (y.dim() - 2))
+        lib = ((lambda: torch.relu(y.add_(bc) + r)) if res  # noqa: E731
+               else (lambda: torch.relu(y.add_(bc))))
         k1, p1, l1 = (_time_ms(f, BIAS_ACT_ITERS) for f in (kern, plain, lib))
         l2, p2, k2 = (_time_ms(f, BIAS_ACT_ITERS) for f in (lib, plain, kern))
         ms = ((k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2)
@@ -865,10 +887,12 @@ def phase_eval(evaluate_cli, get_bundle, kernels, run_dir: str) -> dict:
     builds each model once. Returns the launch counts of the two runs."""
     t0 = time.time()
     reports, throughput = {}, {}
+    forwards = 0
     kernels.reset_launches()
     for mode in ("serial", "single pass"):
         argv = ["--adv_path", run_dir, "--device", "cuda", "--matmul_precision", "float32"]
         args = evaluate_cli.arg_parse(argv + (["--single_pass"] if mode == "single pass" else []))
+        forwards += math.ceil(SLICE_CLIPS / args.batch_size)
         torch.cuda.reset_peak_memory_stats()
         acc = evaluate_cli.run(args, get_bundle=get_bundle)
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -881,6 +905,9 @@ def phase_eval(evaluate_cli, get_bundle, kernels, run_dir: str) -> dict:
         reports[mode] = (csv_bytes, top1)
         throughput[mode] = (args.throughput, peak)
     counts = dict(kernels.launches)
+    if counts != _evaluations(forwards):
+        raise RuntimeError(f"the eval path's launches {counts}, expected "
+                           f"{_evaluations(forwards)}")
     if reports["serial"] != reports["single pass"]:
         raise RuntimeError(f"serial and single-pass reports differ: {reports}")
     csv_bytes, top1 = reports["serial"]
@@ -1079,6 +1106,21 @@ def _want(clips: int, steps: int) -> dict:
     return {"rebuild_fwd": clips * (steps + 1), "rebuild_bwd": clips * steps, "sign_step": 0}
 
 
+def _evaluations(forwards: int) -> dict:
+    """Launch counts of ``forwards`` forwards of the six video models: the
+    conv epilogue once a conv, no other kernel."""
+    return dict(dict.fromkeys(COUNTED, 0), bias_act=SIX_EPILOGUES * forwards)
+
+
+def _fused_want(clips: int, steps: int) -> dict:
+    """Launch counts of ENS-I2V with the six video models evaluating each
+    clip at B=1: K1/K2 as :func:`_want`, the epilogue in the surrogates'
+    clean-tap forward and step forwards of each clip and in the video
+    models' forward of it, no window attention."""
+    return dict(_want(clips, steps), window_attn=0,
+                bias_act=clips * (ENS_EPILOGUES * (steps + 1) + SIX_EPILOGUES))
+
+
 def _of(counts: dict, want: dict) -> dict:
     """The counters of ``counts`` that ``want`` names: a path's K1-K3 counts
     are checked, while the conv epilogue counts wherever a surrogate runs."""
@@ -1190,7 +1232,7 @@ def phase_fused(kernels, image_main, evaluate_cli, get_bundle, pixel_mean_std) -
             "--n_synthetic", str(FUSED_CLIPS), "--batch_size", "1", "--step", str(FUSED_STEPS),
             "--fused_eval", "all", "--device", "cuda", "--matmul_precision", "float32"]
     args = image_main.arg_parse(base + ["--file_prefix", "fused"])
-    _, counts, peak = _run_counted(kernels, "fused", _want(FUSED_CLIPS, FUSED_STEPS),
+    _, counts, peak = _run_counted(kernels, "fused", _fused_want(FUSED_CLIPS, FUSED_STEPS),
                                    lambda: image_main.run(args, get_bundle=get_bundle))
     run_dir, tp = args.adv_path, args.throughput
     files = sorted(os.listdir(run_dir))
@@ -1209,8 +1251,8 @@ def phase_fused(kernels, image_main, evaluate_cli, get_bundle, pixel_mean_std) -
     # the same artifacts offline, at the fused path's batch of 1
     eargs = evaluate_cli.arg_parse(["--adv_path", run_dir, "--batch_size", "1", "--device",
                                     "cuda", "--matmul_precision", "float32"])
-    _, _, _ = _run_counted(kernels, "evaluate", _want(0, 0),
-                           lambda: evaluate_cli.run(eargs, get_bundle=get_bundle))
+    _, eval_counts, _ = _run_counted(kernels, "evaluate", _evaluations(FUSED_CLIPS),
+                                     lambda: evaluate_cli.run(eargs, get_bundle=get_bundle))
     with open(os.path.join(run_dir, REPORT_CSV), "rb") as f:
         eval_csv = f.read()
     with open(os.path.join(run_dir, REPORT_JSON)) as f:
@@ -1233,7 +1275,8 @@ def phase_fused(kernels, image_main, evaluate_cli, get_bundle, pixel_mean_std) -
     sargs = image_main.arg_parse(base + ["--file_prefix", "fused-shard", "--no_artifacts",
                                          "--artifact_dtype", "float16", "--batch_nums", "2",
                                          "--batch_index", "1"])
-    _, shard_counts, _ = _run_counted(kernels, "fused shard", _want(FUSED_CLIPS // 2, FUSED_STEPS),
+    _, shard_counts, _ = _run_counted(kernels, "fused shard",
+                                      _fused_want(FUSED_CLIPS // 2, FUSED_STEPS),
                                       lambda: image_main.run(sargs, get_bundle=get_bundle))
     shard_files = sorted(os.listdir(sargs.adv_path))
     want_shard = ["loss_info_1.json", "results_all_models_prediction_1.csv",
@@ -1243,12 +1286,13 @@ def phase_fused(kernels, image_main, evaluate_cli, get_bundle, pixel_mean_std) -
     print(f"[fused] ENS-I2V {FUSED_STEPS} steps + the six full-width video models in one "
           f"process, {FUSED_CLIPS} clips of 32x224^2 at B=1, TF32 off, float32 artifacts from "
           f"the writer thread: {tp['clips_per_sec']:.4f} clips/s ({tp['elapsed_s']:.3f} s); "
-          f"peak memory {peak:.2f} GiB; launches {counts} (none beyond the attack's); CSV "
+          f"peak memory {peak:.2f} GiB; launches {counts} (the attack's and "
+          f"{SIX_EPILOGUES} epilogues a clip of the video models); CSV "
           f"identical to cli.evaluate's over its artifacts, top-1 within {top1_diff:.3g} "
           f"(limit 1e-4): {fused_top1}; the float16 writer on the card gives the clip's "
           f"float16 cast; the --no_artifacts float16 shard 1 of 2 wrote {shard_files} with "
           f"launches {shard_counts}")
-    return {k: counts[k] + shard_counts[k] for k in counts}
+    return {k: counts[k] + eval_counts[k] + shard_counts[k] for k in counts}
 
 
 def phase_ilaf(kernels, fine_tune, synthetic, pixel_mean_std) -> dict:
@@ -3072,6 +3116,9 @@ def phase_multi_device(kernels, image_main, evaluate_cli, synthetic, pixel_mean_
             cut = Replicas(bundle, dmesh).logits(pieces, dmesh.positions)
             logit_err = max(logit_err, float((cut - whole).abs().max() / whole.abs().max()))
     reports = {}
+    # a forward a model of the whole batch (serial), of each position's piece
+    # (mesh and mesh single pass) and of each piece over the CLI's mesh
+    forwards = 1 + 2 * len(pieces) + attack_mesh().size
     kernels.reset_launches()
     for key, kw in (("serial", {}), ("mesh", {"mesh": dmesh}),
                     ("mesh single pass", {"mesh": dmesh, "single_pass": True})):
@@ -3087,8 +3134,10 @@ def phase_multi_device(kernels, image_main, evaluate_cli, synthetic, pixel_mean_
     with open(os.path.join(run_dir, REPORT_CSV), "rb") as f, \
             open(os.path.join(run_dir, REPORT_JSON), "rb") as g:
         reports["cli --data_parallel"] = (f.read(), g.read())
-    if any(kernels.launches.values()):
-        raise RuntimeError(f"evaluation launched a kernel: {kernels.launches}")
+    if kernels.launches != _evaluations(forwards):
+        raise RuntimeError(f"evaluation's launches {kernels.launches}, expected "
+                           f"{_evaluations(forwards)}")
+    add(kernels.launches)
     if logit_err > MD_LOGIT_RTOL or len(set(reports.values())) != 1:
         raise RuntimeError(f"data-parallel evaluation: logits {logit_err} of max|logit|, "
                            f"reports equal: {[r == reports['serial'] for r in reports.values()]}")
@@ -3877,8 +3926,6 @@ def main() -> None:
         counts, slice_dir = phase_slice(kernels, image_main, synthetic, (mean, std))
         phase_parity(image_main)
         eval_counts = phase_eval(evaluate_cli, get_bundle, kernels, slice_dir)
-        if any(eval_counts.values()):
-            raise RuntimeError(f"the eval path launched a kernel: {eval_counts}")
         fused_counts = phase_fused(kernels, image_main, evaluate_cli, get_bundle, (mean, std))
         video_models.clear()  # the later phases' peaks hold no video model
         counts["sign_step"] = phase_whitebox(kernels, attack_cli, synthetic, (mean, std))
@@ -3886,7 +3933,7 @@ def main() -> None:
                                                        (mean, std))
         phase_whitebox_parity(attack_cli, synthetic)
         phase_eval_parity(evaluate_cli, get_video_model, pixel)
-        for path_counts in (fused_counts,
+        for path_counts in (eval_counts, fused_counts,
                             phase_aens(kernels, image_main, synthetic, (mean, std)),
                             phase_dr(kernels, image_main, synthetic, (mean, std)),
                             phase_ilaf(kernels, fine_tune, synthetic, (mean, std))):

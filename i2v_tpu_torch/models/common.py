@@ -11,9 +11,9 @@ PyTorch counterpart of :mod:`i2v_tpu.models.common`:
   - BatchNorm is folded into the preceding conv (:func:`.convert.fold_bn`),
     so the convs carry a bias and there is no BN module (DenseNet, which is
     pre-activation, keeps a frozen affine instead). On a card, ResNet's,
-    VGG-16's, AlexNet's and SqueezeNet's convs run without their bias, and
-    the bias, residual and ReLU after each come in one in-place pass
-    (:func:`conv_act`).
+    VGG-16's, AlexNet's and SqueezeNet's convs, and the 3-D convs of I3D,
+    SlowFast and TPN, run without their bias, and the bias, residual and
+    ReLU after each come in one in-place pass (:func:`conv_act`).
   - Every image module's forward takes ``tap_offset`` ({tap: tensor}),
     added to the tap activation in-flow (Grad-CAM's exact ∂/∂tap).
   - Every image and video module takes a compute ``dtype`` (float32 by
@@ -36,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import kernels
+from ..ops.activations import grad_scaled_relu
 
 
 class Conv2d(nn.Conv2d):
@@ -100,9 +101,10 @@ def _on_card(x: torch.Tensor) -> bool:
     return x.is_cuda
 
 
-def conv_act(conv: nn.Conv2d, x: torch.Tensor, residual: torch.Tensor | None = None,
-             relu: bool = True) -> torch.Tensor:
-    """``act(conv(x) (+ residual))``, act ReLU or the identity. On a card
+def conv_act(conv: nn.Conv2d | nn.Conv3d, x: torch.Tensor, residual: torch.Tensor | None = None,
+             relu: bool = True, relu_grad_scale: float = 1.0) -> torch.Tensor:
+    """``act(conv(x) (+ residual))``, act ReLU or the identity, the ReLU's
+    backward scaled by ``relu_grad_scale`` (SGM) unless it is 1. On a card
     the conv runs without its bias and
     :func:`~i2v_tpu_torch.ops.kernels.bias_act` adds the bias and the
     residual and applies the ReLU in one pass, in place on the conv's
@@ -111,11 +113,13 @@ def conv_act(conv: nn.Conv2d, x: torch.Tensor, residual: torch.Tensor | None = N
     if _on_card(x):
         w = conv.weight
         return kernels.bias_act(conv._conv_forward(x.to(w.dtype), w, None), conv.bias,
-                                residual, relu)
+                                residual, relu, relu_grad_scale)
     y = conv(x)
     if residual is not None:
         y = y + residual
-    return F.relu(y) if relu else y
+    if not relu:
+        return y
+    return F.relu(y) if relu_grad_scale == 1.0 else grad_scaled_relu(y, relu_grad_scale)
 
 
 def max_pool(x: torch.Tensor, kernel: int, stride: int, padding: int = 0,

@@ -23,9 +23,8 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from .common import Linear, deepest, set_compute_dtype
-from .video_common import (Bottleneck3D, NonLocal3D, conv3d, max_pool3d, relu, remat_call,
-                           to_compute)
+from .common import Linear, conv_act, deepest, set_compute_dtype
+from .video_common import Bottleneck3D, NonLocal3D, conv3d, max_pool3d, remat_call, to_compute
 
 # '3x1x1' inflation frequency per stage (mmaction i3d defaults)
 _INFLATE_R50 = ((1, 1, 1), (1, 0, 1, 0), (1, 0, 1, 0, 1, 0), (0, 1, 0))
@@ -65,7 +64,7 @@ class I3DResNet(nn.Module):
         set_compute_dtype(self, dtype)
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
-        return max_pool3d(relu(self.conv1(x)), (1, 3, 3), (1, 2, 2), (0, 1, 1))
+        return max_pool3d(conv_act(self.conv1, x), (1, 3, 3), (1, 2, 2), (0, 1, 1))
 
     def forward(self, clip_bcthw: torch.Tensor, *, normalize: bool = True,
                 relu_grad_scale: float = 1.0):

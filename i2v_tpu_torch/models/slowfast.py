@@ -28,29 +28,8 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from .common import Linear, deepest, set_compute_dtype
-from .video_common import conv3d, max_pool3d, relu, remat_call, to_compute
-
-
-class SFBottleneck(nn.Module):
-    """SlowFast bottleneck: an optional (3,1,1) temporal kernel on conv1, the
-    spatial stride on conv2 and on the downsample."""
-
-    def __init__(self, in_ch: int, features: int, out_features: int, spatial_stride: int = 1,
-                 temporal_kernel: int = 1, downsample: bool = False):
-        super().__init__()
-        st = (1, spatial_stride, spatial_stride)
-        self.conv1 = conv3d(in_ch, features, (temporal_kernel, 1, 1))
-        self.conv2 = conv3d(features, features, (1, 3, 3), st)
-        self.conv3 = conv3d(features, out_features, (1, 1, 1))
-        self.downsample = conv3d(in_ch, out_features, (1, 1, 1), st) if downsample else None
-
-    def forward(self, x: torch.Tensor, relu_grad_scale: float = 1.0) -> torch.Tensor:
-        y = relu(self.conv1(x), relu_grad_scale)
-        y = relu(self.conv2(y), relu_grad_scale)
-        y = self.conv3(y)
-        residual = x if self.downsample is None else self.downsample(x)
-        return relu(y + residual, relu_grad_scale)
+from .common import Linear, conv_act, deepest, set_compute_dtype
+from .video_common import Bottleneck3D, conv3d, max_pool3d, remat_call, to_compute
 
 
 class SlowFast(nn.Module):
@@ -82,16 +61,14 @@ class SlowFast(nn.Module):
                 feats = width * 2**stage
                 if pathway == "fast":
                     feats //= beta_inv
-                    tk, in_ch = 3, fast_in
+                    inflate, in_ch = True, fast_in
                 else:
-                    tk = 3 if stage in slow_temporal_stages else 1
-                    in_ch = slow_in
+                    inflate, in_ch = stage in slow_temporal_stages, slow_in
                 for block in range(n_blocks):
                     first = block == 0
-                    self.add_module(f"{pathway}_res{stage + 2}_{block}", SFBottleneck(
-                        in_ch, feats, feats * 4,
-                        spatial_stride=2 if (first and stage > 0) else 1,
-                        temporal_kernel=tk, downsample=first))
+                    self.add_module(f"{pathway}_res{stage + 2}_{block}", Bottleneck3D(
+                        in_ch, feats, spatial_stride=2 if (first and stage > 0) else 1,
+                        downsample=first, inflate=inflate))
                     in_ch = feats * 4
                 if pathway == "fast":
                     fast_in = in_ch
@@ -121,11 +98,11 @@ class SlowFast(nn.Module):
         lateral activations are not named '*relu*', so the reference's SGM
         hooks never reach them)."""
         x = to_compute(clip_bcthw, normalize, self.dtype)
-        fast = relu(self.fast_conv1(x[:, :, ::self.fast_stride]))
+        fast = conv_act(self.fast_conv1, x[:, :, ::self.fast_stride])
         fast = max_pool3d(fast, (1, 3, 3), (1, 2, 2), (0, 1, 1))
-        slow = relu(self.slow_conv1(x[:, :, ::self.slow_stride]))
+        slow = conv_act(self.slow_conv1, x[:, :, ::self.slow_stride])
         slow = max_pool3d(slow, (1, 3, 3), (1, 2, 2), (0, 1, 1))
-        slow = torch.cat([slow, relu(self.lateral_p1(fast))], dim=1)
+        slow = torch.cat([slow, conv_act(self.lateral_p1, fast)], dim=1)
         taps = {}
         n = len(self.stage_sizes)
         for stage in range(n):
@@ -134,7 +111,7 @@ class SlowFast(nn.Module):
             taps[f"fast_res{stage + 2}"] = fast
             taps[f"slow_res{stage + 2}"] = slow
             if stage < min(3, n - 1):
-                lat = relu(getattr(self, f"lateral_res{stage + 2}")(fast))
+                lat = conv_act(getattr(self, f"lateral_res{stage + 2}"), fast)
                 slow = torch.cat([slow, lat], dim=1)
         if self.headless:
             return None, taps

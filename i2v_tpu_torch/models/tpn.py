@@ -34,26 +34,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import Linear, deepest, set_compute_dtype
-from .video_common import conv3d, max_pool3d, relu, remat_call, to_compute
-
-
-class TPNBottleneck(nn.Module):
-    def __init__(self, in_ch: int, features: int, spatial_stride: int = 1,
-                 temporal_kernel: int = 1, downsample: bool = False):
-        super().__init__()
-        st = (1, spatial_stride, spatial_stride)
-        self.conv1 = conv3d(in_ch, features, (temporal_kernel, 1, 1))
-        self.conv2 = conv3d(features, features, (1, 3, 3), st)
-        self.conv3 = conv3d(features, features * 4, (1, 1, 1))
-        self.downsample = conv3d(in_ch, features * 4, (1, 1, 1), st) if downsample else None
-
-    def forward(self, x: torch.Tensor, relu_grad_scale: float = 1.0) -> torch.Tensor:
-        y = relu(self.conv1(x), relu_grad_scale)
-        y = relu(self.conv2(y), relu_grad_scale)
-        y = self.conv3(y)
-        residual = x if self.downsample is None else self.downsample(x)
-        return relu(y + residual, relu_grad_scale)
+from .common import Linear, conv_act, deepest, set_compute_dtype
+from .video_common import Bottleneck3D, conv3d, max_pool3d, remat_call, to_compute
 
 
 def _pool_t_ceil(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -83,9 +65,9 @@ class TPN(nn.Module):
             feats = width * 2**stage
             for block in range(n_blocks):
                 first = block == 0
-                self.add_module(f"layer{stage + 1}_{block}", TPNBottleneck(
+                self.add_module(f"layer{stage + 1}_{block}", Bottleneck3D(
                     in_ch, feats, spatial_stride=2 if (first and stage > 0) else 1,
-                    temporal_kernel=3 if stage in temporal_stages else 1, downsample=first))
+                    downsample=first, inflate=stage in temporal_stages))
                 in_ch = feats * 4
         if self.headless:
             set_compute_dtype(self, dtype)
@@ -109,9 +91,10 @@ class TPN(nn.Module):
         # under the reference's SGM name filter only `ops.1.relu` matches
         # ('0.relu' is excluded, the fusion ReLU has a numeric name), so the
         # coarse level's ReLU alone is grad-scaled
-        fused = [relu(getattr(self, f"{prefix}_op{i}")(f), scale if i > 0 else 1.0)
+        fused = [conv_act(getattr(self, f"{prefix}_op{i}"), f,
+                          relu_grad_scale=scale if i > 0 else 1.0)
                  for i, f in enumerate(levels)]
-        return relu(getattr(self, f"{prefix}_fusion")(torch.cat(fused, dim=1)))
+        return conv_act(getattr(self, f"{prefix}_fusion"), torch.cat(fused, dim=1))
 
     def forward(self, clip_bcthw: torch.Tensor, *, normalize: bool = True,
                 relu_grad_scale: float = 1.0):
@@ -124,7 +107,8 @@ class TPN(nn.Module):
         unscaled."""
         s = relu_grad_scale
         x = to_compute(clip_bcthw, normalize, self.dtype)
-        x = max_pool3d(relu(self.conv1(x), s), (1, 3, 3), (1, 2, 2), (0, 1, 1))
+        x = max_pool3d(conv_act(self.conv1, x, relu_grad_scale=s), (1, 3, 3), (1, 2, 2),
+                       (0, 1, 1))
         taps, feats = {}, []
         for stage, n_blocks in enumerate(self.stage_sizes):
             for block in range(n_blocks):
@@ -135,17 +119,18 @@ class TPN(nn.Module):
         if self.headless:
             return None, taps
 
-        fine = relu(self.sm_0_0(feats[2]))
+        fine = conv_act(self.sm_0_0, feats[2])
         coarse = feats[3]
-        fine = _pool_t_ceil(self.tm_0(fine), self.temporal_scales[0])
-        coarse = _pool_t_ceil(self.tm_1(coarse), self.temporal_scales[1])
+        fine = _pool_t_ceil(conv_act(self.tm_0, fine, relu=False), self.temporal_scales[0])
+        coarse = _pool_t_ceil(conv_act(self.tm_1, coarse, relu=False), self.temporal_scales[1])
         up = coarse.repeat_interleave(self.upsample_scale, dim=2) \
             if self.upsample_scale > 1 else coarse
         fine = fine + up
         topdown = self._level_fusion("lf2", [fine, coarse], s)
-        coarse = coarse + self.down_0(fine)   # on the top-down-mutated fine
+        # on the top-down-mutated fine; coarse + down(fine), as IEEE addition commutes
+        coarse = conv_act(self.down_0, fine, coarse, relu=False)
         bottomup = self._level_fusion("lf1", [fine, coarse], s)
-        y = relu(self.pyramid(torch.cat([topdown, bottomup], dim=1)))
+        y = conv_act(self.pyramid, torch.cat([topdown, bottomup], dim=1))
         return self.fc(y.mean(dim=(2, 3, 4))).float(), taps
 
 

@@ -5,7 +5,9 @@ PyTorch counterpart of :mod:`i2v_tpu.models.video_common`:
     already, and stay NCDHW inside; taps are NCDHW too (the JAX package's
     are channel-last ``(B, T, H, W, C)``).
   - BatchNorm is folded into the conv weights by the checkpoint converter,
-    so blocks are conv + bias.
+    so blocks are conv + bias; every conv runs through
+    :func:`~.common.conv_act`, which on a card adds the bias, the residual
+    and the ReLU in one in-place pass after cuDNN's conv.
   - ``relu_grad_scale`` is passed down through ``forward``: SGM's γ^0.5
     backward scaling of every non-stem ReLU (replacing the reference's
     backward hooks, base_attacks.py:495-511) without a second copy of the
@@ -27,9 +29,8 @@ import torch.nn.functional as F
 
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.activations import grad_scaled_relu
 from ..ops.pixel import normalize as _normalize
-from .common import Conv3d
+from .common import Conv3d, conv_act
 
 
 def conv3d(in_ch: int, out_ch: int, kernel: Sequence[int], stride: Sequence[int] = (1, 1, 1),
@@ -54,11 +55,6 @@ def max_pool_hw2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool3d(x, (1, 2, 2), (1, 2, 2))
 
 
-def relu(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
-    """ReLU whose backward is scaled by ``scale`` (SGM) unless it is 1."""
-    return torch.relu(x) if scale == 1.0 else grad_scaled_relu(x, scale)
-
-
 def remat_call(remat: bool, fn, *args):
     """``fn(*args)``; with ``remat``, and while autograd records, its
     activations are recomputed in the backward pass instead of kept. The
@@ -73,10 +69,12 @@ def remat_call(remat: bool, fn, *args):
 
 
 class Bottleneck3D(nn.Module):
-    """Inflated bottleneck. ``inflate`` selects the '3x1x1' style: a (3,1,1)
-    temporal kernel on the first 1×1 conv (mmaction/gluoncv I3D convention);
-    non-inflated blocks are purely spatial. The stride sits on ``conv2`` and
-    on the downsample."""
+    """Inflated bottleneck, I3D's, SlowFast's and TPN's alike. ``inflate``
+    selects the '3x1x1' style: a (3,1,1) temporal kernel on the first 1×1
+    conv (mmaction/gluoncv I3D convention; SlowFast's and TPN's temporal
+    stages); non-inflated blocks are purely spatial. The stride sits on
+    ``conv2`` and on the downsample. Each conv's bias, the residual and the
+    ReLU come in its epilogue (:func:`~.common.conv_act`)."""
 
     def __init__(self, in_ch: int, features: int, spatial_stride: int = 1,
                  temporal_stride: int = 1, downsample: bool = False, inflate: bool = True):
@@ -88,11 +86,10 @@ class Bottleneck3D(nn.Module):
         self.downsample = conv3d(in_ch, features * 4, (1, 1, 1), st) if downsample else None
 
     def forward(self, x: torch.Tensor, relu_grad_scale: float = 1.0) -> torch.Tensor:
-        y = relu(self.conv1(x), relu_grad_scale)
-        y = relu(self.conv2(y), relu_grad_scale)
-        y = self.conv3(y)
-        residual = x if self.downsample is None else self.downsample(x)
-        return relu(y + residual, relu_grad_scale)
+        y = conv_act(self.conv1, x, relu_grad_scale=relu_grad_scale)
+        y = conv_act(self.conv2, y, relu_grad_scale=relu_grad_scale)
+        residual = x if self.downsample is None else conv_act(self.downsample, x, relu=False)
+        return conv_act(self.conv3, y, residual, relu_grad_scale=relu_grad_scale)
 
 
 class NonLocal3D(nn.Module):
@@ -118,7 +115,7 @@ class NonLocal3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, t, h, w = x.shape
-        theta, phi, g = self.theta(x), self.phi(x), self.g(x)
+        theta, phi, g = (conv_act(c, x, relu=False) for c in (self.theta, self.phi, self.g))
         if self.sub_sample:
             phi, g = max_pool_hw2(phi), max_pool_hw2(g)
         inter = theta.shape[1]
@@ -129,8 +126,10 @@ class NonLocal3D(nn.Module):
         attn = torch.matmul(theta.float(), phi.float())
         attn = torch.softmax(attn, dim=-1) if self.nl_type == "gaussian" else attn / m
         y = torch.matmul(attn.to(g.dtype).float(), g.float())        # (B, N, C')
-        y = y.transpose(1, 2).reshape(b, inter, t, h, w).to(x.dtype)
-        return x + self.out(y)
+        # dense (B, C', T, H, W): the transpose's view is channels-last, which
+        # cuDNN would keep in the conv's output, and the epilogue takes dense planes
+        y = y.transpose(1, 2).reshape(b, inter, t, h, w).to(x.dtype).contiguous()
+        return conv_act(self.out, y, x, relu=False)  # x + out(y): IEEE addition commutes
 
 
 def to_compute(clip_bcthw: torch.Tensor, normalize: bool, dtype: torch.dtype) -> torch.Tensor:

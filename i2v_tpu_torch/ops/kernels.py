@@ -16,11 +16,13 @@ engine does not differentiate through its pixel update.
 
 ``bias_act(y, bias, residual, relu)`` — the epilogue of a biased conv,
 ``act(y + bias[c] (+ residual))`` with act ReLU or the identity, in place on
-the conv's output: the surrogates run each conv in cuDNN without its bias
-and this one pass after it (:func:`i2v_tpu_torch.models.common.conv_act`).
-Replaces no Pallas kernel: XLA fuses the epilogue into the conv on the TPU.
-The CUDA kernel is ``csrc/bias_act.cu``; its gradient is the one autograd
-takes through ``relu`` (``threshold_backward``), so it stays differentiable.
+the conv's output: the surrogates and the I3D, SlowFast and TPN video models
+run each conv in cuDNN without its bias and this one pass after it
+(:func:`i2v_tpu_torch.models.common.conv_act`). Replaces no Pallas kernel:
+XLA fuses the epilogue into the conv on the TPU. The CUDA kernel is
+``csrc/bias_act.cu``; its gradient is the one autograd takes through
+``relu`` (``threshold_backward``), or SGM's scaled ReLU backward where a
+``relu_grad_scale`` other than 1 is given, so it stays differentiable.
 
 ``launch_window_attn(qkv, table, ...)`` — the core of the Video Swin
 Transformer's window attention (:mod:`i2v_tpu_torch.models.swin3d`),
@@ -302,19 +304,22 @@ def launch_bias_act(y: torch.Tensor, bias: torch.Tensor, residual: torch.Tensor 
 class BiasAct(torch.autograd.Function):
     """``act(y + bias[c] (+ residual))`` in place on ``y``: the kernel on the
     card, the plain version elsewhere. The backward is autograd's own for
-    ``relu`` (``threshold_backward`` against the output), handed to ``y``
-    and to ``residual`` as an add hands it, and summed over every axis but
-    the channels for ``bias``; built of differentiable ops, so a double
-    backward (Grad-CAM's) goes through it."""
+    ``relu`` (``threshold_backward`` against the output), or, with a
+    ``relu_grad_scale`` other than 1, SGM's ``g·scale·[out > 0]``
+    (:class:`~i2v_tpu_torch.ops.activations.GradScaledReLU`'s expression:
+    ``out > 0`` where its input is), handed to ``y`` and to ``residual`` as
+    an add hands it, and summed over every axis but the channels for
+    ``bias``; built of differentiable ops, so a double backward (Grad-CAM's)
+    goes through it."""
 
     @staticmethod
-    def forward(ctx, y, bias, residual, relu):
+    def forward(ctx, y, bias, residual, relu, relu_grad_scale):
         if y.is_cuda:
             launch_bias_act(y, bias, residual, relu)
         else:
             pixel.bias_act(y, bias, residual, relu)
         ctx.mark_dirty(y)
-        ctx.relu, ctx.has_residual = relu, residual is not None
+        ctx.relu, ctx.scale, ctx.has_residual = relu, relu_grad_scale, residual is not None
         if relu:
             ctx.save_for_backward(y)
         return y
@@ -323,18 +328,22 @@ class BiasAct(torch.autograd.Function):
     def backward(ctx, grad):
         if ctx.relu:
             (out,) = ctx.saved_tensors
-            grad = torch.ops.aten.threshold_backward(grad, out, 0)
+            if ctx.scale == 1.0:
+                grad = torch.ops.aten.threshold_backward(grad, out, 0)
+            else:
+                grad = grad * ctx.scale * (out > 0).to(grad.dtype)
         dbias = None
         if ctx.needs_input_grad[1]:
             dbias = grad.sum([0] + list(range(2, grad.dim())))
-        return grad, dbias, grad if ctx.has_residual else None, None
+        return grad, dbias, grad if ctx.has_residual else None, None, None
 
 
 def bias_act(y: torch.Tensor, bias: torch.Tensor, residual: torch.Tensor | None = None,
-             relu: bool = True) -> torch.Tensor:
+             relu: bool = True, relu_grad_scale: float = 1.0) -> torch.Tensor:
     """Differentiable ``act(y + bias[c] (+ residual))``, in place on ``y``
-    (which must not be a leaf that requires a gradient), returned."""
-    return BiasAct.apply(y, bias, residual, relu)
+    (which must not be a leaf that requires a gradient), returned; the ReLU's
+    backward scaled by ``relu_grad_scale`` (SGM) unless it is 1."""
+    return BiasAct.apply(y, bias, residual, relu, relu_grad_scale)
 
 
 # the dtypes window attention's kernel takes, and the code its C entry point reads
