@@ -19,7 +19,11 @@ raises and the script exits non-zero:
                  window attention (window_attn) against its plain path at the
                  four stages' shapes at B=16, unshifted and shifted, float32
                  and bfloat16, timed beside the plain path and
-                 F.scaled_dot_product_attention with the bias as its mask
+                 F.scaled_dot_product_attention with the bias as its mask;
+                 MViTv2-B's pooling attention (pool_attn) against its plain
+                 path at its seven block shapes at B=16, timed beside the
+                 plain path and F.scaled_dot_product_attention with the
+                 relative terms as its mask (and the residual added)
   4. slice     — 20-step full-width ENS-I2V through the port's image CLI over
                  two synthetic clips; artifacts checked, and the launch
                  counters show that every Adam step went through K1 and K2
@@ -198,6 +202,9 @@ raises and the script exits non-zero:
                  capture, 24 window_attn launches a forward (eager and
                  replayed), identical one-model reports; its logits of the
                  clips within SWIN_LOGIT_TOL of those with the plain attention
+ 33. mvit      — the same for full-width MViTv2-B (--models mvit_v2_b): 24
+                 pool_attn launches a forward, eager and replayed, no other
+                 kernel; logits within MVIT_LOGIT_TOL of the plain attention's
 Phase 3 also holds K1/K2 to their plain versions at the chunked runner's
 shapes: a 512-frame call (B=16), a 128-frame chunk that starts 128 frames
 into a 512-frame modifier, and a 112² call (multigrid's coarse phase).
@@ -207,7 +214,7 @@ data's ENS, twin, BIM and UCF-101 runs, zoo + gradcam's DenseNet and ViT
 runs, Grad-CAM, evaluation and grid, bf16's ENS, evaluations and
 mu_dtype AENS, multi-device's mesh runner, --model_parallel runs,
 model-axis AENS, evaluations and white-box mesh BIM, every compiled loops
-case, eager and graphed, and swin's evaluations; converters, which launches
+case, eager and graphed, and swin's and mvit's evaluations; converters, which launches
 none) is driven
 with the launch counters set to 0 just before it and read just after; the
 two launched processes of multi-device and the measurement tools'
@@ -249,10 +256,10 @@ SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's clock: longer than the enqueue
 # sheet, SXM part, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# the launch counters of i2v_tpu_torch.ops.kernels: K1-K3, the conv epilogue
-# and Swin-B's window attention
+# the launch counters of i2v_tpu_torch.ops.kernels: K1-K3, the conv epilogue,
+# Swin-B's window attention and MViTv2-B's pooling attention
 K1_TO_K3 = ("rebuild_fwd", "rebuild_bwd", "sign_step")
-COUNTED = K1_TO_K3 + ("bias_act", "window_attn")
+COUNTED = K1_TO_K3 + ("bias_act", "window_attn", "pool_attn")
 # the conv epilogue's launches in one forward of each full-width video model,
 # one a conv: I3D's stem, bottlenecks and five non-local blocks of four convs;
 # SlowFast's two stems, four laterals and both pathways' bottlenecks; TPN's
@@ -297,6 +304,24 @@ SWIN_BLOCKS = 24          # one window_attn launch a block: depths (2, 2, 18, 2)
 # the logits' std: float32 rounding through 24 blocks (the benchmark's
 # logit_gap reads 1.6e-6 on the card; TF32 gives 2.7e-3, PERF.md §6)
 SWIN_LOGIT_TOL = 1e-4
+# MViTv2-B's pooling attention at B=16 over 32x224^2, its seven block shapes:
+# (label, heads, query grid, key grid); head dim 96
+POOL_ATTN_SHAPES = (("blocks 0-1", 1, (16, 56, 56), (16, 7, 7)),
+                    ("block 2", 2, (16, 28, 28), (16, 14, 14)),
+                    ("blocks 3-4", 2, (16, 28, 28), (16, 7, 7)),
+                    ("block 5", 4, (16, 14, 14), (16, 14, 14)),
+                    ("blocks 6-20", 4, (16, 14, 14), (16, 7, 7)),
+                    ("block 21", 8, (16, 7, 7), (16, 14, 14)),
+                    ("blocks 22-23", 8, (16, 7, 7), (16, 7, 7)))
+POOL_ATTN_BATCH, POOL_ATTN_ITERS = 16, 5
+# kernel vs plain path, |got - want| <= atol + rtol·|want|: float32 softmax and
+# sums over up to 3137 keys in another order (outputs of scale ~1)
+POOL_ATTN_TOL = (1e-5, 1e-5)
+MVIT_BLOCKS = 24          # one pool_attn launch a block
+# MViTv2-B's logits with the kernel against the plain attention, max|diff| over
+# the logits' std: float32 rounding through 24 blocks (the benchmark's
+# logit_gap against the reference reads ~6e-6 on the card; TF32 gives 3.4e-3)
+MVIT_LOGIT_TOL = 1e-4
 SF_FAST_STRIDE = 2         # SlowFast-R50's fast pathway samples every 2nd frame
 AENS_CLIPS, AENS_STEPS = 2, 10
 AENS_MOMENTUM = 0.8        # > 0, so that carried-over coefficients show in clip 2
@@ -690,6 +715,71 @@ def _window_attn(kernels, gen: torch.Generator) -> dict:
     return {"err": err, "times": (k_ms, p_ms), "bound": bound, "library": library}
 
 
+def _pool_attn(kernels, gen: torch.Generator) -> dict:
+    """MViTv2-B's pooling attention: the kernel against its plain path
+    (``mvit.pool_attention_plain``, the kernel's oracle) at POOL_ATTN_SHAPES
+    at B=16, within POOL_ATTN_TOL; then timed in turns with the plain path
+    and ``F.scaled_dot_product_attention`` given the relative terms as its
+    mask, the residual added after it."""
+    import torch.nn.functional as F
+
+    from i2v_tpu_torch.models import mvit
+
+    facts, first, err = [], None, 0.0
+    for label, heads, q_grid, k_grid in POOL_ATTN_SHAPES:
+        nq1, nk1 = 1 + math.prod(q_grid), 1 + math.prod(k_grid)
+        b = POOL_ATTN_BATCH
+        q, k, v = (torch.randn(b, heads, n, 96, device="cuda", generator=gen)
+                   for n in (nq1, nk1, nk1))
+        tables = [0.1 * torch.randn(2 * max(a, c) - 1, 96, device="cuda", generator=gen)
+                  for a, c in zip(q_grid, k_grid)]
+        terms = mvit.relative_terms(q, q_grid, k_grid, *tables)
+        kernels.reset_launches()
+        got = mvit.pool_attention(q, k, v, terms)
+        want = mvit.pool_attention_plain(q, k, v, terms)
+        if kernels.launches["pool_attn"] != 1:
+            raise RuntimeError(f"pool_attn {label}: launches {kernels.launches['pool_attn']}")
+        diff = (got - want).abs()
+        rtol, atol = POOL_ATTN_TOL
+        if not got.isfinite().all() or (diff > atol + rtol * want.abs()).any():
+            raise RuntimeError(f"pool_attn differs from its plain path ({label}): max |diff| "
+                               f"{float(diff.max()):.3g}")
+        err = max(err, float(diff.max()))
+        del got, want, diff
+        flops = 4 * b * heads * nq1 * nk1 * 96
+        nbytes = b * heads * ((2 * nq1 + 2 * nk1) * 96 + (nq1 - 1) * sum(k_grid)) * 4
+        by_ops, by_bytes = flops / F32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound = (max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes")
+        rt, rh, rw = (t.view(b, heads, nq1 - 1, t.shape[-1]) for t in terms)
+        mask = F.pad((rt[..., :, None, None] + rh[..., None, :, None]
+                      + rw[..., None, None, :]).reshape(b, heads, nq1 - 1, -1), (1, 0, 1, 0))
+        residual = F.pad(q[:, :, 1:], (0, 0, 1, 0))
+        fns = [lambda: mvit.pool_attention(q, k, v, terms),
+               lambda: mvit.pool_attention_plain(q, k, v, terms),
+               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask) + residual]
+        lib = fns[2]().transpose(1, 2).reshape(b, nq1, heads * 96)
+        lib_diff = float((lib - fns[1]()).abs().max())
+        if not lib_diff <= 1e-4:  # the yardstick computes the same attention
+            raise RuntimeError(f"SDPA differs from the plain path ({label}): {lib_diff}")
+        del lib
+        first_turn = [_time_ms(f, POOL_ATTN_ITERS) for f in fns]
+        second_turn = [_time_ms(f, POOL_ATTN_ITERS) for f in reversed(fns)][::-1]
+        ms = [(x + y) / 2 for x, y in zip(first_turn, second_turn)]
+        facts.append(f"{label} ({b * heads} clip-heads of {nq1} x {nk1} x 96): kernel "
+                     f"{ms[0]:.4f} ms ({first_turn[0]:.4f}, {second_turn[0]:.4f}), bound "
+                     f"{bound[0]:.4f} ms by {bound[1]} ({bound[0] / ms[0]:.1%} of it), plain "
+                     f"{ms[1]:.4f} ms, SDPA with the terms as its mask {ms[2]:.4f} ms")
+        if first is None:
+            first = (ms[0], ms[1], bound, ms[2])
+        del q, k, v, terms, tables, fns, mask, residual, rt, rh, rw
+        torch.cuda.empty_cache()
+    kernels.reset_launches()
+    print(f"[kernels] pool_attn within {POOL_ATTN_TOL} (rtol, atol) of its plain path (max "
+          f"|diff| {err:.3g}) at B={POOL_ATTN_BATCH}; " + "; ".join(facts), flush=True)
+    k_ms, p_ms, bound, library = first
+    return {"err": err, "times": (k_ms, p_ms), "bound": bound, "library": library}
+
+
 def phase_kernels(kernels, pixel) -> dict:
     eps32 = float(np.float32(EPS))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -766,8 +856,13 @@ def phase_kernels(kernels, pixel) -> dict:
     err["window_attn"] = attention["err"]
     times["window_attn"] = attention["times"]
     bounds["window_attn"] = attention["bound"]
+    pooling = _pool_attn(kernels, gen)
+    err["pool_attn"] = pooling["err"]
+    times["pool_attn"] = pooling["times"]
+    bounds["pool_attn"] = pooling["bound"]
     return {"err": err, "times": times, "bounds": bounds,
-            "library": {"bias_act": epilogue["library"], "window_attn": attention["library"]}}
+            "library": {"bias_act": epilogue["library"], "window_attn": attention["library"],
+                        "pool_attn": pooling["library"]}}
 
 
 def _costs(run_dir: str) -> dict:
@@ -1116,8 +1211,8 @@ def _fused_want(clips: int, steps: int) -> dict:
     """Launch counts of ENS-I2V with the six video models evaluating each
     clip at B=1: K1/K2 as :func:`_want`, the epilogue in the surrogates'
     clean-tap forward and step forwards of each clip and in the video
-    models' forward of it, no window attention."""
-    return dict(_want(clips, steps), window_attn=0,
+    models' forward of it, no window or pooling attention."""
+    return dict(_want(clips, steps), window_attn=0, pool_attn=0,
                 bias_act=clips * (ENS_EPILOGUES * (steps + 1) + SIX_EPILOGUES))
 
 
@@ -3862,7 +3957,7 @@ def phase_swin(kernels, evaluate_cli, get_video_model, run_dir: str) -> dict:
     counts = dict(kernels.launches)
     forwards = 2 * len(files)
     want = {"window_attn": SWIN_BLOCKS * forwards, "rebuild_fwd": 0, "rebuild_bwd": 0,
-            "sign_step": 0, "bias_act": 0}
+            "sign_step": 0, "bias_act": 0, "pool_attn": 0}
     if _of(counts, want) != want or graphs.captures["graphs"] != captured + 1:
         raise RuntimeError(f"swin: launch counts {counts}, expected {want}; "
                            f"{graphs.captures['graphs'] - captured} capture(s), expected 1")
@@ -3895,6 +3990,74 @@ def phase_swin(kernels, evaluate_cli, get_video_model, run_dir: str) -> dict:
           f"top-1 {reports['serial'][1]}; logits with the kernel vs the plain attention "
           f"{gap:.3g} of their std (limit {SWIN_LOGIT_TOL}); phase wall "
           f"{time.time() - t0:.2f} s", flush=True)
+    return counts
+
+
+def phase_mvit(kernels, evaluate_cli, get_video_model, run_dir: str) -> dict:
+    """Full-width MViTv2-B over the slice's adversarial clips through the
+    evaluation CLI (``--models mvit_v2_b``) at batch 1, serially and then in
+    one pass, the model built once, as :func:`phase_swin` runs Swin-B: one
+    capture; each forward launches the pooling-attention kernel once a block
+    and no other kernel; the two reports are identical and of the one
+    model's schema; the card's logits of the clips with the kernel lie
+    within MVIT_LOGIT_TOL of those with the plain attention. Returns the
+    launch counts."""
+    import argparse
+
+    from i2v_tpu_torch.cli import common as cli_common
+    from i2v_tpu_torch.models import mvit
+    from i2v_tpu_torch.utils import artifacts, graphs
+
+    t0 = time.time()
+    cli_common.apply_matmul_precision(argparse.Namespace(matmul_precision="float32"))
+    bundle = get_video_model("mvit_v2_b", device="cuda")
+    files = artifacts.list_adv_files(run_dir)
+    captured = graphs.captures["graphs"]
+    kernels.reset_launches()
+    reports, rates = {}, {}
+    for mode in ("serial", "single pass"):
+        argv = ["--adv_path", run_dir, "--device", "cuda", "--matmul_precision", "float32",
+                "--models", "mvit_v2_b", "--batch_size", "1"]
+        args = evaluate_cli.arg_parse(argv + (["--single_pass"] if mode == "single pass" else []))
+        acc = evaluate_cli.run(args, get_bundle=lambda name: bundle)
+        with open(os.path.join(run_dir, REPORT_CSV)) as f:
+            reports[mode] = (f.read(), acc)
+        rates[mode] = next(iter(args.throughput.values()))["clips_per_sec"]
+    counts = dict(kernels.launches)
+    forwards = 2 * len(files)
+    want = dict(dict.fromkeys(COUNTED, 0), pool_attn=MVIT_BLOCKS * forwards)
+    if counts != want or graphs.captures["graphs"] != captured + 1:
+        raise RuntimeError(f"mvit: launch counts {counts}, expected {want}; "
+                           f"{graphs.captures['graphs'] - captured} capture(s), expected 1")
+    if reports["serial"] != reports["single pass"]:
+        raise RuntimeError(f"mvit: serial and single-pass reports differ: {reports}")
+    rows = reports["serial"][0].split("\n")
+    if rows[0] != "gt_label,mvit_v2_b-pre" or len(rows) != 402 or list(reports["serial"][1]) \
+            != ["mvit_v2_b"]:
+        raise RuntimeError(f"mvit: reports off the schema: {rows[:3]}…, {len(rows)} lines")
+
+    clips, _ = artifacts.load_adv_batch(run_dir, files)
+    x = torch.from_numpy(clips).cuda()
+    with torch.inference_mode():
+        logits = bundle.apply_norm(x).float()
+        kernel_path = mvit.pool_attention
+        mvit.pool_attention = mvit.pool_attention_plain
+        try:
+            plain = bundle.apply_norm(x).float()
+        finally:
+            mvit.pool_attention = kernel_path
+    gap = float((logits - plain).abs().max() / plain.std())
+    if not gap <= MVIT_LOGIT_TOL:
+        raise RuntimeError(f"mvit: logits with the kernel off those with the plain attention "
+                           f"by {gap:.3g} of their std (limit {MVIT_LOGIT_TOL})")
+    print(f"[mvit] MViTv2-B at full width (32x224^2, 400 classes, random weights, TF32 off) "
+          f"over {len(files)} adversarial clips at batch 1: serial {rates['serial']:.3f} "
+          f"clips/s (the first forward eager, the second captured), single pass "
+          f"{rates['single pass']:.3f} clips/s (replayed); one capture; launches {counts} "
+          f"({MVIT_BLOCKS} a forward over {forwards}); reports identical, top-1 "
+          f"{reports['serial'][1]}; logits with the kernel vs the plain attention {gap:.3g} "
+          f"of their std (limit {MVIT_LOGIT_TOL}); phase wall {time.time() - t0:.2f} s",
+          flush=True)
     return counts
 
 
@@ -3964,9 +4127,10 @@ def main() -> None:
         measured_tools = phase_measurement_tools(card, tmp)
         loops = phase_compiled_loops(kernels, synthetic, pixel, card, tmp)
         swin = phase_swin(kernels, evaluate_cli, get_video_model, slice_dir)
+        multiscale = phase_mvit(kernels, evaluate_cli, get_video_model, slice_dir)
         for k in counts:
             counts[k] += (real[k] + zoo[k] + bf16[k] + multi[k] + measured_tools[k] + loops[k]
-                          + swin[k])
+                          + swin[k] + multiscale[k])
     print(f"[done] every phase passed in {time.time() - t0:.2f} s after the device check")
 
     where = {"rebuild_fwd": ("i2v_tpu_torch/csrc/rebuild_adv.cu",
@@ -3978,7 +4142,9 @@ def main() -> None:
              # XLA fuses the conv epilogue into the conv: no TPU kernel
              "bias_act": ("i2v_tpu_torch/csrc/bias_act.cu", None),
              # the JAX package has no Swin: no TPU kernel
-             "window_attn": ("i2v_tpu_torch/csrc/window_attn.cu", None)}
+             "window_attn": ("i2v_tpu_torch/csrc/window_attn.cu", None),
+             # nor an MViT
+             "pool_attn": ("i2v_tpu_torch/csrc/pool_attn.cu", None)}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": counts[k],
          "max_abs_err": measured["err"][k], "ms": measured["times"][k][0],
@@ -3987,7 +4153,9 @@ def main() -> None:
          # no single PyTorch call computes K1-K3; the epilogue's yardstick is
          # torch.relu(t.add_(b)) at VGG-16's conv1_2 over 256 frames, window
          # attention's F.scaled_dot_product_attention with the bias as its
-         # mask at Swin-B's unshifted stage-1 blocks, B=16
+         # mask at Swin-B's unshifted stage-1 blocks, B=16, pooling
+         # attention's with the relative terms as its mask and the residual
+         # added at MViTv2-B's blocks 0-1, B=16
          "library_ms": measured["library"].get(k)}
         for k, (src, rep) in where.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -30,7 +30,9 @@ neither flax nor msgpack installed.
 ``convert_swin3d`` maps the published Video Swin checkpoint (mmaction's
 layout, ``backbone.*`` and ``cls_head.fc_cls.*``) onto the port's
 :mod:`.swin3d` names, which the video registry lays over the random init
-from ``{I2V_TPU_CKPTS}/swin3d_b.pth``.
+from ``{I2V_TPU_CKPTS}/swin3d_b.pth``; ``convert_mvit`` maps PySlowFast's
+MViTv2 checkpoint (``model_state``) onto :mod:`.mvit`, from
+``{I2V_TPU_CKPTS}/mvit_v2_b.pyth``.
 
 The checkpoint converters are here too, the counterparts of
 ``i2v_tpu.models.convert`` without flax: ``convert_resnet``,
@@ -438,6 +440,28 @@ def convert_swin3d(sd: Mapping) -> dict:
             name = "fc." + key[len("cls_head.fc_cls."):]
         else:
             raise KeyError(f"{key!r} is not a key of a Video Swin checkpoint")
+        out[name] = torch.as_tensor(value).float()
+    return out
+
+
+# the top-level names of PySlowFast's MViT keys that the port's module has
+MVIT_KEYS = ("patch_embed.", "cls_token", "blocks.", "norm.", "head.projection.")
+
+
+def convert_mvit(sd: Mapping) -> dict:
+    """PySlowFast's MViTv2 checkpoint (its ``model_state``, optionally with
+    the ``module.`` prefix of a data-parallel save) → the port's :mod:`.mvit`
+    names, which are PySlowFast's: ``patch_embed.proj``, ``cls_token``,
+    ``blocks.{i}.{norm1,norm2,proj,mlp.fc1,mlp.fc2,attn.{qkv,proj,pool_q,
+    norm_q,pool_k,norm_k,pool_v,norm_v,rel_pos_h,rel_pos_w,rel_pos_t}}``,
+    ``norm`` and ``head.projection``. Values come back as float32 tensors;
+    a key of another model raises."""
+    sd = sd.get("model_state", sd)
+    out = {}
+    for key, value in sd.items():
+        name = key[len("module."):] if key.startswith("module.") else key
+        if not name.startswith(MVIT_KEYS):
+            raise KeyError(f"{key!r} is not a key of an MViTv2 checkpoint")
         out[name] = torch.as_tensor(value).float()
     return out
 

@@ -38,6 +38,7 @@ import torch
 import torch.nn as nn
 
 from . import densenet as _densenet
+from . import mvit as _mvit
 from . import resnet as _resnet
 from . import swin3d as _swin3d
 from . import vgg as _vgg
@@ -123,6 +124,8 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     position embedding a normal of std 0.02 from the same generator (Flax's
     initializers); Swin's relative-position bias tables a truncated normal
     of std 0.02 (the published init), and its bias-free merging linears no
+    bias; MViT's class token and relative-position tables a truncated normal
+    of std 0.02 (PySlowFast's init), and its bias-free pooling convs no
     bias. The draws are float32 whatever the weights' dtype, so
     that a bfloat16 module gets its float32 twin's weights, rounded."""
     with torch.no_grad():
@@ -133,7 +136,7 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 w = torch.empty(m.weight.shape, dtype=torch.float32, device=m.weight.device)
                 nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
                 m.weight.copy_(w)
-                if m.bias is not None:  # Swin's patch merging has none
+                if m.bias is not None:  # Swin's patch merging and MViT's pooling have none
                     nn.init.zeros_(m.bias)
             elif isinstance(m, _densenet.FrozenBN):
                 nn.init.ones_(m.scale)
@@ -148,6 +151,11 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 # the published init of Swin's relative-position bias table
                 nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02,
                                       generator=generator)
+            elif isinstance(m, _mvit.MViT):
+                nn.init.trunc_normal_(m.cls_token, std=0.02, generator=generator)
+            elif isinstance(m, _mvit.MultiScaleAttention):
+                for table in (m.rel_pos_h, m.rel_pos_w, m.rel_pos_t):
+                    nn.init.trunc_normal_(table, std=0.02, generator=generator)
     return module
 
 

@@ -48,7 +48,6 @@ labels ``swin3d.stage{i}``."""
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Sequence
 
@@ -58,7 +57,7 @@ import torch.nn.functional as F
 
 from ..ops import kernels
 from .common import Conv3d, Linear, deepest, set_compute_dtype
-from .video_common import remat_call, to_compute
+from .video_common import cached_tensors, remat_call, to_compute
 from .vit import LayerNorm
 
 LN_EPS = 1e-5
@@ -137,18 +136,7 @@ def _axis_regions(size: int, window: int, shift: int) -> torch.Tensor:
     return (pos >= size - window).long() + (pos >= size - shift).long()
 
 
-def _cached(fn):
-    """Cache ``fn``'s tensors by its arguments, made as ordinary tensors
-    (not inference tensors) whatever mode the first caller is in."""
-    @functools.lru_cache(maxsize=None)
-    def cached(*args):
-        with torch.inference_mode(False), torch.no_grad():
-            return fn(*args)
-
-    return cached
-
-
-@_cached
+@cached_tensors
 def _relative_index(full_window: tuple, n: int, device: torch.device) -> torch.Tensor:
     """``relative_position_index[:n, :n]`` of ``full_window``, (n, n) long."""
     fd, fh, fw = full_window
@@ -159,7 +147,7 @@ def _relative_index(full_window: tuple, n: int, device: torch.device) -> torch.T
     return (code[:, None] - code[None, :] + corner).to(device)
 
 
-@_cached
+@cached_tensors
 def _shift_mask(geo: Geometry, device: torch.device) -> torch.Tensor:
     """(nW, N, N) float32: −100 between tokens of different shift regions of
     each window of a clip, else 0."""

@@ -17,10 +17,14 @@ PyTorch counterpart of :mod:`i2v_tpu.models.video_common`:
   - every model takes a compute ``dtype`` (:mod:`.common`): the clip is
     normalized in float32 and then cast (:func:`to_compute`), the convs and
     the head compute in ``dtype``, and the logits come back as float32.
+  - the transformers' index tensors made from shapes (Swin's relative index
+    and shift masks, MViT's distances) are cached outside the state dict
+    (:func:`cached_tensors`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -31,6 +35,17 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.pixel import normalize as _normalize
 from .common import Conv3d, conv_act
+
+
+def cached_tensors(fn):
+    """Cache ``fn``'s tensors by its arguments, made as ordinary tensors
+    (not inference tensors) whatever mode the first caller is in."""
+    @functools.lru_cache(maxsize=None)
+    def cached(*args):
+        with torch.inference_mode(False), torch.no_grad():
+            return fn(*args)
+
+    return cached
 
 
 def conv3d(in_ch: int, out_ch: int, kernel: Sequence[int], stride: Sequence[int] = (1, 1, 1),

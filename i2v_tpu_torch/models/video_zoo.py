@@ -1,13 +1,16 @@
 """Video-model registry: the reference's six model names (utils.py:8-15),
-their builders and tap tables, and Video Swin-B (``swin3d_b``), a transfer
-target the reference does not have: it is evaluated only where it is named
-(the six are ``utils.VIDEO_MODEL_NAMES``).
+their builders and tap tables, and Video Swin-B (``swin3d_b``) and MViTv2-B
+(``mvit_v2_b``), transfer targets the reference does not have: each is
+evaluated only where it is named (the six are ``utils.VIDEO_MODEL_NAMES``).
 
 PyTorch counterpart of :mod:`i2v_tpu.models.video_zoo`: I3D, SlowFast and
 TPN, each at ResNet-50 and ResNet-101 depth. Swin-B's weights come from
 ``{I2V_TPU_CKPTS}/swin3d_b.pth``, the published Kinetics-400 checkpoint
 (``swin_base_patch244_window877_kinetics400_1k.pth``, renamed) mapped by
-:func:`.convert.convert_swin3d`, laid over the random init as below.
+:func:`.convert.convert_swin3d`, and MViTv2-B's from
+``{I2V_TPU_CKPTS}/mvit_v2_b.pyth``, PySlowFast's Kinetics-400 checkpoint
+of MViTv2-B 32×3 (renamed) mapped by
+:func:`.convert.convert_mvit`, each laid over the random init as below.
 Weights of the six: a full-width model loads
 ``{I2V_TPU_CKPTS}/{name}[_ucf101].msgpack``, the JAX package's
 checkpoint converted from gluoncv (Flax msgpack, read by :mod:`.checkpoint`
@@ -29,11 +32,11 @@ import warnings
 
 import torch
 
-from . import i3d, slowfast, swin3d, tpn
+from . import i3d, mvit, slowfast, swin3d, tpn
 from .api import VideoModel
 from .common import check_dtype_on_device, set_compute_dtype
-from .convert import (checkpoint_path, convert_swin3d, from_jax_params, load_params,
-                      missing_modules)
+from .convert import (checkpoint_path, convert_mvit, convert_swin3d, from_jax_params,
+                      load_params, missing_modules)
 from .registry import random_init_
 
 VIDEO_BUILDERS = {
@@ -44,6 +47,7 @@ VIDEO_BUILDERS = {
     "tpn_resnet50": tpn.tpn_resnet50,
     "tpn_resnet101": tpn.tpn_resnet101,
     "swin3d_b": swin3d.swin3d_b,
+    "mvit_v2_b": mvit.mvit_v2_b,
 }
 TINY_BUILDERS = {
     "i3d_resnet50": i3d.i3d_tiny,
@@ -53,6 +57,7 @@ TINY_BUILDERS = {
     "tpn_resnet50": tpn.tpn_tiny,
     "tpn_resnet101": tpn.tpn_tiny,
     "swin3d_b": swin3d.swin3d_tiny,
+    "mvit_v2_b": mvit.mvit_tiny,
 }
 
 # per-architecture target layers (reference: base_attacks.py:737-743)
@@ -61,6 +66,7 @@ TAP_TAPS = {
     "slowfast": ("slow_res2", "slow_res3", "fast_res2", "fast_res3"),
     "tpn": ("layer1", "layer2"),
     "swin3d": ("stage1", "stage2"),
+    "mvit": ("stage1", "stage2"),
 }
 # ILAF mid-layers (reference: image_attacks.py:513-519)
 ILAF_TAPS = {
@@ -68,6 +74,7 @@ ILAF_TAPS = {
     "slowfast": ("slow_res2", "fast_res2"),
     "tpn": ("layer2",),
     "swin3d": ("stage2",),
+    "mvit": ("stage2",),
 }
 
 
@@ -125,24 +132,29 @@ def _load_checkpoint(module, name: str, ucf101: bool) -> None:
                       "are NOT valid until these convert (see convert_gluoncv --report)")
 
 
-def _load_swin_checkpoint(module, name: str, ucf101: bool) -> None:
-    """Lay ``{I2V_TPU_CKPTS}/{name}.pth``, the published checkpoint mapped
-    by :func:`.convert.convert_swin3d`, over ``module``'s init where the
-    file exists (the part the module has, when it is truncated); warn
-    without it, and name what the file left at random init."""
-    path = os.path.splitext(checkpoint_path(name))[0] + ".pth"
-    if ucf101 or not os.path.exists(path):
-        warnings.warn(f"no checkpoint for {name!r}{' (ucf101)' if ucf101 else ''} at "
-                      f"{path!r}; using random init")
-        return
-    state = convert_swin3d(torch.load(path, map_location="cpu", weights_only=True))
-    own = module.state_dict()
-    missing = module.load_state_dict({k: v for k, v in state.items() if k in own},
-                                     strict=False).missing_keys
-    if missing:
-        warnings.warn(f"checkpoint for {name!r} left {len(missing)} parameter(s) at random "
-                      f"init: {missing[:8]}{'…' if len(missing) > 8 else ''}")
+def _published_checkpoint(ext: str, convert):
+    """A loader that lays ``{I2V_TPU_CKPTS}/{name}{ext}``, a published
+    checkpoint mapped by ``convert``, over a module's init where the file
+    exists (the part the module has, when it is truncated); it warns without
+    the file, and names what the file left at random init."""
+
+    def load(module, name: str, ucf101: bool) -> None:
+        path = os.path.splitext(checkpoint_path(name))[0] + ext
+        if ucf101 or not os.path.exists(path):
+            warnings.warn(f"no checkpoint for {name!r}{' (ucf101)' if ucf101 else ''} at "
+                          f"{path!r}; using random init")
+            return
+        state = convert(torch.load(path, map_location="cpu", weights_only=True))
+        own = module.state_dict()
+        missing = module.load_state_dict({k: v for k, v in state.items() if k in own},
+                                         strict=False).missing_keys
+        if missing:
+            warnings.warn(f"checkpoint for {name!r} left {len(missing)} parameter(s) at random "
+                          f"init: {missing[:8]}{'…' if len(missing) > 8 else ''}")
+
+    return load
 
 
 # the models whose checkpoint is not the JAX package's msgpack, and its loader
-CHECKPOINT_LOADERS = {"swin3d_b": _load_swin_checkpoint}
+CHECKPOINT_LOADERS = {"swin3d_b": _published_checkpoint(".pth", convert_swin3d),
+                      "mvit_v2_b": _published_checkpoint(".pyth", convert_mvit)}

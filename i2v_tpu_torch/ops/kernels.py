@@ -34,11 +34,21 @@ PyTorch's TF32 flags say. It counts in ``launches["window_attn"]`` as the
 other kernels count: one a block of an eager forward, and a captured
 forward's at each replay.
 
+``launch_pool_attn(q, k, v, rel_t, rel_h, rel_w)`` — the core of MViTv2's
+pooling attention (:mod:`i2v_tpu_torch.models.mvit`),
+``softmax(q·scale·kᵀ + B)·v + q`` of every (clip, head) in one launch, the
+decomposed relative positions ``B`` built from their three per-query terms
+inside, forward only, into the projection's layout. Replaces no Pallas
+kernel: the JAX package has no MViT. The CUDA kernel is
+``csrc/pool_attn.cu``; it computes in float32 on the CUDA cores whatever
+PyTorch's TF32 flags say, and counts in ``launches["pool_attn"]``: one a
+block of an eager forward, and a captured forward's at each replay.
+
 Each source is built with ``nvcc`` for sm_90a at first use (:mod:`._build`).
 The first four kernels are elementwise and bound by device-memory bytes (12,
 16, 16, and 8 or 12 bytes an element); each makes one pass with 16-byte
-vector accesses where the shapes and pointers allow; window attention is
-bound by float32 arithmetic; the sources say more.
+vector accesses where the shapes and pointers allow; window and pooling
+attention are bound by float32 arithmetic; the sources say more.
 
 Dispatch: a tensor on the CPU takes the plain version in
 :mod:`i2v_tpu_torch.ops.pixel`; a CUDA tensor launches the kernel or raises.
@@ -64,7 +74,7 @@ import torch
 from . import _build, pixel
 
 launches = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0, "bias_act": 0,
-            "window_attn": 0}
+            "window_attn": 0, "pool_attn": 0}
 # K2 launches from the autograd engine's thread of each card, so the counts
 # take a lock: ``+=`` on a dict entry is a read, an add and a write
 _launches_lock = threading.Lock()
@@ -123,6 +133,9 @@ SOURCES = {
     },
     "window_attn": {
         "window_attn_fwd": [_PTR, _PTR, _PTR, _N] + [_I] * 13 + [_F32, _I, _PTR],
+    },
+    "pool_attn": {
+        "pool_attn_fwd": [_PTR] * 7 + [_N] + [_I] * 6 + [_F32, _PTR],
     },
 }
 
@@ -389,6 +402,55 @@ def launch_window_attn(qkv: torch.Tensor, table: torch.Tensor, *, window, full_w
             qkv.data_ptr(), table.data_ptr(), out.data_ptr(), windows, heads, *counts,
             *window, *shift, *full_window, float(np.float32(hd ** -0.5)),
             WINDOW_ATTN_DTYPES[qkv.dtype], _stream(qkv))
+    _raise_on(err, name)
+    count_launch(name)
+    return out
+
+
+POOL_ATTN_HEAD_DIM = 96
+# kt + kh + kw: the rows of relative terms that a block keeps in shared memory
+POOL_ATTN_MAX_TERMS = 45
+
+
+def launch_pool_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel_t: torch.Tensor,
+                     rel_h: torch.Tensor, rel_w: torch.Tensor) -> torch.Tensor:
+    """``softmax(q·hd^-0.5·kᵀ + B)·v + q`` (the residual at rows ≥ 1) of
+    every (clip, head) on the card: q (clips, heads, 1 + Nq, 96), k and v
+    (clips, heads, 1 + Nk, 96), row and key 0 the class token; ``B[i, j] =
+    rel_t[i, t] + rel_h[i, h] + rel_w[i, w]`` for spatial query i and key j
+    at (t, h, w) of the (kt, kh, kw) key grid, 0 on the class token's row and
+    column; the terms (clips·heads, Nq, kt | kh | kw), their widths the key
+    grid. All float32. → (clips, 1 + Nq, heads·96)."""
+    name = "pool_attn"
+    tensors = (q, k, v, rel_t, rel_h, rel_w)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name}: the kernel takes float32, got {[t.dtype for t in tensors]}")
+    if not all(t.is_cuda for t in tensors) or any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: expected CUDA tensors on one card, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors) or any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors, q, k and v 16-byte "
+                         "aligned")
+    if q.dim() != 4 or q.shape[3] != POOL_ATTN_HEAD_DIM or k.dim() != 4 \
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != POOL_ATTN_HEAD_DIM \
+            or v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} are not (clips, heads, N, {POOL_ATTN_HEAD_DIM}) "
+                         "of one clips and heads")
+    clips, heads, nq1, _ = q.shape
+    nk1 = k.shape[2]
+    grid = tuple(t.shape[-1] for t in (rel_t, rel_h, rel_w))
+    if any(t.shape[:2] != (clips * heads, nq1 - 1) or t.dim() != 3 for t in tensors[3:]):
+        raise ValueError(f"{name}: terms {[tuple(t.shape) for t in tensors[3:]]} are not "
+                         f"({clips * heads}, {nq1 - 1}, key grid axis)")
+    if nq1 < 1 or nk1 != 1 + math.prod(grid) or sum(grid) > POOL_ATTN_MAX_TERMS:
+        raise ValueError(f"{name}: {nk1} keys are not 1 + the key grid {grid}, or its axes "
+                         f"sum past {POOL_ATTN_MAX_TERMS}")
+    out = torch.empty(clips, nq1, heads * POOL_ATTN_HEAD_DIM, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = library(name).cdll.pool_attn_fwd(
+            *(t.data_ptr() for t in tensors), out.data_ptr(), clips, heads, nq1, nk1, *grid,
+            float(np.float32(POOL_ATTN_HEAD_DIM ** -0.5)), _stream(q))
     _raise_on(err, name)
     count_launch(name)
     return out
