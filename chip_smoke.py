@@ -202,9 +202,13 @@ raises and the script exits non-zero:
                  capture, 24 window_attn launches a forward (eager and
                  replayed), identical one-model reports; its logits of the
                  clips within SWIN_LOGIT_TOL of those with the plain attention
- 33. mvit      — the same for full-width MViTv2-B (--models mvit_v2_b): 24
-                 pool_attn launches a forward, eager and replayed, no other
-                 kernel; logits within MVIT_LOGIT_TOL of the plain attention's
+ 33. mvit      — the q, k and v pooling (pool_qkv) against its plain path
+                 (three attention_pool calls) at B=16 on blocks 0-1's shape,
+                 timed beside its byte bound and the plain path; then the
+                 same as swin for full-width MViTv2-B (--models mvit_v2_b):
+                 24 pool_attn and 24 pool_qkv launches a forward, eager and
+                 replayed, no other kernel; logits within MVIT_LOGIT_TOL of
+                 those with both plain paths
 Phase 3 also holds K1/K2 to their plain versions at the chunked runner's
 shapes: a 512-frame call (B=16), a 128-frame chunk that starts 128 frames
 into a 512-frame modifier, and a 112² call (multigrid's coarse phase).
@@ -257,9 +261,10 @@ SPIN_CYCLES = 50_000_000  # ~25 ms at the H100's clock: longer than the enqueue
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # the launch counters of i2v_tpu_torch.ops.kernels: K1-K3, the conv epilogue,
-# Swin-B's window attention and MViTv2-B's pooling attention
+# Swin-B's window attention, MViTv2-B's pooling attention and its q, k and v
+# pooling
 K1_TO_K3 = ("rebuild_fwd", "rebuild_bwd", "sign_step")
-COUNTED = K1_TO_K3 + ("bias_act", "window_attn", "pool_attn")
+COUNTED = K1_TO_K3 + ("bias_act", "window_attn", "pool_attn", "pool_qkv")
 # the conv epilogue's launches in one forward of each full-width video model,
 # one a conv: I3D's stem, bottlenecks and five non-local blocks of four convs;
 # SlowFast's two stems, four laterals and both pathways' bottlenecks; TPN's
@@ -317,7 +322,14 @@ POOL_ATTN_BATCH, POOL_ATTN_ITERS = 16, 5
 # kernel vs plain path, |got - want| <= atol + rtol·|want|: float32 softmax and
 # sums over up to 3137 keys in another order (outputs of scale ~1)
 POOL_ATTN_TOL = (1e-5, 1e-5)
-MVIT_BLOCKS = 24          # one pool_attn launch a block
+MVIT_BLOCKS = 24          # one pool_attn and one pool_qkv launch a block
+# the q, k and v pooling at B=16 on MViTv2-B's blocks 0-1: heads, input grid,
+# query stride, key/value stride; kernel vs plain path, |got - want| <= atol +
+# rtol·|want| (the same taps in the same order, the norms' sums in another,
+# outputs of scale ~1)
+POOL_QKV_SHAPE = (1, (16, 56, 56), (1, 1, 1), (1, 8, 8))
+POOL_QKV_BATCH, POOL_QKV_ITERS = 16, 10
+POOL_QKV_TOL = (1e-5, 1e-5)
 # MViTv2-B's logits with the kernel against the plain attention, max|diff| over
 # the logits' std: float32 rounding through 24 blocks (the benchmark's
 # logit_gap against the reference reads ~6e-6 on the card; TF32 gives 3.4e-3)
@@ -1212,7 +1224,7 @@ def _fused_want(clips: int, steps: int) -> dict:
     clip at B=1: K1/K2 as :func:`_want`, the epilogue in the surrogates'
     clean-tap forward and step forwards of each clip and in the video
     models' forward of it, no window or pooling attention."""
-    return dict(_want(clips, steps), window_attn=0, pool_attn=0,
+    return dict(_want(clips, steps), window_attn=0, pool_attn=0, pool_qkv=0,
                 bias_act=clips * (ENS_EPILOGUES * (steps + 1) + SIX_EPILOGUES))
 
 
@@ -3957,7 +3969,7 @@ def phase_swin(kernels, evaluate_cli, get_video_model, run_dir: str) -> dict:
     counts = dict(kernels.launches)
     forwards = 2 * len(files)
     want = {"window_attn": SWIN_BLOCKS * forwards, "rebuild_fwd": 0, "rebuild_bwd": 0,
-            "sign_step": 0, "bias_act": 0, "pool_attn": 0}
+            "sign_step": 0, "bias_act": 0, "pool_attn": 0, "pool_qkv": 0}
     if _of(counts, want) != want or graphs.captures["graphs"] != captured + 1:
         raise RuntimeError(f"swin: launch counts {counts}, expected {want}; "
                            f"{graphs.captures['graphs'] - captured} capture(s), expected 1")
@@ -3993,15 +4005,78 @@ def phase_swin(kernels, evaluate_cli, get_video_model, run_dir: str) -> dict:
     return counts
 
 
-def phase_mvit(kernels, evaluate_cli, get_video_model, run_dir: str) -> dict:
+def _pool_qkv(kernels) -> dict:
+    """MViTv2-B's q, k and v pooling: the kernel (``mvit.pool_qkv``) against
+    its plain path (``mvit.pool_qkv_plain``, three ``attention_pool`` calls:
+    copy, conv, cat, LayerNorm) at POOL_QKV_SHAPE, B=16, within POOL_QKV_TOL,
+    one launch; then timed in turns with the plain path, beside its bound:
+    each input row a tap touches read once, each output row written once, at
+    HBM_BYTES_PER_S."""
+    from i2v_tpu_torch.models import mvit
+
+    heads, grid, stride_q, stride_kv = POOL_QKV_SHAPE
+    spec = mvit.BlockSpec(96 * heads, 96 * heads, heads, stride_q, stride_kv, grid)
+    attn = mvit.MultiScaleAttention(spec, (3, 3, 3)).cuda().requires_grad_(False)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    with torch.no_grad():
+        for conv in (attn.pool_q, attn.pool_k, attn.pool_v):
+            conv.weight.normal_(0, 27 ** -0.5, generator=gen)
+        for norm in (attn.norm_q, attn.norm_k, attn.norm_v):
+            norm.weight.normal_(1, 0.01, generator=gen)
+            norm.bias.normal_(0, 0.01, generator=gen)
+    b = POOL_QKV_BATCH
+    qkv = torch.randn(b, 1 + math.prod(grid), 3, heads, 96, device="cuda", generator=gen)
+    kernels.reset_launches()
+    got = mvit.pool_qkv(qkv, attn, grid)
+    want = mvit.pool_qkv_plain(qkv, attn, grid)
+    if kernels.launches["pool_qkv"] != 1 or got[3:] != want[3:]:
+        raise RuntimeError(f"pool_qkv: launches {kernels.launches['pool_qkv']}, grids "
+                           f"{got[3:]} and {want[3:]}")
+    rtol, atol = POOL_QKV_TOL
+    err = 0.0
+    for name, g, w in zip("qkv", got[:3], want[:3]):
+        diff = (g - w).abs()
+        if g.shape != w.shape or not g.isfinite().all() or (diff > atol + rtol * w.abs()).any():
+            raise RuntimeError(f"pool_qkv differs from its plain path ({name}): max |diff| "
+                               f"{float(diff.max()):.3g}")
+        err = max(err, float(diff.max()))
+    del got, want
+
+    def touched(n_out, s, n_in):  # input indices an axis's taps hit
+        return len({o * s - 1 + d for o in range(n_out) for d in range(3)} & set(range(n_in)))
+
+    nbytes = 0
+    for stride in (stride_q, stride_kv, stride_kv):
+        out = [(n - 1) // s + 1 for n, s in zip(grid, stride)]
+        read = math.prod(touched(o, s, n) for o, s, n in zip(out, stride, grid))
+        nbytes += b * heads * 96 * 4 * ((1 + read) + (1 + math.prod(out)))
+    bound = (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
+    fns = [lambda: mvit.pool_qkv(qkv, attn, grid), lambda: mvit.pool_qkv_plain(qkv, attn, grid)]
+    first_turn = [_time_ms(f, POOL_QKV_ITERS) for f in fns]
+    second_turn = [_time_ms(f, POOL_QKV_ITERS) for f in reversed(fns)][::-1]
+    ms = [(x + y) / 2 for x, y in zip(first_turn, second_turn)]
+    del qkv, fns
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    print(f"[mvit] pool_qkv within {POOL_QKV_TOL} (rtol, atol) of its plain path (max |diff| "
+          f"{err:.3g}) at B={b} on blocks 0-1 ({heads} head, grid {grid}, q stride {stride_q}, "
+          f"k and v {stride_kv}): kernel {ms[0]:.4f} ms ({first_turn[0]:.4f}, "
+          f"{second_turn[0]:.4f}), bound {bound[0]:.4f} ms by bytes ({nbytes / 1e6:.1f} MB; "
+          f"{bound[0] / ms[0]:.1%} of it), plain path (copy, conv, cat, LayerNorm) "
+          f"{ms[1]:.4f} ms", flush=True)
+    return {"err": err, "times": (ms[0], ms[1]), "bound": bound, "library": None}
+
+
+def phase_mvit(kernels, evaluate_cli, get_video_model, run_dir: str) -> tuple:
     """Full-width MViTv2-B over the slice's adversarial clips through the
     evaluation CLI (``--models mvit_v2_b``) at batch 1, serially and then in
     one pass, the model built once, as :func:`phase_swin` runs Swin-B: one
     capture; each forward launches the pooling-attention kernel once a block
     and no other kernel; the two reports are identical and of the one
-    model's schema; the card's logits of the clips with the kernel lie
-    within MVIT_LOGIT_TOL of those with the plain attention. Returns the
-    launch counts."""
+    model's schema; the card's logits of the clips with the kernels lie
+    within MVIT_LOGIT_TOL of those with both plain paths. First the q, k
+    and v pooling alone (:func:`_pool_qkv`). Returns the launch counts and
+    the pooling's measurements."""
     import argparse
 
     from i2v_tpu_torch.cli import common as cli_common
@@ -4010,6 +4085,7 @@ def phase_mvit(kernels, evaluate_cli, get_video_model, run_dir: str) -> dict:
 
     t0 = time.time()
     cli_common.apply_matmul_precision(argparse.Namespace(matmul_precision="float32"))
+    pooling = _pool_qkv(kernels)
     bundle = get_video_model("mvit_v2_b", device="cuda")
     files = artifacts.list_adv_files(run_dir)
     captured = graphs.captures["graphs"]
@@ -4025,7 +4101,8 @@ def phase_mvit(kernels, evaluate_cli, get_video_model, run_dir: str) -> dict:
         rates[mode] = next(iter(args.throughput.values()))["clips_per_sec"]
     counts = dict(kernels.launches)
     forwards = 2 * len(files)
-    want = dict(dict.fromkeys(COUNTED, 0), pool_attn=MVIT_BLOCKS * forwards)
+    want = dict(dict.fromkeys(COUNTED, 0), pool_attn=MVIT_BLOCKS * forwards,
+                pool_qkv=MVIT_BLOCKS * forwards)
     if counts != want or graphs.captures["graphs"] != captured + 1:
         raise RuntimeError(f"mvit: launch counts {counts}, expected {want}; "
                            f"{graphs.captures['graphs'] - captured} capture(s), expected 1")
@@ -4040,25 +4117,25 @@ def phase_mvit(kernels, evaluate_cli, get_video_model, run_dir: str) -> dict:
     x = torch.from_numpy(clips).cuda()
     with torch.inference_mode():
         logits = bundle.apply_norm(x).float()
-        kernel_path = mvit.pool_attention
-        mvit.pool_attention = mvit.pool_attention_plain
+        kernel_paths = mvit.pool_attention, mvit.pool_qkv
+        mvit.pool_attention, mvit.pool_qkv = mvit.pool_attention_plain, mvit.pool_qkv_plain
         try:
             plain = bundle.apply_norm(x).float()
         finally:
-            mvit.pool_attention = kernel_path
+            mvit.pool_attention, mvit.pool_qkv = kernel_paths
     gap = float((logits - plain).abs().max() / plain.std())
     if not gap <= MVIT_LOGIT_TOL:
-        raise RuntimeError(f"mvit: logits with the kernel off those with the plain attention "
+        raise RuntimeError(f"mvit: logits with the kernels off those with the plain paths "
                            f"by {gap:.3g} of their std (limit {MVIT_LOGIT_TOL})")
     print(f"[mvit] MViTv2-B at full width (32x224^2, 400 classes, random weights, TF32 off) "
           f"over {len(files)} adversarial clips at batch 1: serial {rates['serial']:.3f} "
           f"clips/s (the first forward eager, the second captured), single pass "
           f"{rates['single pass']:.3f} clips/s (replayed); one capture; launches {counts} "
           f"({MVIT_BLOCKS} a forward over {forwards}); reports identical, top-1 "
-          f"{reports['serial'][1]}; logits with the kernel vs the plain attention {gap:.3g} "
+          f"{reports['serial'][1]}; logits with the kernels vs the plain paths {gap:.3g} "
           f"of their std (limit {MVIT_LOGIT_TOL}); phase wall {time.time() - t0:.2f} s",
           flush=True)
-    return counts
+    return counts, pooling
 
 
 def main() -> None:
@@ -4127,7 +4204,10 @@ def main() -> None:
         measured_tools = phase_measurement_tools(card, tmp)
         loops = phase_compiled_loops(kernels, synthetic, pixel, card, tmp)
         swin = phase_swin(kernels, evaluate_cli, get_video_model, slice_dir)
-        multiscale = phase_mvit(kernels, evaluate_cli, get_video_model, slice_dir)
+        multiscale, pooling = phase_mvit(kernels, evaluate_cli, get_video_model, slice_dir)
+        for key in ("err", "times", "library"):
+            measured[key]["pool_qkv"] = pooling[key]
+        measured["bounds"]["pool_qkv"] = pooling["bound"]
         for k in counts:
             counts[k] += (real[k] + zoo[k] + bf16[k] + multi[k] + measured_tools[k] + loops[k]
                           + swin[k] + multiscale[k])
@@ -4144,7 +4224,8 @@ def main() -> None:
              # the JAX package has no Swin: no TPU kernel
              "window_attn": ("i2v_tpu_torch/csrc/window_attn.cu", None),
              # nor an MViT
-             "pool_attn": ("i2v_tpu_torch/csrc/pool_attn.cu", None)}
+             "pool_attn": ("i2v_tpu_torch/csrc/pool_attn.cu", None),
+             "pool_qkv": ("i2v_tpu_torch/csrc/pool_qkv.cu", None)}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": counts[k],
          "max_abs_err": measured["err"][k], "ms": measured["times"][k][0],
@@ -4155,7 +4236,8 @@ def main() -> None:
          # attention's F.scaled_dot_product_attention with the bias as its
          # mask at Swin-B's unshifted stage-1 blocks, B=16, pooling
          # attention's with the relative terms as its mask and the residual
-         # added at MViTv2-B's blocks 0-1, B=16
+         # added at MViTv2-B's blocks 0-1, B=16; no single call pools q, k
+         # and v
          "library_ms": measured["library"].get(k)}
         for k, (src, rep) in where.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -42,8 +42,13 @@ of stage ``i``'s last block without the class token, NCDHW views like the
 other video models' taps. ``truncate`` with taps builds and runs no block
 past the deepest tap's stage and no head.
 
-The attention's core, ``softmax(q·scale·kᵀ + B)·v + q`` of every (clip,
-head), is one hand-written kernel on a card
+The pooling of q, k and v, each with its LayerNorm, is one hand-written
+kernel a block on a card (:func:`~i2v_tpu_torch.ops.kernels.launch_pool_qkv`,
+read straight from the qkv Linear's output, forward only) and
+:func:`pool_qkv_plain` (three :func:`attention_pool` calls) elsewhere, which
+is the kernel's oracle; the skip's max-pool goes through
+:func:`attention_pool` on both. The attention's core, ``softmax(q·scale·kᵀ
++ B)·v + q`` of every (clip, head), is one hand-written kernel on a card
 (:func:`~i2v_tpu_torch.ops.kernels.launch_pool_attn`, forward only: under
 autograd on a card it raises) and :func:`pool_attention_plain` elsewhere,
 which is the kernel's oracle. Both take the three per-query relative terms
@@ -233,6 +238,33 @@ def attention_pool(t: torch.Tensor, pool: nn.Module, thw: Sequence[int],
     return (out if norm is None else norm(out)), thw
 
 
+def pool_qkv_plain(qkv: torch.Tensor, attn: nn.Module, thw: Sequence[int]) -> tuple:
+    """q, k and v from the qkv Linear's output (B, 1 + T·H·W, 3, heads, hd),
+    each through :func:`attention_pool` with its conv and LayerNorm of
+    ``attn`` (a :class:`MultiScaleAttention`) → (q, k, v, q grid, k grid). The
+    kernel's oracle and the path off the card."""
+    t = qkv.permute(2, 0, 3, 1, 4)
+    q, q_thw = attention_pool(t[0], attn.pool_q, thw, attn.norm_q)
+    k, k_thw = attention_pool(t[1], attn.pool_k, thw, attn.norm_k)
+    v, _ = attention_pool(t[2], attn.pool_v, thw, attn.norm_v)
+    return q, k, v, q_thw, k_thw
+
+
+def pool_qkv(qkv: torch.Tensor, attn: nn.Module, thw: Sequence[int]) -> tuple:
+    """The kernel on a card (q, k and v in one launch, read from qkv as it
+    lies), :func:`pool_qkv_plain` elsewhere."""
+    if qkv.is_cuda:
+        weights = [m.weight for m in (attn.pool_q, attn.pool_k, attn.pool_v)]
+        norms = [(m.weight, m.bias) for m in (attn.norm_q, attn.norm_k, attn.norm_v)]
+        params = weights + [p for pair in norms for p in pair]
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (qkv, *params)):
+            raise RuntimeError("q, k and v pooling on a card is forward only: its kernel has no "
+                               "backward")
+        return kernels.launch_pool_qkv(qkv, thw, attn.pool_q.stride, attn.pool_k.stride,
+                                       weights, norms, attn.norm_q.eps)
+    return pool_qkv_plain(qkv, attn, thw)
+
+
 class MultiScaleAttention(nn.Module):
     def __init__(self, spec: BlockSpec, kernel: Sequence[int]):
         super().__init__()
@@ -251,10 +283,7 @@ class MultiScaleAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, thw: Sequence[int]) -> tuple:
         b, n, _ = x.shape
-        qkv = self.qkv(x).view(b, n, 3, self.heads, -1).permute(2, 0, 3, 1, 4)
-        q, q_thw = attention_pool(qkv[0], self.pool_q, thw, self.norm_q)
-        k, k_thw = attention_pool(qkv[1], self.pool_k, thw, self.norm_k)
-        v, _ = attention_pool(qkv[2], self.pool_v, thw, self.norm_v)
+        q, k, v, q_thw, k_thw = pool_qkv(self.qkv(x).view(b, n, 3, self.heads, -1), self, thw)
         terms = relative_terms(q, q_thw, k_thw, self.rel_pos_t, self.rel_pos_h, self.rel_pos_w)
         return self.proj(pool_attention(q, k, v, terms)), q_thw
 

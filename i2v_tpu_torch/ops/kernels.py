@@ -44,11 +44,22 @@ kernel: the JAX package has no MViT. The CUDA kernel is
 PyTorch's TF32 flags say, and counts in ``launches["pool_attn"]``: one a
 block of an eager forward, and a captured forward's at each replay.
 
+``launch_pool_qkv(qkv, thw, stride_q, stride_kv, weights, norms, eps)`` —
+the pooling of MViTv2's q, k and v (:mod:`i2v_tpu_torch.models.mvit`), all
+three in one launch, read straight from the qkv Linear's output: each
+keeps its class token, has its (T, H, W) grid pooled by its depthwise 3³
+conv and every row normalised by its LayerNorm, written in the layout that
+``launch_pool_attn`` reads. Forward only. Replaces no Pallas kernel: the JAX
+package has no MViT. The CUDA kernel is ``csrc/pool_qkv.cu``; it computes in
+float32 on the CUDA cores, and counts in ``launches["pool_qkv"]`` as
+``pool_attn`` does.
+
 Each source is built with ``nvcc`` for sm_90a at first use (:mod:`._build`).
 The first four kernels are elementwise and bound by device-memory bytes (12,
 16, 16, and 8 or 12 bytes an element); each makes one pass with 16-byte
 vector accesses where the shapes and pointers allow; window and pooling
-attention are bound by float32 arithmetic; the sources say more.
+attention are bound by float32 arithmetic, the pooling of q, k and v by
+bytes; the sources say more.
 
 Dispatch: a tensor on the CPU takes the plain version in
 :mod:`i2v_tpu_torch.ops.pixel`; a CUDA tensor launches the kernel or raises.
@@ -74,7 +85,7 @@ import torch
 from . import _build, pixel
 
 launches = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0, "bias_act": 0,
-            "window_attn": 0, "pool_attn": 0}
+            "window_attn": 0, "pool_attn": 0, "pool_qkv": 0}
 # K2 launches from the autograd engine's thread of each card, so the counts
 # take a lock: ``+=`` on a dict entry is a read, an add and a write
 _launches_lock = threading.Lock()
@@ -136,6 +147,9 @@ SOURCES = {
     },
     "pool_attn": {
         "pool_attn_fwd": [_PTR] * 7 + [_N] + [_I] * 6 + [_F32, _PTR],
+    },
+    "pool_qkv": {
+        "pool_qkv_fwd": [_PTR] * 13 + [_N] + [_I] * 10 + [_F32, _I, _PTR],
     },
 }
 
@@ -454,3 +468,63 @@ def launch_pool_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel_t: t
     _raise_on(err, name)
     count_launch(name)
     return out
+
+
+# the dtypes the q, k and v pooling kernel takes, and the code its C entry point reads
+POOL_QKV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+POOL_QKV_HEAD_DIM = 96
+
+
+def launch_pool_qkv(qkv: torch.Tensor, thw, stride_q, stride_kv, weights, norms,
+                    eps: float) -> tuple:
+    """q, k and v of MViTv2's pooling attention on the card, in one launch:
+    qkv (clips, 1 + T·H·W, 3, heads, 96), float32 or bfloat16, token 0 the
+    class token, the others the (T, H, W) grid ``thw``; for q (stride
+    ``stride_q``), k and v (``stride_kv``) the class token kept, the grid
+    pooled by the tensor's depthwise 3³ conv (``weights``, three (96, 1, 3,
+    3, 3) in qkv's dtype, zero padding 1; in bfloat16 the pooled value
+    rounded to it) and every row normalised over its 96 channels by its
+    LayerNorm (``norms``, three (weight, bias) pairs of (96,) float32, ε
+    ``eps``). → (q, k, v, q grid, k grid): q (clips, heads, 1 + Nq, 96), k
+    and v (clips, heads, 1 + Nk, 96), float32."""
+    name = "pool_qkv"
+    hd = POOL_QKV_HEAD_DIM
+    params = [p for pair in norms for p in pair]
+    if qkv.dtype not in POOL_QKV_DTYPES or any(w.dtype != qkv.dtype for w in weights):
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16 qkv and conv weights of "
+                        f"its dtype, got {qkv.dtype} and {[w.dtype for w in weights]}")
+    if any(p.dtype != torch.float32 for p in params):
+        raise TypeError(f"{name}: the norms' weights and biases must be float32, got "
+                        f"{[p.dtype for p in params]}")
+    tensors = (qkv, *weights, *params)
+    if not all(t.is_contiguous() for t in tensors) or qkv.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel takes contiguous tensors, qkv 16-byte aligned")
+    strides = (tuple(stride_q), tuple(stride_kv))
+    if len(weights) != 3 or len(norms) != 3 or len(thw) != 3 \
+            or any(len(s) != 3 or min(s) < 1 for s in strides):
+        raise ValueError(f"{name}: three weights, norms and strides of (T, H, W), got "
+                         f"{len(weights)}, {len(norms)} and {strides} over {tuple(thw)}")
+    if qkv.dim() != 5 or qkv.shape[1] != 1 + math.prod(thw) or qkv.shape[2] != 3 \
+            or qkv.shape[4] != hd:
+        raise ValueError(f"{name}: qkv {tuple(qkv.shape)} is not (clips, 1 + T·H·W, 3, heads, "
+                         f"{hd}) over the grid {tuple(thw)}")
+    if any(tuple(w.shape) != (hd, 1, 3, 3, 3) for w in weights) \
+            or any(tuple(p.shape) != (hd,) for p in params):
+        raise ValueError(f"{name}: weights {[tuple(w.shape) for w in weights]} are not "
+                         f"({hd}, 1, 3, 3, 3), or norms {[tuple(p.shape) for p in params]} not "
+                         f"({hd},)")
+    if not all(t.is_cuda for t in tensors) or any(t.device != qkv.device for t in tensors):
+        raise ValueError(f"{name}: expected CUDA tensors on one card, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    clips, heads = qkv.shape[0], qkv.shape[3]
+    grids = [tuple((n - 1) // s + 1 for n, s in zip(thw, st)) for st in strides]
+    outs = [torch.empty(clips, heads, 1 + math.prod(g), hd, dtype=torch.float32,
+                        device=qkv.device) for g in (grids[0], grids[1], grids[1])]
+    with torch.cuda.device(qkv.device):
+        err = library(name).cdll.pool_qkv_fwd(
+            qkv.data_ptr(), *(t.data_ptr() for t in (*weights, *params, *outs)), clips, heads,
+            *thw, *strides[0], *strides[1], float(eps), POOL_QKV_DTYPES[qkv.dtype],
+            _stream(qkv))
+    _raise_on(err, name)
+    count_launch(name)
+    return (*outs, *grids)

@@ -11,11 +11,15 @@ the reference one after another; they differ by ~3e-6) at shapes that
 exercise each mechanism: a query stride, key/value strides, key grids
 smaller than, equal to and larger than the query grid, widths that change,
 the class token, and tables that the published code resizes; each planted
-fault below fails that comparison. The ``gpu`` tests hold
-``pool_attn_fwd_kernel`` to the plain path at every block shape of
-MViTv2-B at 32x224^2, at B=2, and at the test variant's; count 24 launches
-(one a block) in a full-depth forward that matches the reference; and hold
-a captured forward to its eager step 0, bit for bit. The file imports
+fault below fails that comparison; on the CPU the block pools q, k and v
+through ``attention_pool``, and the q, k and v pooling kernel's launcher
+refuses what the kernel does not take before it needs a card. The ``gpu``
+tests hold ``pool_attn_fwd_kernel`` to the plain path at every block shape
+of MViTv2-B at 32x224^2, at B=2, and at the test variant's, and
+``pool_qkv_kernel`` to the three ``attention_pool`` calls at the same
+blocks in float32 and bfloat16; count 24 launches of each (one a block) in
+a full-depth forward that matches the reference; and hold a captured
+forward to its eager step 0, bit for bit. The file imports
 neither JAX nor the JAX package, so that it runs on a machine with a card:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_mvit.py -m gpu``.
 Without a card those tests skip."""
@@ -343,7 +347,7 @@ def test_reference_imports_nothing_of_the_port():
     script = ("import sys\n"
               "for name in ('jax', 'jaxlib', 'flax', 'optax', 'i2v_tpu', 'i2v_tpu_torch'):\n"
               "    sys.modules[name] = None\n"
-              "import port_bench.reference.mvit, port_bench.pool_attn\n")
+              "import port_bench.reference.mvit, port_bench.pool_attn, port_bench.pool_qkv\n")
     subprocess.run([sys.executable, "-c", script], cwd=REPO, check=True, timeout=300)
 
 
@@ -359,6 +363,100 @@ def test_benchmark_reads_the_kernel_by_its_name():
     names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
                        text)
     assert names == [bench_pool_attn.KERNEL]
+
+
+def test_benchmark_reads_the_pooling_kernel_by_its_name():
+    """``pool_qkv_ms_per_clip.mvit`` finds the q, k and v pooling kernel by
+    ``port_bench.pool_qkv.KERNEL``, the one ``__global__`` kernel of
+    ``csrc/pool_qkv.cu``; no conv class and no pooling-attention reader
+    counts it."""
+    from port_bench import pool_attn as bench_pool_attn
+    from port_bench import pool_qkv as bench_pool_qkv
+    from port_bench import trace
+
+    src = os.path.join(os.path.dirname(mvit.__file__), os.pardir, "csrc", "pool_qkv.cu")
+    with open(src) as f:
+        text = f.read()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                       text)
+    assert names == [bench_pool_qkv.KERNEL]
+    kernel = f"void (anonymous namespace)::{bench_pool_qkv.KERNEL}<float>(Args)"
+    assert trace.kernel_class(kernel) not in trace.CONV_CLASSES
+    assert bench_pool_attn.KERNEL not in kernel and "conv" not in kernel
+
+
+def test_block_pools_through_attention_pool_on_cpu(monkeypatch):
+    """Off the card each block pools q, k and v with three ``attention_pool``
+    calls (the kernel's oracle, which the planted faults patch), and the
+    skip's max-pool with a fourth where the block strides its queries; no
+    kernel launches."""
+    port, ref = _pair()
+    calls = []
+    pool = mvit.attention_pool
+
+    def counted(t, pool_fn, thw, norm=None):
+        calls.append(norm is not None)
+        return pool(t, pool_fn, thw, norm)
+
+    monkeypatch.setattr(mvit, "attention_pool", counted)
+    kernels.reset_launches()
+    x = _clip(CASES["built_for"])
+    assert _gap(port, ref, x) <= TOL
+    strided = sum(any(s > 1 for s in spec.stride_q) for spec in mvit.block_specs(mvit.TINY))
+    assert calls.count(True) == 3 * len(port.blocks) and calls.count(False) == strided == 3
+    assert kernels.launches["pool_qkv"] == 0 and kernels.launches["pool_attn"] == 0
+
+
+def _pool_args(dtype=torch.float32, device="cpu", heads=2, grid=(4, 4, 4)):
+    """A launch's arguments: qkv (2, 1 + T·H·W, 3, heads, 96), the weights, the
+    norms."""
+    gen = torch.Generator().manual_seed(7)
+    qkv = torch.randn(2, 1 + int(np.prod(grid)), 3, heads, 96, generator=gen).to(device, dtype)
+    weights = [(torch.randn(96, 1, 3, 3, 3, generator=gen) / 27).to(device, dtype)
+               for _ in range(3)]
+    norms = [(1 + 0.01 * torch.randn(96, generator=gen).to(device),
+              0.01 * torch.randn(96, generator=gen).to(device)) for _ in range(3)]
+    return qkv, grid, (1, 1, 1), (1, 2, 2), weights, norms, mvit.LN_EPS
+
+
+def _bad_pool_args(case):
+    qkv, grid, sq, skv, weights, norms, eps = _pool_args()
+    if case == "float64":
+        return TypeError, (qkv.double(), grid, sq, skv, [w.double() for w in weights], norms, eps)
+    if case == "weights_of_another_dtype":
+        return TypeError, (qkv, grid, sq, skv, [w.bfloat16() for w in weights], norms, eps)
+    if case == "bfloat16_norm":
+        return TypeError, (qkv, grid, sq, skv, weights,
+                           [(g.bfloat16(), b) for g, b in norms], eps)
+    if case == "not_contiguous":
+        return ValueError, (qkv.transpose(0, 1).contiguous().transpose(0, 1), grid, sq, skv,
+                            weights, norms, eps)
+    if case == "head_dim_64":
+        return ValueError, (qkv[..., :64].contiguous(), grid, sq, skv,
+                            [w[:64].contiguous() for w in weights], [(g[:64], b[:64])
+                                                                     for g, b in norms], eps)
+    if case == "grid_not_the_tokens":
+        return ValueError, (qkv, (4, 4, 3), sq, skv, weights, norms, eps)
+    if case == "kernel_5":
+        return ValueError, (qkv, grid, sq, skv, [torch.zeros(96, 1, 5, 5, 5)] * 3, norms, eps)
+    if case == "stride_0":
+        return ValueError, (qkv, grid, (1, 0, 1), skv, weights, norms, eps)
+    assert case == "on_the_cpu"
+    return ValueError, (qkv, grid, sq, skv, weights, norms, eps)
+
+
+@pytest.mark.parametrize("case", ["float64", "weights_of_another_dtype", "bfloat16_norm",
+                                  "not_contiguous", "head_dim_64", "grid_not_the_tokens",
+                                  "kernel_5", "stride_0", "on_the_cpu"])
+def test_pool_qkv_launcher_refuses_what_the_kernel_does_not_take(case):
+    """Each check raises before the launch, so on any host; a CPU tensor that
+    passes every other check is refused for its device: the wrapper never
+    falls back to the plain path."""
+    error, args = _bad_pool_args(case)
+    kernels.reset_launches()
+    with pytest.raises(error, match="pool_qkv"):
+        kernels.launch_pool_qkv(*args)
+    assert kernels.launches["pool_qkv"] == 0
 
 
 # -- on the card ------------------------------------------------------------
@@ -422,20 +520,102 @@ def test_kernel_refuses_autograd_and_bad_shapes_on_card(cuda):
         kernels.launch_pool_attn(q.double(), k, v, *terms)
 
 
+# the blocks of CARD_SHAPES as the pooling sees them (heads, input grid,
+# query stride, key/value stride) and the test variant's blocks 0 and 4
+POOL_SHAPES = {f"block{i}": mvit.block_specs(mvit.MVIT_V2_B)[i] for i in (0, 2, 3, 5, 6, 21, 22)}
+POOL_SHAPES.update({f"tiny{i}": mvit.block_specs(mvit.TINY)[i] for i in (0, 4)})
+
+
+def _pooling_inputs(spec, batch, device, seed, dtype=torch.float32):
+    """A block's attention module, its pooling convs drawn N(0, 1/27) and its
+    norms' weights 1 + N(0, 0.01), biases N(0, 0.01), in ``dtype`` as a
+    model of that compute dtype holds them; and qkv N(0, 1) in ``dtype``."""
+    from i2v_tpu_torch.models.common import set_compute_dtype
+
+    gen = torch.Generator().manual_seed(seed)
+    attn = mvit.MultiScaleAttention(spec, (3, 3, 3))
+    with torch.no_grad():
+        for conv in (attn.pool_q, attn.pool_k, attn.pool_v):
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) / 27 ** 0.5)
+        for norm in (attn.norm_q, attn.norm_k, attn.norm_v):
+            norm.weight.copy_(1 + 0.01 * torch.randn(96, generator=gen))
+            norm.bias.copy_(0.01 * torch.randn(96, generator=gen))
+    attn = set_compute_dtype(attn.to(device), dtype).requires_grad_(False)
+    qkv = torch.randn(batch, 1 + int(np.prod(spec.input_size)), 3, spec.heads, 96,
+                      device=device, generator=torch.Generator(device=device).manual_seed(seed))
+    return attn, qkv.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(POOL_SHAPES))
+def test_pooling_kernel_is_the_plain_pooling_on_card(cuda, shape):
+    """One launch pools q, k and v as the three ``attention_pool`` calls do,
+    float32 within 1e-5 (the same taps in the same order; the norms' sums in
+    another)."""
+    spec = POOL_SHAPES[shape]
+    attn, qkv = _pooling_inputs(spec, 2, cuda, sum(spec.input_size) + spec.heads)
+    kernels.reset_launches()
+    got = mvit.pool_qkv(qkv, attn, spec.input_size)
+    want = mvit.pool_qkv_plain(qkv, attn, spec.input_size)
+    torch.cuda.synchronize()
+    assert kernels.launches["pool_qkv"] == 1
+    assert got[3:] == want[3:]
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == torch.float32 and g.shape == w.shape and g.is_contiguous()
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["block0", "block2", "block21", "tiny4"])
+def test_pooling_kernel_in_bfloat16_on_card(cuda, shape):
+    """bfloat16 qkv and convs (``--control bf16``): the kernel sums the taps
+    in float32 in the conv's order and rounds each pooled value to bfloat16
+    before the norm, as the bfloat16 conv rounds its output, so both paths
+    normalise the same values: float32 out, within 1e-5 as in float32."""
+    spec = POOL_SHAPES[shape]
+    attn, qkv = _pooling_inputs(spec, 2, cuda, spec.heads, torch.bfloat16)
+    got = mvit.pool_qkv(qkv, attn, spec.input_size)
+    want = mvit.pool_qkv_plain(qkv, attn, spec.input_size)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_pooling_kernel_refuses_autograd_and_bad_inputs_on_card(cuda):
+    spec = POOL_SHAPES["tiny0"]
+    attn, qkv = _pooling_inputs(spec, 2, cuda, 0)
+    with pytest.raises(RuntimeError, match="forward only"):
+        mvit.pool_qkv(qkv.clone().requires_grad_(True), attn, spec.input_size)
+    weights = [c.weight for c in (attn.pool_q, attn.pool_k, attn.pool_v)]
+    norms = [(n.weight, n.bias) for n in (attn.norm_q, attn.norm_k, attn.norm_v)]
+    for bad, w, nrm in ((qkv.transpose(0, 1).contiguous().transpose(0, 1), weights, norms),
+                        (qkv[..., :64].contiguous(), [t[:64].contiguous() for t in weights],
+                         [(g[:64], b[:64]) for g, b in norms])):
+        with pytest.raises(ValueError, match="pool_qkv"):
+            kernels.launch_pool_qkv(bad, spec.input_size, spec.stride_q, spec.stride_kv, w,
+                                    nrm, mvit.LN_EPS)
+
+
 @pytest.mark.gpu
 def test_full_depth_forward_on_card(cuda, monkeypatch):
-    """24 launches (one a block) in one eager forward, each over its block's
-    (clips, heads, 1 + Nq, 1 + Nk), and no call of the plain path, the only
-    code that builds a (queries × keys) tensor; its logits against the
-    reference's on the same weights (float32 rounding through 24 blocks, TF32
-    off); then the graphed evaluation forward replays its eager step 0 bit
-    for bit."""
+    """24 launches of each kernel (one a block) in one eager forward, the
+    attention's each over its block's (clips, heads, 1 + Nq, 1 + Nk), and no
+    call of either plain path (the attention's is the only code that builds a
+    (queries × keys) tensor); its logits against the reference's on the same
+    weights (float32 rounding through 24 blocks, TF32 off); then the graphed
+    evaluation forward replays its eager step 0 bit for bit."""
     from i2v_tpu_torch.parallel.replicas import replicas_for
 
     def scores_built(*a):
         raise AssertionError("the plain attention ran on the card")
 
+    def pooled_plainly(*a):
+        raise AssertionError("the plain q, k and v pooling ran on the card")
+
     monkeypatch.setattr(mvit, "pool_attention_plain", scores_built)
+    monkeypatch.setattr(mvit, "pool_qkv_plain", pooled_plainly)
     plans = []
     launch = kernels.launch_pool_attn
 
@@ -454,7 +634,7 @@ def test_full_depth_forward_on_card(cuda, monkeypatch):
     with torch.inference_mode():
         eager = bundle.apply_norm(x).clone()
         want = ref(x)
-    assert kernels.launches["pool_attn"] == 24
+    assert kernels.launches["pool_attn"] == kernels.launches["pool_qkv"] == 24
     assert plans == [(h, 1 + int(np.prod(q)), 1 + int(np.prod(k))) for h, q, k in PUBLISHED_GRIDS]
     gap = float((eager - want).abs().max() / want.std())
     assert gap <= 1e-4, gap
@@ -466,4 +646,4 @@ def test_full_depth_forward_on_card(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert torch.equal(step0, eager) and torch.equal(replayed, step0) and torch.equal(again, step0)
     # the eager forward, step 0 and two replays; the capture counts nothing
-    assert kernels.launches["pool_attn"] == 4 * 24
+    assert kernels.launches["pool_attn"] == kernels.launches["pool_qkv"] == 4 * 24
