@@ -209,6 +209,16 @@ raises and the script exits non-zero:
                  24 pool_attn and 24 pool_qkv launches a forward, eager and
                  replayed, no other kernel; logits within MVIT_LOGIT_TOL of
                  those with both plain paths
+ 34. uniformer — the depthwise 3-D conv (dwconv3d) against its plain path
+                 (the grouped conv) at B=16 at each of UniFormer-B's stage
+                 shapes, timed beside its bound (FLOPs or bytes), its plain
+                 path and aten's conv_depthwise3d alone; SDPA's memory-
+                 efficient backend at 5 heads x 3136^2 x 64 (B=16) against
+                 the plain attention, and its time; then the same as
+                 swin for full-width UniFormer-B (--models uniformer_b): 53
+                 dwconv3d launches a forward, eager and replayed, no other
+                 kernel; logits within UNIFORMER_LOGIT_TOL of those with both
+                 plain paths
 Phase 3 also holds K1/K2 to their plain versions at the chunked runner's
 shapes: a 512-frame call (B=16), a 128-frame chunk that starts 128 frames
 into a 512-frame modifier, and a 112² call (multigrid's coarse phase).
@@ -218,7 +228,8 @@ data's ENS, twin, BIM and UCF-101 runs, zoo + gradcam's DenseNet and ViT
 runs, Grad-CAM, evaluation and grid, bf16's ENS, evaluations and
 mu_dtype AENS, multi-device's mesh runner, --model_parallel runs,
 model-axis AENS, evaluations and white-box mesh BIM, every compiled loops
-case, eager and graphed, and swin's and mvit's evaluations; converters, which launches
+case, eager and graphed, and swin's, mvit's and uniformer's evaluations; converters, which
+launches
 none) is driven
 with the launch counters set to 0 just before it and read just after; the
 two launched processes of multi-device and the measurement tools'
@@ -262,9 +273,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # the launch counters of i2v_tpu_torch.ops.kernels: K1-K3, the conv epilogue,
 # Swin-B's window attention, MViTv2-B's pooling attention and its q, k and v
-# pooling
+# pooling, UniFormer-B's depthwise convs
 K1_TO_K3 = ("rebuild_fwd", "rebuild_bwd", "sign_step")
-COUNTED = K1_TO_K3 + ("bias_act", "window_attn", "pool_attn", "pool_qkv")
+COUNTED = K1_TO_K3 + ("bias_act", "window_attn", "pool_attn", "pool_qkv", "dwconv3d")
 # the conv epilogue's launches in one forward of each full-width video model,
 # one a conv: I3D's stem, bottlenecks and five non-local blocks of four convs;
 # SlowFast's two stems, four laterals and both pathways' bottlenecks; TPN's
@@ -334,6 +345,27 @@ POOL_QKV_TOL = (1e-5, 1e-5)
 # the logits' std: float32 rounding through 24 blocks (the benchmark's
 # logit_gap against the reference reads ~6e-6 on the card; TF32 gives 3.4e-3)
 MVIT_LOGIT_TOL = 1e-4
+# UniFormer-B's depthwise convs at B=16 over 32x224^2, each stage's shapes:
+# (label, kernel, channels, (T, H, W) grid, launches a forward); 53 in all
+DWCONV3D_SHAPES = (("stage 1 DPE", 3, 64, (16, 56, 56), 5),
+                   ("stage 1 local", 5, 64, (16, 56, 56), 5),
+                   ("stage 2 DPE", 3, 128, (16, 28, 28), 8),
+                   ("stage 2 local", 5, 128, (16, 28, 28), 8),
+                   ("stage 3 DPE", 3, 320, (16, 14, 14), 20),
+                   ("stage 4 DPE", 3, 512, (16, 7, 7), 7))
+DWCONV3D_BATCH, DWCONV3D_ITERS = 16, 10
+# kernel vs plain path, |got - want| <= atol + rtol·|want|: the same taps in
+# the same order, the residual and bias added in another (outputs of scale ~1)
+DWCONV3D_TOL = (1e-5, 1e-5)
+UNIFORMER_LAUNCHES = 53   # a DPE a block and a 5^3 a conv block
+# UniFormer-B's global attention at B=16: heads, tokens, head dim (stage 3)
+SDPA_SHAPE, SDPA_ITERS = (5, 3136, 64), 5
+# SDPA vs the plain attention, max |diff|: both float32 (the memory-efficient
+# kernel's products in 3xTF32 on the tensor cores), softmax sums over 3136 keys
+SDPA_TOL = 1e-4
+# UniFormer-B's logits with the kernel and SDPA against both plain paths, max
+# |diff| over the logits' std: float32 rounding through 40 blocks
+UNIFORMER_LOGIT_TOL = 1e-4
 SF_FAST_STRIDE = 2         # SlowFast-R50's fast pathway samples every 2nd frame
 AENS_CLIPS, AENS_STEPS = 2, 10
 AENS_MOMENTUM = 0.8        # > 0, so that carried-over coefficients show in clip 2
@@ -1224,7 +1256,7 @@ def _fused_want(clips: int, steps: int) -> dict:
     clip at B=1: K1/K2 as :func:`_want`, the epilogue in the surrogates'
     clean-tap forward and step forwards of each clip and in the video
     models' forward of it, no window or pooling attention."""
-    return dict(_want(clips, steps), window_attn=0, pool_attn=0, pool_qkv=0,
+    return dict(_want(clips, steps), window_attn=0, pool_attn=0, pool_qkv=0, dwconv3d=0,
                 bias_act=clips * (ENS_EPILOGUES * (steps + 1) + SIX_EPILOGUES))
 
 
@@ -3969,7 +4001,7 @@ def phase_swin(kernels, evaluate_cli, get_video_model, run_dir: str) -> dict:
     counts = dict(kernels.launches)
     forwards = 2 * len(files)
     want = {"window_attn": SWIN_BLOCKS * forwards, "rebuild_fwd": 0, "rebuild_bwd": 0,
-            "sign_step": 0, "bias_act": 0, "pool_attn": 0, "pool_qkv": 0}
+            "sign_step": 0, "bias_act": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0}
     if _of(counts, want) != want or graphs.captures["graphs"] != captured + 1:
         raise RuntimeError(f"swin: launch counts {counts}, expected {want}; "
                            f"{graphs.captures['graphs'] - captured} capture(s), expected 1")
@@ -4138,6 +4170,179 @@ def phase_mvit(kernels, evaluate_cli, get_video_model, run_dir: str) -> tuple:
     return counts, pooling
 
 
+def _dwconv3d(kernels) -> dict:
+    """UniFormer-B's depthwise 3-D convs: the kernel (``uniformer.dwconv3d``)
+    against its plain path (``uniformer.dwconv3d_plain``: the grouped conv on
+    an NCDHW view, the residual added) at DWCONV3D_SHAPES, B=16, within
+    DWCONV3D_TOL, one launch each; then timed in turns with the plain path and
+    aten's conv alone (on an NCDHW tensor: ``conv_depthwise3d``), beside its
+    bound: the larger of 2·k³ FLOPs an output over F32_OPS_PER_S and x and
+    out moved once over HBM_BYTES_PER_S. Sums over a forward's 53 launches
+    a clip."""
+    import torch.nn.functional as F
+
+    from i2v_tpu_torch.models import uniformer
+
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    b, err, facts = DWCONV3D_BATCH, 0.0, []
+    forward = {"kernel": 0.0, "plain": 0.0, "aten": 0.0, "bound": 0.0}
+    for label, k, dim, thw, count in DWCONV3D_SHAPES:
+        conv = uniformer.depthwise(dim, k).cuda().requires_grad_(False)
+        with torch.no_grad():
+            conv.weight.normal_(0, k ** -1.5, generator=gen)
+            conv.bias.normal_(0, 0.01, generator=gen)
+        residual = k == 3
+        n = math.prod(thw)
+        x = torch.randn(b, n, dim, device="cuda", generator=gen)
+        kernels.reset_launches()
+        got = uniformer.dwconv3d(x, thw, conv, residual)
+        want = uniformer.dwconv3d_plain(x, thw, conv, residual)
+        rtol, atol = DWCONV3D_TOL
+        diff = (got - want).abs()
+        if kernels.launches["dwconv3d"] != 1 or got.shape != want.shape \
+                or not got.isfinite().all() or (diff > atol + rtol * want.abs()).any():
+            raise RuntimeError(f"dwconv3d differs from its plain path at {label}: launches "
+                               f"{kernels.launches['dwconv3d']}, max |diff| "
+                               f"{float(diff.max()):.3g}")
+        err = max(err, float(diff.max()))
+        del got, want, diff
+        grid = x.transpose(1, 2).reshape(b, dim, *thw).contiguous()
+        fns = [lambda: uniformer.dwconv3d(x, thw, conv, residual),
+               lambda: uniformer.dwconv3d_plain(x, thw, conv, residual),
+               lambda: F.conv3d(grid, conv.weight, conv.bias, padding=k // 2, groups=dim)]
+        first_turn = [_time_ms(f, DWCONV3D_ITERS) for f in fns]
+        second_turn = [_time_ms(f, DWCONV3D_ITERS) for f in reversed(fns)][::-1]
+        ms = [(p + q) / 2 for p, q in zip(first_turn, second_turn)]
+        flops, nbytes = 2 * k ** 3 * dim * n * b, 2 * dim * n * b * 4
+        bound = max(flops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        for key, v in zip(("kernel", "plain", "aten", "bound"), (*ms, bound)):
+            forward[key] += count * v / b
+        facts.append(f"{label} ({k}^3, C {dim}, {thw}): kernel {ms[0]:.4f} ms "
+                     f"({first_turn[0]:.4f}, {second_turn[0]:.4f}), bound {bound:.4f} ms by "
+                     f"{'FLOPs' if flops / F32_OPS_PER_S > nbytes / HBM_BYTES_PER_S else 'bytes'}"
+                     f" ({bound / ms[0]:.1%} of it), plain {ms[1]:.4f}, aten's conv "
+                     f"{ms[2]:.4f} ({ms[2] / ms[0]:.2f}x the kernel)")
+        del x, grid, fns
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    print(f"[uniformer] dwconv3d within {DWCONV3D_TOL} (rtol, atol) of its plain path (max "
+          f"|diff| {err:.3g}) at B={b}: " + "; ".join(facts) + f"; a forward's "
+          f"{UNIFORMER_LAUNCHES} launches a clip: kernel {forward['kernel']:.4f} ms, bound "
+          f"{forward['bound']:.4f} ms ({forward['bound'] / forward['kernel']:.1%}), aten's conv "
+          f"{forward['aten']:.4f} ms ({forward['aten'] / forward['kernel']:.2f}x), plain path "
+          f"{forward['plain']:.4f} ms", flush=True)
+    return {"err": err, "times": (forward["kernel"], forward["plain"]),
+            "bound": (forward["bound"], f"a forward's {UNIFORMER_LAUNCHES} launches a clip"),
+            "library": forward["aten"]}
+
+
+def _sdpa() -> None:
+    """UniFormer-B's stage-3 attention at B=16 (SDPA_SHAPE, q, k and v read
+    from a qkv tensor as the model views them): SDPA pinned to its
+    memory-efficient backend (``sdpa_kernel`` raises where that backend
+    cannot run the call) against the plain attention
+    (``uniformer.global_attention_plain``) within SDPA_TOL, and its device
+    ms. The benchmark's trace names its kernel."""
+    from i2v_tpu_torch.models import uniformer
+
+    heads, n, hd = SDPA_SHAPE
+    b = DWCONV3D_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    qkv = torch.randn(b, n, 3, heads, hd, device="cuda", generator=gen)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    got = uniformer.global_attention(q, k, v)
+    want = uniformer.global_attention_plain(q, k, v)
+    err = float((got - want).abs().max())
+    if not err <= SDPA_TOL:
+        raise RuntimeError(f"SDPA differs from the plain attention by {err:.3g}")
+    del got, want
+    fns = [lambda: uniformer.global_attention(q, k, v),
+           lambda: uniformer.global_attention_plain(q, k, v)]
+    first_turn = [_time_ms(f, SDPA_ITERS) for f in fns]
+    second_turn = [_time_ms(f, SDPA_ITERS) for f in reversed(fns)][::-1]
+    ms = [(p + r) / 2 for p, r in zip(first_turn, second_turn)]
+    flops = 4 * b * heads * n * n * hd
+    print(f"[uniformer] SDPA (memory-efficient backend) at B={b}, {heads} heads x {n}^2 x {hd}: "
+          f"within {err:.3g} of the plain attention; {ms[0]:.4f} ms "
+          f"({first_turn[0]:.4f}, {second_turn[0]:.4f}; {flops / ms[0] / 1e9:.1f} TFLOP/s, "
+          f"{ms[0] / b:.4f} ms a clip a block), plain attention {ms[1]:.4f} ms", flush=True)
+    del qkv, q, k, v, fns
+    torch.cuda.empty_cache()
+
+
+def phase_uniformer(kernels, evaluate_cli, get_video_model, run_dir: str) -> tuple:
+    """Full-width UniFormer-B over the slice's adversarial clips through the
+    evaluation CLI (``--models uniformer_b``) at batch 1, serially and then
+    in one pass, the model built once, as :func:`phase_mvit` runs MViTv2-B:
+    one capture; each forward launches the depthwise conv kernel 53 times
+    and no other kernel; the two reports are identical and of the one
+    model's schema; the card's logits of the clips lie within
+    UNIFORMER_LOGIT_TOL of those with both plain paths (the grouped conv and
+    the plain attention). First the conv kernel alone (:func:`_dwconv3d`)
+    and SDPA (:func:`_sdpa`). Returns the launch counts and the conv's
+    measurements."""
+    import argparse
+
+    from i2v_tpu_torch.cli import common as cli_common
+    from i2v_tpu_torch.models import uniformer
+    from i2v_tpu_torch.utils import artifacts, graphs
+
+    t0 = time.time()
+    cli_common.apply_matmul_precision(argparse.Namespace(matmul_precision="float32"))
+    conv = _dwconv3d(kernels)
+    _sdpa()
+    bundle = get_video_model("uniformer_b", device="cuda")
+    files = artifacts.list_adv_files(run_dir)
+    captured = graphs.captures["graphs"]
+    kernels.reset_launches()
+    reports, rates = {}, {}
+    for mode in ("serial", "single pass"):
+        argv = ["--adv_path", run_dir, "--device", "cuda", "--matmul_precision", "float32",
+                "--models", "uniformer_b", "--batch_size", "1"]
+        args = evaluate_cli.arg_parse(argv + (["--single_pass"] if mode == "single pass" else []))
+        acc = evaluate_cli.run(args, get_bundle=lambda name: bundle)
+        with open(os.path.join(run_dir, REPORT_CSV)) as f:
+            reports[mode] = (f.read(), acc)
+        rates[mode] = next(iter(args.throughput.values()))["clips_per_sec"]
+    counts = dict(kernels.launches)
+    forwards = 2 * len(files)
+    want = dict(dict.fromkeys(COUNTED, 0), dwconv3d=UNIFORMER_LAUNCHES * forwards)
+    if counts != want or graphs.captures["graphs"] != captured + 1:
+        raise RuntimeError(f"uniformer: launch counts {counts}, expected {want}; "
+                           f"{graphs.captures['graphs'] - captured} capture(s), expected 1")
+    if reports["serial"] != reports["single pass"]:
+        raise RuntimeError(f"uniformer: serial and single-pass reports differ: {reports}")
+    rows = reports["serial"][0].split("\n")
+    if rows[0] != "gt_label,uniformer_b-pre" or len(rows) != 402 \
+            or list(reports["serial"][1]) != ["uniformer_b"]:
+        raise RuntimeError(f"uniformer: reports off the schema: {rows[:3]}…, {len(rows)} lines")
+
+    clips, _ = artifacts.load_adv_batch(run_dir, files)
+    x = torch.from_numpy(clips).cuda()
+    with torch.inference_mode():
+        logits = bundle.apply_norm(x).float()
+        fast = uniformer.dwconv3d, uniformer.global_attention
+        uniformer.dwconv3d = uniformer.dwconv3d_plain
+        uniformer.global_attention = uniformer.global_attention_plain
+        try:
+            plain = bundle.apply_norm(x).float()
+        finally:
+            uniformer.dwconv3d, uniformer.global_attention = fast
+    gap = float((logits - plain).abs().max() / plain.std())
+    if not gap <= UNIFORMER_LOGIT_TOL:
+        raise RuntimeError(f"uniformer: logits with the kernel and SDPA off those with the plain "
+                           f"paths by {gap:.3g} of their std (limit {UNIFORMER_LOGIT_TOL})")
+    print(f"[uniformer] UniFormer-B at full width (32x224^2, 400 classes, random weights, TF32 "
+          f"off) over {len(files)} adversarial clips at batch 1: serial {rates['serial']:.3f} "
+          f"clips/s (the first forward eager, the second captured), single pass "
+          f"{rates['single pass']:.3f} clips/s (replayed); one capture; launches {counts} "
+          f"({UNIFORMER_LAUNCHES} a forward over {forwards}); reports identical, top-1 "
+          f"{reports['serial'][1]}; logits with the kernel and SDPA vs the plain paths "
+          f"{gap:.3g} of their std (limit {UNIFORMER_LOGIT_TOL}); phase wall "
+          f"{time.time() - t0:.2f} s", flush=True)
+    return counts, conv
+
+
 def main() -> None:
     name, card = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4205,12 +4410,15 @@ def main() -> None:
         loops = phase_compiled_loops(kernels, synthetic, pixel, card, tmp)
         swin = phase_swin(kernels, evaluate_cli, get_video_model, slice_dir)
         multiscale, pooling = phase_mvit(kernels, evaluate_cli, get_video_model, slice_dir)
+        hybrid, local = phase_uniformer(kernels, evaluate_cli, get_video_model, slice_dir)
         for key in ("err", "times", "library"):
             measured[key]["pool_qkv"] = pooling[key]
+            measured[key]["dwconv3d"] = local[key]
         measured["bounds"]["pool_qkv"] = pooling["bound"]
+        measured["bounds"]["dwconv3d"] = local["bound"]
         for k in counts:
             counts[k] += (real[k] + zoo[k] + bf16[k] + multi[k] + measured_tools[k] + loops[k]
-                          + swin[k] + multiscale[k])
+                          + swin[k] + multiscale[k] + hybrid[k])
     print(f"[done] every phase passed in {time.time() - t0:.2f} s after the device check")
 
     where = {"rebuild_fwd": ("i2v_tpu_torch/csrc/rebuild_adv.cu",
@@ -4225,7 +4433,9 @@ def main() -> None:
              "window_attn": ("i2v_tpu_torch/csrc/window_attn.cu", None),
              # nor an MViT
              "pool_attn": ("i2v_tpu_torch/csrc/pool_attn.cu", None),
-             "pool_qkv": ("i2v_tpu_torch/csrc/pool_qkv.cu", None)}
+             "pool_qkv": ("i2v_tpu_torch/csrc/pool_qkv.cu", None),
+             # nor a UniFormer
+             "dwconv3d": ("i2v_tpu_torch/csrc/dwconv3d.cu", None)}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": counts[k],
          "max_abs_err": measured["err"][k], "ms": measured["times"][k][0],
@@ -4237,7 +4447,8 @@ def main() -> None:
          # mask at Swin-B's unshifted stage-1 blocks, B=16, pooling
          # attention's with the relative terms as its mask and the residual
          # added at MViTv2-B's blocks 0-1, B=16; no single call pools q, k
-         # and v
+         # and v; the depthwise convs' yardstick is aten's grouped conv
+         # (conv_depthwise3d) over a forward's 53 launches at B=16, a clip
          "library_ms": measured["library"].get(k)}
         for k, (src, rep) in where.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

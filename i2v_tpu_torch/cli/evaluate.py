@@ -3,8 +3,8 @@
     python -m i2v_tpu_torch.cli.evaluate --adv_path <run-dir-or-name>
 
 Runs every ``*adv*.npy`` artifact of the run directory through the six video
-models (or ``--models``, which may name Video Swin-B, ``swin3d_b``, and
-MViTv2-B, ``mvit_v2_b``) and
+models (or ``--models``, which may name Video Swin-B, ``swin3d_b``,
+MViTv2-B, ``mvit_v2_b``, and UniFormer-B, ``uniformer_b``) and
 writes ``results_all_models_prediction.csv`` and
 ``top1_acc_all_models.json`` into it, with the JAX CLI's schemas. Attack
 success rate = 100 − top-1. ``--bf16`` builds the models to compute in
@@ -32,7 +32,8 @@ def arg_parse(argv=None, n_classes: int = 400):
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--models", nargs="*", default=None,
                    help="video models to evaluate (default: the reference's six; "
-                        "swin3d_b, Video Swin-B, and mvit_v2_b, MViTv2-B, only where named)")
+                        "swin3d_b, Video Swin-B, mvit_v2_b, MViTv2-B, and uniformer_b, "
+                        "UniFormer-B, only where named)")
     p.add_argument("--ucf101", action="store_true")
     p.add_argument("--tiny", action="store_true",
                    help="width-reduced video models (checkpoint-free runs)")

@@ -269,8 +269,8 @@ def evaluate_run(
     log=print,
 ) -> dict:
     """Evaluate a run directory against the video models (default: the
-    reference's six, ``VIDEO_MODEL_NAMES``; ``swin3d_b`` and ``mvit_v2_b``
-    where named) and
+    reference's six, ``VIDEO_MODEL_NAMES``; ``swin3d_b``, ``mvit_v2_b`` and
+    ``uniformer_b`` where named) and
     write the two reports into it. Returns ``{model: top1}``.
 
     ``dtype`` is the models' compute dtype. ``get_bundle(name)`` supplies a

@@ -32,7 +32,9 @@ layout, ``backbone.*`` and ``cls_head.fc_cls.*``) onto the port's
 :mod:`.swin3d` names, which the video registry lays over the random init
 from ``{I2V_TPU_CKPTS}/swin3d_b.pth``; ``convert_mvit`` maps PySlowFast's
 MViTv2 checkpoint (``model_state``) onto :mod:`.mvit`, from
-``{I2V_TPU_CKPTS}/mvit_v2_b.pyth``.
+``{I2V_TPU_CKPTS}/mvit_v2_b.pyth``; ``convert_uniformer`` maps Sense-X's
+UniFormer checkpoint onto :mod:`.uniformer`, from
+``{I2V_TPU_CKPTS}/uniformer_b.pth``.
 
 The checkpoint converters are here too, the counterparts of
 ``i2v_tpu.models.convert`` without flax: ``convert_resnet``,
@@ -68,6 +70,7 @@ import torch
 import torch.nn as nn
 
 from . import checkpoint
+from .uniformer import UNIFORMER_B
 
 BN_EPS = 1e-5
 FROM_JAX_MODES = ("strict", "subset", "overlay")
@@ -463,6 +466,50 @@ def convert_mvit(sd: Mapping) -> dict:
         if not name.startswith(MVIT_KEYS):
             raise KeyError(f"{key!r} is not a key of an MViTv2 checkpoint")
         out[name] = torch.as_tensor(value).float()
+    return out
+
+
+# the top-level names of Sense-X's UniFormer keys that the port's module has
+UNIFORMER_KEYS = tuple(f"{k}{s}." for k in ("patch_embed", "blocks") for s in range(1, 5)) + (
+    "norm.", "head.")
+BN_STATS = ("running_mean", "running_var")
+
+
+def convert_uniformer(sd: Mapping) -> dict:
+    """Sense-X's UniFormer checkpoint (a state dict, or its training code's
+    save with the state dict under ``model_state``, optionally with the
+    ``module.`` prefix of a data-parallel save) → the port's
+    :mod:`.uniformer` names, which are Sense-X's:
+    ``patch_embed{1..4}.{proj,norm}``, ``blocks{1,2}.{i}.{pos_embed,norm1,
+    conv1,attn,conv2,norm2,mlp.fc1,mlp.fc2}``, ``blocks{3,4}.{i}.{pos_embed,
+    norm1,attn.qkv,attn.proj,norm2,mlp.fc1,mlp.fc2}``, ``norm`` and
+    ``head``. Each eval-mode BatchNorm3d (a module with running statistics)
+    becomes its affine, ``weight`` γ/√(σ²+ε) and ``bias`` β − μ·γ/√(σ²+ε)
+    (which the model folds into the linear after it); each 1×1×1 conv
+    weight (O, I, 1, 1, 1) becomes the linear's (O, I). Values come back as
+    float32 tensors; a key of another model raises."""
+    sd = sd.get("model_state", sd)
+    out, stats = {}, {}
+    for key, value in sd.items():
+        name = key[len("module."):] if key.startswith("module.") else key
+        if not name.startswith(UNIFORMER_KEYS):
+            raise KeyError(f"{key!r} is not a key of a UniFormer checkpoint")
+        value = torch.as_tensor(value)
+        prefix, leaf = name.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in BN_STATS:
+            stats.setdefault(prefix, {})[leaf] = value.double()
+            continue
+        value = value.float()
+        if value.dim() == 5 and tuple(value.shape[2:]) == (1, 1, 1):
+            value = value.reshape(value.shape[:2])
+        out[name] = value
+    for prefix, s in stats.items():
+        gamma, beta = out[f"{prefix}.weight"].double(), out[f"{prefix}.bias"].double()
+        scale = gamma / torch.sqrt(s["running_var"] + UNIFORMER_B["batch_norm_eps"])
+        out[f"{prefix}.weight"] = scale.float()
+        out[f"{prefix}.bias"] = (beta - s["running_mean"] * scale).float()
     return out
 
 

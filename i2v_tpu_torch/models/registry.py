@@ -41,6 +41,7 @@ from . import densenet as _densenet
 from . import mvit as _mvit
 from . import resnet as _resnet
 from . import swin3d as _swin3d
+from . import uniformer as _uniformer
 from . import vgg as _vgg
 from . import vit as _vit
 from .api import ImageModel
@@ -126,8 +127,9 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     of std 0.02 (the published init), and its bias-free merging linears no
     bias; MViT's class token and relative-position tables a truncated normal
     of std 0.02 (PySlowFast's init), and its bias-free pooling convs no
-    bias. The draws are float32 whatever the weights' dtype, so
-    that a bfloat16 module gets its float32 twin's weights, rounded."""
+    bias; UniFormer's frozen BatchNorms ones and zeros. The draws are
+    float32 whatever the weights' dtype, so that a bfloat16 module gets its
+    float32 twin's weights, rounded."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
@@ -140,6 +142,9 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                     nn.init.zeros_(m.bias)
             elif isinstance(m, _densenet.FrozenBN):
                 nn.init.ones_(m.scale)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, _uniformer.FrozenBatchNorm):
+                nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
             elif isinstance(m, nn.LayerNorm):
                 nn.init.ones_(m.weight)

@@ -1,7 +1,8 @@
 """Video-model registry: the reference's six model names (utils.py:8-15),
-their builders and tap tables, and Video Swin-B (``swin3d_b``) and MViTv2-B
-(``mvit_v2_b``), transfer targets the reference does not have: each is
-evaluated only where it is named (the six are ``utils.VIDEO_MODEL_NAMES``).
+their builders and tap tables, and Video Swin-B (``swin3d_b``), MViTv2-B
+(``mvit_v2_b``) and UniFormer-B (``uniformer_b``), transfer targets the
+reference does not have: each is evaluated only where it is named (the six
+are ``utils.VIDEO_MODEL_NAMES``).
 
 PyTorch counterpart of :mod:`i2v_tpu.models.video_zoo`: I3D, SlowFast and
 TPN, each at ResNet-50 and ResNet-101 depth. Swin-B's weights come from
@@ -10,7 +11,10 @@ TPN, each at ResNet-50 and ResNet-101 depth. Swin-B's weights come from
 :func:`.convert.convert_swin3d`, and MViTv2-B's from
 ``{I2V_TPU_CKPTS}/mvit_v2_b.pyth``, PySlowFast's Kinetics-400 checkpoint
 of MViTv2-B 32×3 (renamed) mapped by
-:func:`.convert.convert_mvit`, each laid over the random init as below.
+:func:`.convert.convert_mvit`, and UniFormer-B's from
+``{I2V_TPU_CKPTS}/uniformer_b.pth``, Sense-X's Kinetics-400 checkpoint of
+UniFormer-B 32×4 (renamed) mapped by :func:`.convert.convert_uniformer`, each
+laid over the random init as below.
 Weights of the six: a full-width model loads
 ``{I2V_TPU_CKPTS}/{name}[_ucf101].msgpack``, the JAX package's
 checkpoint converted from gluoncv (Flax msgpack, read by :mod:`.checkpoint`
@@ -32,11 +36,11 @@ import warnings
 
 import torch
 
-from . import i3d, mvit, slowfast, swin3d, tpn
+from . import i3d, mvit, slowfast, swin3d, tpn, uniformer
 from .api import VideoModel
 from .common import check_dtype_on_device, set_compute_dtype
-from .convert import (checkpoint_path, convert_mvit, convert_swin3d, from_jax_params,
-                      load_params, missing_modules)
+from .convert import (checkpoint_path, convert_mvit, convert_swin3d, convert_uniformer,
+                      from_jax_params, load_params, missing_modules)
 from .registry import random_init_
 
 VIDEO_BUILDERS = {
@@ -48,6 +52,7 @@ VIDEO_BUILDERS = {
     "tpn_resnet101": tpn.tpn_resnet101,
     "swin3d_b": swin3d.swin3d_b,
     "mvit_v2_b": mvit.mvit_v2_b,
+    "uniformer_b": uniformer.uniformer_b,
 }
 TINY_BUILDERS = {
     "i3d_resnet50": i3d.i3d_tiny,
@@ -58,6 +63,7 @@ TINY_BUILDERS = {
     "tpn_resnet101": tpn.tpn_tiny,
     "swin3d_b": swin3d.swin3d_tiny,
     "mvit_v2_b": mvit.mvit_tiny,
+    "uniformer_b": uniformer.uniformer_tiny,
 }
 
 # per-architecture target layers (reference: base_attacks.py:737-743)
@@ -67,6 +73,7 @@ TAP_TAPS = {
     "tpn": ("layer1", "layer2"),
     "swin3d": ("stage1", "stage2"),
     "mvit": ("stage1", "stage2"),
+    "uniformer": ("stage1", "stage2"),
 }
 # ILAF mid-layers (reference: image_attacks.py:513-519)
 ILAF_TAPS = {
@@ -75,6 +82,7 @@ ILAF_TAPS = {
     "tpn": ("layer2",),
     "swin3d": ("stage2",),
     "mvit": ("stage2",),
+    "uniformer": ("stage2",),
 }
 
 
@@ -157,4 +165,5 @@ def _published_checkpoint(ext: str, convert):
 
 # the models whose checkpoint is not the JAX package's msgpack, and its loader
 CHECKPOINT_LOADERS = {"swin3d_b": _published_checkpoint(".pth", convert_swin3d),
-                      "mvit_v2_b": _published_checkpoint(".pyth", convert_mvit)}
+                      "mvit_v2_b": _published_checkpoint(".pyth", convert_mvit),
+                      "uniformer_b": _published_checkpoint(".pth", convert_uniformer)}

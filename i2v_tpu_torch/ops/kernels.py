@@ -54,12 +54,22 @@ package has no MViT. The CUDA kernel is ``csrc/pool_qkv.cu``; it computes in
 float32 on the CUDA cores, and counts in ``launches["pool_qkv"]`` as
 ``pool_attn`` does.
 
+``launch_dwconv3d(x, thw, weight, bias, residual)`` — UniFormer's depthwise
+3-D convs (:mod:`i2v_tpu_torch.models.uniformer`): ``(x +) bias + Σ w·x``
+over k³ taps (k 3 or 5, stride 1, zero padding k // 2) of a token-major
+(clips, T·H·W, C) grid, written in the same layout, forward only: the DPE of
+every block with its residual, and the conv blocks' 5³ local affinity.
+Replaces no Pallas kernel: the JAX package has no UniFormer. The CUDA kernel
+is ``csrc/dwconv3d.cu``; it computes in float32 on the CUDA cores, and counts
+in ``launches["dwconv3d"]`` as ``pool_attn`` does.
+
 Each source is built with ``nvcc`` for sm_90a at first use (:mod:`._build`).
 The first four kernels are elementwise and bound by device-memory bytes (12,
 16, 16, and 8 or 12 bytes an element); each makes one pass with 16-byte
 vector accesses where the shapes and pointers allow; window and pooling
 attention are bound by float32 arithmetic, the pooling of q, k and v by
-bytes; the sources say more.
+bytes, the depthwise convs by bytes at k = 3 and by arithmetic at k = 5; the
+sources say more.
 
 Dispatch: a tensor on the CPU takes the plain version in
 :mod:`i2v_tpu_torch.ops.pixel`; a CUDA tensor launches the kernel or raises.
@@ -85,7 +95,7 @@ import torch
 from . import _build, pixel
 
 launches = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0, "bias_act": 0,
-            "window_attn": 0, "pool_attn": 0, "pool_qkv": 0}
+            "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0}
 # K2 launches from the autograd engine's thread of each card, so the counts
 # take a lock: ``+=`` on a dict entry is a read, an add and a write
 _launches_lock = threading.Lock()
@@ -150,6 +160,9 @@ SOURCES = {
     },
     "pool_qkv": {
         "pool_qkv_fwd": [_PTR] * 13 + [_N] + [_I] * 10 + [_F32, _I, _PTR],
+    },
+    "dwconv3d": {
+        "dwconv3d_fwd": [_PTR] * 4 + [_N] + [_I] * 7 + [_PTR],
     },
 }
 
@@ -528,3 +541,45 @@ def launch_pool_qkv(qkv: torch.Tensor, thw, stride_q, stride_kv, weights, norms,
     _raise_on(err, name)
     count_launch(name)
     return (*outs, *grids)
+
+
+# the dtypes the depthwise conv kernel takes, and the code its C entry point reads
+DWCONV3D_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DWCONV3D_KERNELS = (3, 5)
+DWCONV3D_CHANNELS = 32   # C is a whole number of the kernel's 32-channel slices
+
+
+def launch_dwconv3d(x: torch.Tensor, thw, weight: torch.Tensor, bias: torch.Tensor,
+                    residual: bool) -> torch.Tensor:
+    """UniFormer's depthwise 3-D conv on the card: x (clips, T·H·W, C),
+    float32 or bfloat16, the tokens of the (T, H, W) grid ``thw`` in
+    row-major order; ``weight`` (C, 1, k, k, k) and ``bias`` (C,) in x's
+    dtype, k 3 or 5; stride 1, zero padding k // 2. → ``(x +) bias + conv``
+    in x's shape and dtype, x added where ``residual`` (the DPE)."""
+    name = "dwconv3d"
+    tensors = (x, weight, bias)
+    if x.dtype not in DWCONV3D_DTYPES or any(t.dtype != x.dtype for t in tensors):
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16 and weights of its "
+                        f"dtype, got {[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors) or x.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel takes contiguous tensors, x 16-byte aligned")
+    if len(thw) != 3 or x.dim() != 3 or x.shape[1] != math.prod(thw):
+        raise ValueError(f"{name}: x {tuple(x.shape)} is not (clips, T·H·W, C) over the grid "
+                         f"{tuple(thw)}")
+    c, k = x.shape[2], weight.shape[-1]
+    if c % DWCONV3D_CHANNELS or k not in DWCONV3D_KERNELS \
+            or tuple(weight.shape) != (c, 1, k, k, k) or tuple(bias.shape) != (c,):
+        raise ValueError(f"{name}: C = {c} must be a multiple of {DWCONV3D_CHANNELS}, the "
+                         f"weight (C, 1, k, k, k) with k in {DWCONV3D_KERNELS} and the bias "
+                         f"(C,); got {tuple(weight.shape)} and {tuple(bias.shape)}")
+    if not all(t.is_cuda for t in tensors) or any(t.device != x.device for t in tensors):
+        raise ValueError(f"{name}: expected CUDA tensors on one card, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = library(name).cdll.dwconv3d_fwd(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), x.shape[0],
+            *thw, c, k, int(residual), DWCONV3D_DTYPES[x.dtype], _stream(x))
+    _raise_on(err, name)
+    count_launch(name)
+    return out

@@ -160,9 +160,10 @@ def test_full_width_parameter_sets_match_jax(name):
 def test_registry_builds_every_reference_model_and_refuses_unknown_ones(name):
     from i2v_tpu_torch.utils import VIDEO_MODEL_NAMES
 
-    # the reference's six, and Video Swin-B and MViTv2-B, evaluated only where named
+    # the reference's six, and Video Swin-B, MViTv2-B and UniFormer-B, evaluated
+    # only where named
     assert sorted(video_zoo.VIDEO_BUILDERS) == sorted(video_zoo.TINY_BUILDERS) == \
-        sorted(VIDEO_MODEL_NAMES + ("swin3d_b", "mvit_v2_b"))
+        sorted(VIDEO_MODEL_NAMES + ("swin3d_b", "mvit_v2_b", "uniformer_b"))
     bundle = get_video_model(name, device="cpu", tiny=True)
     with torch.no_grad():
         assert bundle.apply01(torch.from_numpy(_clip(11))).shape == (CLIP[0], 10)
