@@ -212,13 +212,15 @@ raises and the script exits non-zero:
  34. uniformer — the depthwise 3-D conv (dwconv3d) against its plain path
                  (the grouped conv) at B=16 at each of UniFormer-B's stage
                  shapes, timed beside its bound (FLOPs or bytes), its plain
-                 path and aten's conv_depthwise3d alone; SDPA's memory-
-                 efficient backend at 5 heads x 3136^2 x 64 (B=16) against
-                 the plain attention, and its time; then the same as
-                 swin for full-width UniFormer-B (--models uniformer_b): 53
-                 dwconv3d launches a forward, eager and replayed, no other
-                 kernel; logits within UNIFORMER_LOGIT_TOL of those with both
-                 plain paths
+                 path and aten's conv_depthwise3d alone; the global
+                 attention (global_attn) against the plain attention at
+                 stage 3's and 4's shapes (B=16), timed in turns with it and
+                 with SDPA's memory-efficient backend, beside its 3xTF32
+                 bound; then the same as swin for full-width UniFormer-B
+                 (--models uniformer_b): 53 dwconv3d and 27 global_attn
+                 launches a forward, eager and replayed, no other kernel;
+                 logits within UNIFORMER_LOGIT_TOL of those with both plain
+                 paths
 Phase 3 also holds K1/K2 to their plain versions at the chunked runner's
 shapes: a 512-frame call (B=16), a 128-frame chunk that starts 128 frames
 into a 512-frame modifier, and a 112² call (multigrid's coarse phase).
@@ -273,9 +275,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # the launch counters of i2v_tpu_torch.ops.kernels: K1-K3, the conv epilogue,
 # Swin-B's window attention, MViTv2-B's pooling attention and its q, k and v
-# pooling, UniFormer-B's depthwise convs
+# pooling, UniFormer-B's depthwise convs and global attention
 K1_TO_K3 = ("rebuild_fwd", "rebuild_bwd", "sign_step")
-COUNTED = K1_TO_K3 + ("bias_act", "window_attn", "pool_attn", "pool_qkv", "dwconv3d")
+COUNTED = K1_TO_K3 + ("bias_act", "window_attn", "pool_attn", "pool_qkv", "dwconv3d",
+                      "global_attn")
 # the conv epilogue's launches in one forward of each full-width video model,
 # one a conv: I3D's stem, bottlenecks and five non-local blocks of four convs;
 # SlowFast's two stems, four laterals and both pathways' bottlenecks; TPN's
@@ -358,13 +361,20 @@ DWCONV3D_BATCH, DWCONV3D_ITERS = 16, 10
 # the same order, the residual and bias added in another (outputs of scale ~1)
 DWCONV3D_TOL = (1e-5, 1e-5)
 UNIFORMER_LAUNCHES = 53   # a DPE a block and a 5^3 a conv block
-# UniFormer-B's global attention at B=16: heads, tokens, head dim (stage 3)
-SDPA_SHAPE, SDPA_ITERS = (5, 3136, 64), 5
-# SDPA vs the plain attention, max |diff|: both float32 (the memory-efficient
-# kernel's products in 3xTF32 on the tensor cores), softmax sums over 3136 keys
-SDPA_TOL = 1e-4
-# UniFormer-B's logits with the kernel and SDPA against both plain paths, max
-# |diff| over the logits' std: float32 rounding through 40 blocks
+# UniFormer-B's global attention at B=16: (label, heads, tokens, launches a
+# forward); head dim 64; 27 launches a forward
+GLOBAL_ATTN_SHAPES = (("stage 3", 5, 3136, 20), ("stage 4", 8, 784, 7))
+GLOBAL_ATTN_ITERS = 5
+UNIFORMER_ATTN_LAUNCHES = 27
+# float32-accurate products on the tensor cores take three TF32 products each
+# (3xTF32): the global attention's bound is the TF32 peak over 3
+TF32_OPS_PER_S = 494.7e12
+# the kernel vs the plain attention (cuBLAS float32), max |diff| on outputs of
+# scale ~0.1: both float32, products and softmax sums over up to 3136 keys in
+# other orders (each ~1e-6 off the float64 attention, PERF.md §6)
+GLOBAL_ATTN_TOL = 1e-5
+# UniFormer-B's logits with both kernels against both plain paths, max |diff|
+# over the logits' std: float32 rounding through 40 blocks
 UNIFORMER_LOGIT_TOL = 1e-4
 SF_FAST_STRIDE = 2         # SlowFast-R50's fast pathway samples every 2nd frame
 AENS_CLIPS, AENS_STEPS = 2, 10
@@ -4001,7 +4011,8 @@ def phase_swin(kernels, evaluate_cli, get_video_model, run_dir: str) -> dict:
     counts = dict(kernels.launches)
     forwards = 2 * len(files)
     want = {"window_attn": SWIN_BLOCKS * forwards, "rebuild_fwd": 0, "rebuild_bwd": 0,
-            "sign_step": 0, "bias_act": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0}
+            "sign_step": 0, "bias_act": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0,
+            "global_attn": 0}
     if _of(counts, want) != want or graphs.captures["graphs"] != captured + 1:
         raise RuntimeError(f"swin: launch counts {counts}, expected {want}; "
                            f"{graphs.captures['graphs'] - captured} capture(s), expected 1")
@@ -4236,51 +4247,87 @@ def _dwconv3d(kernels) -> dict:
             "library": forward["aten"]}
 
 
-def _sdpa() -> None:
-    """UniFormer-B's stage-3 attention at B=16 (SDPA_SHAPE, q, k and v read
-    from a qkv tensor as the model views them): SDPA pinned to its
-    memory-efficient backend (``sdpa_kernel`` raises where that backend
-    cannot run the call) against the plain attention
-    (``uniformer.global_attention_plain``) within SDPA_TOL, and its device
-    ms. The benchmark's trace names its kernel."""
+def _plain_attention(q, k, v):
+    """The plain attention in the projection's layout, as
+    ``uniformer.global_attention`` returns it."""
     from i2v_tpu_torch.models import uniformer
 
-    heads, n, hd = SDPA_SHAPE
-    b = DWCONV3D_BATCH
+    return uniformer.global_attention_plain(q, k, v).transpose(1, 2).flatten(2)
+
+
+def _global_attn(kernels) -> dict:
+    """UniFormer-B's global attention at B=16 at GLOBAL_ATTN_SHAPES, q, k
+    and v read from one qkv tensor as the model views them: the kernel
+    (``uniformer.global_attention``) against the plain attention within
+    GLOBAL_ATTN_TOL, one launch each; then timed in turns with the plain
+    attention and SDPA pinned to its memory-efficient backend (``sdpa_kernel``
+    raises where that backend cannot run the call), beside its bound: 4·N²·64
+    FLOPs a (clip, head) over TF32_OPS_PER_S / 3, or q, k, v and o moved once
+    over HBM_BYTES_PER_S. Sums over a forward's 27 launches a clip."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from i2v_tpu_torch.models import uniformer
+
+    def sdpa(q, k, v):
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v)
+
     gen = torch.Generator(device="cuda").manual_seed(35)
-    qkv = torch.randn(b, n, 3, heads, hd, device="cuda", generator=gen)
-    q, k, v = qkv.permute(2, 0, 3, 1, 4)
-    got = uniformer.global_attention(q, k, v)
-    want = uniformer.global_attention_plain(q, k, v)
-    err = float((got - want).abs().max())
-    if not err <= SDPA_TOL:
-        raise RuntimeError(f"SDPA differs from the plain attention by {err:.3g}")
-    del got, want
-    fns = [lambda: uniformer.global_attention(q, k, v),
-           lambda: uniformer.global_attention_plain(q, k, v)]
-    first_turn = [_time_ms(f, SDPA_ITERS) for f in fns]
-    second_turn = [_time_ms(f, SDPA_ITERS) for f in reversed(fns)][::-1]
-    ms = [(p + r) / 2 for p, r in zip(first_turn, second_turn)]
-    flops = 4 * b * heads * n * n * hd
-    print(f"[uniformer] SDPA (memory-efficient backend) at B={b}, {heads} heads x {n}^2 x {hd}: "
-          f"within {err:.3g} of the plain attention; {ms[0]:.4f} ms "
-          f"({first_turn[0]:.4f}, {second_turn[0]:.4f}; {flops / ms[0] / 1e9:.1f} TFLOP/s, "
-          f"{ms[0] / b:.4f} ms a clip a block), plain attention {ms[1]:.4f} ms", flush=True)
-    del qkv, q, k, v, fns
+    b, err, facts = DWCONV3D_BATCH, 0.0, []
+    forward = {"kernel": 0.0, "plain": 0.0, "sdpa": 0.0, "bound": 0.0}
+    for label, heads, n, count in GLOBAL_ATTN_SHAPES:
+        qkv = torch.randn(b, n, 3, heads, 64, device="cuda", generator=gen)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        kernels.reset_launches()
+        got = uniformer.global_attention(q, k, v)
+        want = _plain_attention(q, k, v)
+        diff = float((got - want).abs().max())
+        if kernels.launches["global_attn"] != 1 or got.shape != want.shape \
+                or not got.isfinite().all() or not diff <= GLOBAL_ATTN_TOL:
+            raise RuntimeError(f"global_attn differs from the plain attention at {label}: "
+                               f"launches {kernels.launches['global_attn']}, max |diff| {diff:.3g}")
+        err = max(err, diff)
+        del got, want
+        fns = [lambda: uniformer.global_attention(q, k, v), lambda: _plain_attention(q, k, v),
+               lambda: sdpa(q, k, v)]
+        first_turn = [_time_ms(f, GLOBAL_ATTN_ITERS) for f in fns]
+        second_turn = [_time_ms(f, GLOBAL_ATTN_ITERS) for f in reversed(fns)][::-1]
+        ms = [(p + r) / 2 for p, r in zip(first_turn, second_turn)]
+        flops, nbytes = 4 * b * heads * n * n * 64, 4 * b * heads * n * 64 * 4
+        bound = max(3 * flops / TF32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        for key, value in zip(("kernel", "plain", "sdpa", "bound"), (*ms, bound)):
+            forward[key] += count * value / b
+        facts.append(f"{label} ({heads} heads x {n}^2 x 64): kernel {ms[0]:.4f} ms "
+                     f"({first_turn[0]:.4f}, {second_turn[0]:.4f}; {flops / ms[0] / 1e9:.1f} "
+                     f"TFLOP/s, {bound / ms[0]:.1%} of its {bound:.4f} ms 3xTF32 bound), plain "
+                     f"{ms[1]:.4f}, SDPA {ms[2]:.4f} ({flops / ms[2] / 1e9:.1f} TFLOP/s, "
+                     f"{ms[2] / ms[0]:.2f}x the kernel)")
+        del qkv, q, k, v, fns
     torch.cuda.empty_cache()
+    kernels.reset_launches()
+    print(f"[uniformer] global_attn within {GLOBAL_ATTN_TOL} of the plain attention (max |diff| "
+          f"{err:.3g}) at B={b}: " + "; ".join(facts) + f"; a forward's "
+          f"{UNIFORMER_ATTN_LAUNCHES} launches a clip: kernel {forward['kernel']:.4f} ms, bound "
+          f"{forward['bound']:.4f} ms ({forward['bound'] / forward['kernel']:.1%}), SDPA "
+          f"{forward['sdpa']:.4f} ms ({forward['sdpa'] / forward['kernel']:.2f}x), plain "
+          f"{forward['plain']:.4f} ms", flush=True)
+    return {"err": err, "times": (forward["kernel"], forward["plain"]),
+            "bound": (forward["bound"], f"a forward's {UNIFORMER_ATTN_LAUNCHES} launches a clip"),
+            "library": forward["sdpa"]}
 
 
 def phase_uniformer(kernels, evaluate_cli, get_video_model, run_dir: str) -> tuple:
     """Full-width UniFormer-B over the slice's adversarial clips through the
     evaluation CLI (``--models uniformer_b``) at batch 1, serially and then
     in one pass, the model built once, as :func:`phase_mvit` runs MViTv2-B:
-    one capture; each forward launches the depthwise conv kernel 53 times
-    and no other kernel; the two reports are identical and of the one
-    model's schema; the card's logits of the clips lie within
-    UNIFORMER_LOGIT_TOL of those with both plain paths (the grouped conv and
-    the plain attention). First the conv kernel alone (:func:`_dwconv3d`)
-    and SDPA (:func:`_sdpa`). Returns the launch counts and the conv's
-    measurements."""
+    one capture; each forward launches the depthwise conv kernel 53 times,
+    the global attention kernel 27 times and no other kernel; the two
+    reports are identical and of the one model's schema; the card's logits
+    of the clips lie within UNIFORMER_LOGIT_TOL of those with both plain
+    paths (the grouped conv and the plain attention). First each kernel alone
+    (:func:`_dwconv3d`, :func:`_global_attn`). Returns the launch counts and
+    both kernels' measurements."""
     import argparse
 
     from i2v_tpu_torch.cli import common as cli_common
@@ -4290,7 +4337,7 @@ def phase_uniformer(kernels, evaluate_cli, get_video_model, run_dir: str) -> tup
     t0 = time.time()
     cli_common.apply_matmul_precision(argparse.Namespace(matmul_precision="float32"))
     conv = _dwconv3d(kernels)
-    _sdpa()
+    attention = _global_attn(kernels)
     bundle = get_video_model("uniformer_b", device="cuda")
     files = artifacts.list_adv_files(run_dir)
     captured = graphs.captures["graphs"]
@@ -4306,7 +4353,8 @@ def phase_uniformer(kernels, evaluate_cli, get_video_model, run_dir: str) -> tup
         rates[mode] = next(iter(args.throughput.values()))["clips_per_sec"]
     counts = dict(kernels.launches)
     forwards = 2 * len(files)
-    want = dict(dict.fromkeys(COUNTED, 0), dwconv3d=UNIFORMER_LAUNCHES * forwards)
+    want = dict(dict.fromkeys(COUNTED, 0), dwconv3d=UNIFORMER_LAUNCHES * forwards,
+                global_attn=UNIFORMER_ATTN_LAUNCHES * forwards)
     if counts != want or graphs.captures["graphs"] != captured + 1:
         raise RuntimeError(f"uniformer: launch counts {counts}, expected {want}; "
                            f"{graphs.captures['graphs'] - captured} capture(s), expected 1")
@@ -4323,24 +4371,25 @@ def phase_uniformer(kernels, evaluate_cli, get_video_model, run_dir: str) -> tup
         logits = bundle.apply_norm(x).float()
         fast = uniformer.dwconv3d, uniformer.global_attention
         uniformer.dwconv3d = uniformer.dwconv3d_plain
-        uniformer.global_attention = uniformer.global_attention_plain
+        uniformer.global_attention = _plain_attention
         try:
             plain = bundle.apply_norm(x).float()
         finally:
             uniformer.dwconv3d, uniformer.global_attention = fast
     gap = float((logits - plain).abs().max() / plain.std())
     if not gap <= UNIFORMER_LOGIT_TOL:
-        raise RuntimeError(f"uniformer: logits with the kernel and SDPA off those with the plain "
-                           f"paths by {gap:.3g} of their std (limit {UNIFORMER_LOGIT_TOL})")
+        raise RuntimeError(f"uniformer: logits with the kernels off those with the plain paths "
+                           f"by {gap:.3g} of their std (limit {UNIFORMER_LOGIT_TOL})")
     print(f"[uniformer] UniFormer-B at full width (32x224^2, 400 classes, random weights, TF32 "
           f"off) over {len(files)} adversarial clips at batch 1: serial {rates['serial']:.3f} "
           f"clips/s (the first forward eager, the second captured), single pass "
           f"{rates['single pass']:.3f} clips/s (replayed); one capture; launches {counts} "
-          f"({UNIFORMER_LAUNCHES} a forward over {forwards}); reports identical, top-1 "
-          f"{reports['serial'][1]}; logits with the kernel and SDPA vs the plain paths "
+          f"({UNIFORMER_LAUNCHES} and {UNIFORMER_ATTN_LAUNCHES} a forward over {forwards}); "
+          f"reports identical, top-1 {reports['serial'][1]}; logits with the kernels vs the "
+          f"plain paths "
           f"{gap:.3g} of their std (limit {UNIFORMER_LOGIT_TOL}); phase wall "
           f"{time.time() - t0:.2f} s", flush=True)
-    return counts, conv
+    return counts, {"dwconv3d": conv, "global_attn": attention}
 
 
 def main() -> None:
@@ -4411,11 +4460,10 @@ def main() -> None:
         swin = phase_swin(kernels, evaluate_cli, get_video_model, slice_dir)
         multiscale, pooling = phase_mvit(kernels, evaluate_cli, get_video_model, slice_dir)
         hybrid, local = phase_uniformer(kernels, evaluate_cli, get_video_model, slice_dir)
-        for key in ("err", "times", "library"):
-            measured[key]["pool_qkv"] = pooling[key]
-            measured[key]["dwconv3d"] = local[key]
-        measured["bounds"]["pool_qkv"] = pooling["bound"]
-        measured["bounds"]["dwconv3d"] = local["bound"]
+        for kernel, m in {"pool_qkv": pooling, **local}.items():
+            for key in ("err", "times", "library"):
+                measured[key][kernel] = m[key]
+            measured["bounds"][kernel] = m["bound"]
         for k in counts:
             counts[k] += (real[k] + zoo[k] + bf16[k] + multi[k] + measured_tools[k] + loops[k]
                           + swin[k] + multiscale[k] + hybrid[k])
@@ -4435,7 +4483,8 @@ def main() -> None:
              "pool_attn": ("i2v_tpu_torch/csrc/pool_attn.cu", None),
              "pool_qkv": ("i2v_tpu_torch/csrc/pool_qkv.cu", None),
              # nor a UniFormer
-             "dwconv3d": ("i2v_tpu_torch/csrc/dwconv3d.cu", None)}
+             "dwconv3d": ("i2v_tpu_torch/csrc/dwconv3d.cu", None),
+             "global_attn": ("i2v_tpu_torch/csrc/global_attn.cu", None)}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": counts[k],
          "max_abs_err": measured["err"][k], "ms": measured["times"][k][0],
@@ -4448,7 +4497,9 @@ def main() -> None:
          # attention's with the relative terms as its mask and the residual
          # added at MViTv2-B's blocks 0-1, B=16; no single call pools q, k
          # and v; the depthwise convs' yardstick is aten's grouped conv
-         # (conv_depthwise3d) over a forward's 53 launches at B=16, a clip
+         # (conv_depthwise3d) over a forward's 53 launches at B=16, a clip,
+         # the global attention's SDPA's memory-efficient backend over a
+         # forward's 27
          "library_ms": measured["library"].get(k)}
         for k, (src, rep) in where.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

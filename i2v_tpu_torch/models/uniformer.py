@@ -37,10 +37,13 @@ The depthwise convs, 53 a forward (a DPE a block and the 13 conv blocks'
 (:func:`~i2v_tpu_torch.ops.kernels.launch_dwconv3d`, reading and writing
 the token-major grid, the DPE's residual fused; forward only: under autograd
 on a card it raises) and :func:`dwconv3d_plain`, the grouped ``F.conv3d``,
-elsewhere, which is the kernel's oracle. The global attention runs through
-``F.scaled_dot_product_attention`` on a card, pinned to its memory-efficient
-backend, which does not build the (tokens × tokens) scores, and
-:func:`global_attention_plain` elsewhere.
+elsewhere, which is the kernel's oracle. The global attention of stages
+3–4 is one hand-written kernel on a card too
+(:func:`~i2v_tpu_torch.ops.kernels.launch_global_attn`: float32 products
+through three TF32 products on the tensor cores, q, k and v read from the
+qkv Linear's output as it lies, the output in the projection's layout, the
+(tokens × tokens) scores never in device memory; forward only), and
+:func:`global_attention_plain` elsewhere, the kernel's oracle.
 
 Compute ``dtype`` (:mod:`.common`): convs and linears compute in it; the
 LayerNorms give the promoted dtype of their input and float32 parameters
@@ -56,7 +59,6 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from ..ops import kernels
 from .common import Conv3d, Linear, deepest, set_compute_dtype
@@ -130,13 +132,17 @@ def global_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
 
 
 def global_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """SDPA's memory-efficient backend on a card (float32 or bfloat16; the
-    scores never reach device memory), :func:`global_attention_plain`
+    """``softmax(q·kᵀ·hd^-0.5)·v`` of q, k and v (B, heads, N, hd) →
+    (B, N, heads·hd), the projection's layout: the kernel on a card (read
+    where q, k and v lie; forward only), :func:`global_attention_plain`
     elsewhere."""
     if q.is_cuda:
-        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-            return F.scaled_dot_product_attention(q, k, v)
-    return global_attention_plain(q, k, v)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise RuntimeError("the global attention on a card is forward only: its kernel has "
+                               "no backward")
+        return kernels.launch_global_attn(q, k, v)
+    b, heads, n, hd = q.shape
+    return global_attention_plain(q, k, v).transpose(1, 2).reshape(b, n, heads * hd)
 
 
 def patch_merge(x: torch.Tensor, thw: Sequence[int], proj: nn.Conv3d) -> tuple:
@@ -224,7 +230,7 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, c = x.shape
         q, k, v = self.qkv(x).view(b, n, 3, self.heads, c // self.heads).permute(2, 0, 3, 1, 4)
-        return self.proj(global_attention(q, k, v).transpose(1, 2).reshape(b, n, c))
+        return self.proj(global_attention(q, k, v))
 
 
 class SABlock(nn.Module):
@@ -247,7 +253,7 @@ class UniFormer(nn.Module):
     """``spec`` holds the published settings (:data:`UNIFORMER_B`'s keys);
     ``taps`` are ``stage{i}`` (1-based); ``truncate`` builds and runs no
     stage past the deepest tap's and no head; ``remat`` recomputes each
-    block in the backward pass (off the card: the kernel has no backward)."""
+    block in the backward pass (off the card: the kernels have no backward)."""
 
     def __init__(self, spec: dict, num_classes: int | None = None, remat: bool = False,
                  taps: Sequence[str] = (), truncate: bool = False,

@@ -63,12 +63,23 @@ Replaces no Pallas kernel: the JAX package has no UniFormer. The CUDA kernel
 is ``csrc/dwconv3d.cu``; it computes in float32 on the CUDA cores, and counts
 in ``launches["dwconv3d"]`` as ``pool_attn`` does.
 
+``launch_global_attn(q, k, v)`` — UniFormer's global attention
+(:mod:`i2v_tpu_torch.models.uniformer`), ``softmax(q·kᵀ·64^-0.5)·v`` of every
+(clip, head) at head dimension 64 in one launch, forward only, q, k and v read
+by strides where they lie (the qkv Linear's output), into the projection's
+layout. Replaces no Pallas kernel: the JAX package has no UniFormer. The CUDA
+kernel is ``csrc/global_attn.cu``, the port's first on the tensor cores: its
+float32 products go through three TF32 products each (3xTF32), float32-accurate
+whatever PyTorch's TF32 flags say. It counts in ``launches["global_attn"]`` as
+``pool_attn`` does.
+
 Each source is built with ``nvcc`` for sm_90a at first use (:mod:`._build`).
 The first four kernels are elementwise and bound by device-memory bytes (12,
 16, 16, and 8 or 12 bytes an element); each makes one pass with 16-byte
 vector accesses where the shapes and pointers allow; window and pooling
 attention are bound by float32 arithmetic, the pooling of q, k and v by
-bytes, the depthwise convs by bytes at k = 3 and by arithmetic at k = 5; the
+bytes, the depthwise convs by bytes at k = 3 and by arithmetic at k = 5, the
+global attention by the tensor cores' TF32 rate over three products; the
 sources say more.
 
 Dispatch: a tensor on the CPU takes the plain version in
@@ -95,7 +106,7 @@ import torch
 from . import _build, pixel
 
 launches = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0, "bias_act": 0,
-            "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0}
+            "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0, "global_attn": 0}
 # K2 launches from the autograd engine's thread of each card, so the counts
 # take a lock: ``+=`` on a dict entry is a read, an add and a write
 _launches_lock = threading.Lock()
@@ -163,6 +174,9 @@ SOURCES = {
     },
     "dwconv3d": {
         "dwconv3d_fwd": [_PTR] * 4 + [_N] + [_I] * 7 + [_PTR],
+    },
+    "global_attn": {
+        "global_attn_fwd": [_PTR] * 4 + [_N, _I, _I, _N, _N, _N, _I, _PTR],
     },
 }
 
@@ -580,6 +594,48 @@ def launch_dwconv3d(x: torch.Tensor, thw, weight: torch.Tensor, bias: torch.Tens
         err = library(name).cdll.dwconv3d_fwd(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), x.shape[0],
             *thw, c, k, int(residual), DWCONV3D_DTYPES[x.dtype], _stream(x))
+    _raise_on(err, name)
+    count_launch(name)
+    return out
+
+
+# the dtypes the global attention kernel takes, and the code its C entry point reads
+GLOBAL_ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+GLOBAL_ATTN_HEAD_DIM = 64
+
+
+def launch_global_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``softmax(q·kᵀ·64^-0.5)·v`` of every (clip, head) on the card: q, k
+    and v (clips, heads, N, 64) of one dtype, float32 or bfloat16, read where
+    they lie: one set of strides, the last 1, every row 16-byte aligned (the
+    qkv Linear's output (clips, N, 3·heads·64) viewed as (clips, N, 3, heads,
+    64) and permuted takes no copy). → (clips, N, heads·64) in their dtype."""
+    name = "global_attn"
+    tensors = (q, k, v)
+    if q.dtype not in GLOBAL_ATTN_DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16 q, k and v of one dtype, "
+                        f"got {[t.dtype for t in tensors]}")
+    if q.dim() != 4 or q.shape[3] != GLOBAL_ATTN_HEAD_DIM or q.shape[2] < 1 \
+            or any(t.shape != q.shape for t in tensors):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} are not one (clips, heads, N, "
+                         f"{GLOBAL_ATTN_HEAD_DIM}) with N >= 1")
+    if any(t.stride() != q.stride() for t in tensors) or q.stride(3) != 1:
+        raise ValueError(f"{name}: q, k and v must share their strides, the last 1; got "
+                         f"{[t.stride() for t in tensors]}")
+    per_16 = 16 // q.element_size()
+    if any(s % per_16 for s in q.stride()[:3]) or any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: every row of q, k and v must be 16-byte aligned; strides "
+                         f"{q.stride()}, offsets {[t.data_ptr() % 16 for t in tensors]}")
+    if not all(t.is_cuda for t in tensors) or any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: expected CUDA tensors on one card, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    clips, heads, n, hd = q.shape
+    out = torch.empty(clips, n, heads * hd, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = library(name).cdll.global_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), clips, heads, n,
+            *q.stride()[:3], GLOBAL_ATTN_DTYPES[q.dtype], _stream(q))
     _raise_on(err, name)
     count_launch(name)
     return out

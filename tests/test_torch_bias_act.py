@@ -405,7 +405,7 @@ def test_each_biased_conv_is_one_epilogue_counted_as_the_kernel_launches(monkeyp
         kernels.add_launches(tally)
         assert kernels.launches == {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0,
                                     "bias_act": 92, "window_attn": 0, "pool_attn": 0, "pool_qkv": 0,
-                                    "dwconv3d": 0}
+                                    "dwconv3d": 0, "global_attn": 0}
     finally:
         kernels.launches.update(saved)
 

@@ -150,7 +150,8 @@ def test_a_killed_run_resumes_to_complete_reports(tmp_path):
     launches = json.loads(a.stdout.strip().splitlines()[-1].split("launches ", 1)[1])
     # on the CPU the wrappers take the kernels' plain versions
     assert launches == {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0, "bias_act": 0,
-                        "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0}
+                        "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0,
+                        "global_attn": 0}
     assert not os.path.exists(os.path.join(run_dir, CSV))
     # a write the kill cut short: never counted, never re-scored
     open(os.path.join(run_dir, "5-adv.npy.tmp.npy"), "wb").close()

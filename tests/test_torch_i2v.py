@@ -86,7 +86,8 @@ def test_attack_matches_jax(method):
     adv = patk(videos, np.asarray([0]), video_names=["v"])
     # CPU: the plain path
     assert kernels.launches == {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0, "bias_act": 0,
-                                "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0}
+                                "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0,
+                                "global_attn": 0}
     np.testing.assert_allclose(_costs(patk), _costs(jatk), rtol=2e-4)
     _check_invariants(adv, clips01, _costs(patk))
     assert str(patk).startswith(jatk.attack)

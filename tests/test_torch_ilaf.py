@@ -80,7 +80,8 @@ def test_ilaf_matches_jax(bundles):
     kernels.reset_launches()
     out = patk(_norm(adv01), _norm(clean01), np.asarray([0]), video_names=["v"])
     assert kernels.launches == {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0, "bias_act": 0,
-                                "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0}
+                                "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0,
+                                "global_attn": 0}
     np.testing.assert_allclose(_costs(patk), _costs(jatk), rtol=1e-3)
     assert _costs(patk)[-1] < _costs(patk)[0]
     out01 = pixel.unnormalize(out, channel_axis=1).numpy()

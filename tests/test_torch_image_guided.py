@@ -146,7 +146,8 @@ def test_dr_matches_jax():
     kernels.reset_launches()
     adv = patk(videos, np.asarray([0]), video_names=["v"])
     assert kernels.launches == {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0, "bias_act": 0,
-                                "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0}
+                                "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0,
+                                "global_attn": 0}
     np.testing.assert_allclose(_costs(patk), _costs(jatk), rtol=3e-4)
     assert _costs(patk)[-1] < _costs(patk)[0]
     _check_invariants(adv, clips01)

@@ -90,7 +90,8 @@ def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
     out = kernels.rebuild_adv(torch.from_numpy(clean), torch.from_numpy(mod), EPS)
     np.testing.assert_array_equal(out.numpy(), _port(clean, mod, g)[0])
     assert kernels.launches == {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0, "bias_act": 0,
-                                "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0}
+                                "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0,
+                                "global_attn": 0}
 
 
 def test_forward_matches_jax_pixel_with_ties():
@@ -150,7 +151,8 @@ def test_kernel_matches_plain_on_card(cuda, n):
     out = kernels.rebuild_adv(clean, m, EPS)
     out.backward(g)
     assert kernels.launches == {"rebuild_fwd": 1, "rebuild_bwd": 1, "sign_step": 0, "bias_act": 0,
-                                "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0}
+                                "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0,
+                                "global_attn": 0}
     m_ref = mod.clone().requires_grad_(True)
     ref = pixel.rebuild_adv(clean, m_ref, EPS32)
     ref.backward(g)
@@ -241,7 +243,8 @@ def test_sign_step_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
     np.testing.assert_array_equal(got, np.asarray(pk.sign_step_project(
         jnp.asarray(adv), jnp.asarray(g), jnp.asarray(clean), EPS / 10, EPS)))
     assert kernels.launches == {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0, "bias_act": 0,
-                                "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0}
+                                "window_attn": 0, "pool_attn": 0, "pool_qkv": 0, "dwconv3d": 0,
+                                "global_attn": 0}
 
 
 def test_sign_step_wrapper_passes_no_gradient():
@@ -299,7 +302,7 @@ def test_launch_counts_are_exact_under_concurrent_increments():
         assert not any(t.is_alive() for t in threads)
         assert kernels.launches == {"rebuild_fwd": 0, "rebuild_bwd": 160_000, "sign_step": 0,
                                     "bias_act": 0, "window_attn": 0, "pool_attn": 0, "pool_qkv": 0,
-                                    "dwconv3d": 0}
+                                    "dwconv3d": 0, "global_attn": 0}
     finally:
         sys.setswitchinterval(interval)
         kernels.launches.update(saved)

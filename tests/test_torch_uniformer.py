@@ -17,10 +17,12 @@ Sense-X checkpoint converter's BatchNorm fold matches the published
 BatchNorm3d with running statistics; and the kernel's launcher refuses what
 the kernel does not take before it needs a card. The ``gpu`` tests hold
 ``dwconv3d_kernel`` to the plain path at every stage's shape of UniFormer-B
-at 32x224^2 (B=2) and at the test variant's, in float32 and bfloat16; count
-53 launches (a DPE a block and a 5³ a conv block) in a full-depth forward
-that matches the reference; and hold a captured forward to its eager step 0,
-bit for bit. The file imports neither JAX nor the JAX package, so that it
+at 32x224^2 (B=2) and at the test variant's, in float32 and bfloat16, and
+``global_attn_fwd_kernel`` to the float64 plain attention, no worse than
+twice SDPA's, at stage 3's and 4's shapes and ragged ones, in a graph and
+refusing autograd; count 53 conv launches (a DPE a block and a 5³ a conv
+block) and 27 attention launches in a full-depth forward that matches the
+reference; and hold a captured forward to its eager step 0, bit for bit. The file imports neither JAX nor the JAX package, so that it
 runs on a machine with a card: ``python -m pytest --noconftest -p
 no:cacheprovider tests/test_torch_uniformer.py -m gpu``. Without a card
 those tests skip."""
@@ -48,7 +50,9 @@ from i2v_tpu_torch.models import convert, registry, uniformer, video_zoo  # noqa
 from i2v_tpu_torch.ops import kernels  # noqa: E402
 from i2v_tpu_torch.utils import VIDEO_MODEL_NAMES  # noqa: E402
 from port_bench import dwconv3d as bench_dwconv3d  # noqa: E402
-from port_bench import weights  # noqa: E402
+from port_bench import global_attn as bench_global_attn  # noqa: E402
+from port_bench import harness, weights  # noqa: E402
+from port_bench.trace import Summary  # noqa: E402
 from port_bench.entries.uniformer_eval import norms_about_one_  # noqa: E402
 from port_bench.reference import uniformer as ref_uniformer  # noqa: E402
 
@@ -210,7 +214,7 @@ def test_planted_fault_fails(monkeypatch, fault):
 def test_blocks_run_the_plain_paths_on_cpu(monkeypatch):
     """Off the card every depthwise conv goes through ``dwconv3d_plain`` (a
     DPE a block, a 5³ a conv block) and the attention through
-    ``global_attention_plain``; no kernel launches."""
+    ``global_attention_plain``; neither kernel launches."""
     calls = {"conv": [], "attention": 0}
     conv, attention = uniformer.dwconv3d_plain, uniformer.global_attention_plain
 
@@ -230,7 +234,22 @@ def test_blocks_run_the_plain_paths_on_cpu(monkeypatch):
     tiny = dict(uniformer.TINY)
     assert calls["conv"] == bench_dwconv3d.launches(tiny)
     assert calls["attention"] == sum(tiny["depth"][tiny["conv_stages"]:])
-    assert kernels.launches["dwconv3d"] == 0
+    assert kernels.launches["dwconv3d"] == 0 and kernels.launches["global_attn"] == 0
+
+
+@pytest.mark.parametrize("heads,n", [(2, 64), (3, 17)])
+def test_global_attention_on_cpu_is_the_plain_path(heads, n):
+    """Off the card ``global_attention`` is ``global_attention_plain`` in
+    the projection's layout (B, N, heads·hd), q, k and v read from a qkv
+    output as the model views it; no kernel launches."""
+    qkv = torch.randn(2, n, 3, heads, 64, generator=torch.Generator().manual_seed(n))
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    kernels.reset_launches()
+    got = uniformer.global_attention(q, k, v)
+    want = torch.softmax(q @ k.transpose(-2, -1) / 8, dim=-1) @ v
+    assert got.shape == (2, n, heads * 64) and kernels.launches["global_attn"] == 0
+    torch.testing.assert_close(got, want.transpose(1, 2).reshape(2, n, heads * 64),
+                               rtol=0, atol=0)
 
 
 # -- the registry, the evaluation, the converter and the init ----------------
@@ -350,6 +369,95 @@ def test_benchmark_reads_the_kernel_by_its_name():
     assert names == [bench_dwconv3d.KERNEL]
 
 
+def test_benchmark_reads_the_attention_kernel_by_its_name():
+    """``global_attn_ms_per_clip.uniformer`` and ``global_attn_roofline``
+    find the port's kernel by the first of ``port_bench.global_attn.KERNELS``,
+    the one ``__global__`` kernel of ``csrc/global_attn.cu``."""
+    src = os.path.join(os.path.dirname(uniformer.__file__), os.pardir, "csrc",
+                       "global_attn.cu")
+    with open(src) as f:
+        text = f.read()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                       text)
+    assert names == [bench_global_attn.KERNELS[0]]
+    # neither a conv nor a GEMM to the trace's classes, nor the conv kernel's readers
+    from port_bench import trace
+
+    assert trace.kernel_class(OURS) == "other" and bench_dwconv3d.KERNEL not in OURS
+
+
+def test_global_attention_work_by_hand():
+    """UniFormer-B's 27 attention blocks a clip: stage 3's 20 of 5 heads over
+    3136 tokens, stage 4's 7 of 8 heads over 784; 4·N²·64 FLOPs a head and
+    q, k, v and o moved once, worked out by hand."""
+    spec = dict(uniformer.UNIFORMER_B)
+    plan = bench_global_attn.blocks(spec)
+    assert plan == [(5, 3136, 64)] * 20 + [(8, 784, 64)] * 7
+    work = bench_global_attn.clip_work(spec)
+    # 3136² · 64 · 4 · 5 and 3136 · 64 · 4 · 5 · 4 bytes; 784² · 64 · 4 · 8, 784 · 64 · 4 · 8 · 4
+    assert work[0] == (12_588_154_880, 16_056_320)
+    assert work[-1] == (1_258_815_488, 6_422_528)
+    assert sum(f for f, _ in work) == 260_574_806_016  # 50.5% of the model's 516.5 G
+    # at 494.7 TFLOP/s of TF32 (/ 3) and 3.35 TB/s both shapes are bound by FLOPs:
+    # 20 · 3 · 12.588 G / 494.7 T + 7 · 3 · 1.2588 G / 494.7 T = 1.52677 + 0.05344 ms
+    bound = bench_global_attn.bound_s(spec, 1, 494.7e12, 3.35e12)
+    assert abs(bound - (20 * 3 * 12_588_154_880 + 7 * 3 * 1_258_815_488) / 494.7e12) < 1e-12
+    assert abs(bound - 1.580199e-3) < 1e-9
+    assert abs(bench_global_attn.bound_s(spec, 32, 494.7e12, 3.35e12) - 32 * bound) < 1e-12
+    # at 2 x 32^2 (grids 1x2x2 and 1x1x1) with no FLOP limit, the bytes' time:
+    # 20 · 4 · 5 · 4 · 64 · 4 + 7 · 4 · 8 · 1 · 64 · 4 bytes at 1 B/s
+    small = dict(spec, hw=32, frames=2)
+    assert bench_global_attn.blocks(small) == [(5, 4, 64)] * 20 + [(8, 1, 64)] * 7
+    assert bench_global_attn.bound_s(small, 1, 1e30, 1.0) == 466_944
+
+
+CARD = "NVIDIA H100 80GB HBM3"
+SDPA_KERNEL = "fmha_cutlassF_f32_aligned_64x64_rf_sm80_PyTorchMemEffAttention::AttentionKernel"
+OURS = "void (anonymous namespace)::global_attn_fwd_kernel<float, true>(float const*, float " \
+       "const*, float const*, float*, (anonymous namespace)::Geometry)"
+
+
+def _ctx(kernels_us, clips=32, card=CARD, traced=True):
+    """A harness context over a synthetic trace summary of ``kernels_us``
+    [(name, µs)]: the UniFormer cell's configuration and ``clips`` clips."""
+    bench = harness.Bench.at(REPO)
+    cell = bench.workload("uniformer_b_eval.single_b16")
+    config = bench.config(cell["config"])
+    trace = Summary(1e6, 9e5, [(n, 10.0 * i, us) for i, (n, us) in enumerate(kernels_us)], [],
+                    []) if traced else None
+    return harness.Context(cell, config, 10.0, 1.0, {"clips": clips, "sweeps": 1}, 0, card, {},
+                           trace)
+
+
+def _metric(name):
+    return harness.Bench.at(REPO).module("metrics", name).read
+
+
+@pytest.mark.parametrize("name", [OURS, SDPA_KERNEL])
+def test_global_attention_readers_on_a_synthetic_trace(name):
+    """Both readers take the global attention's device time whichever kernel
+    ran it, the port's or SDPA's, and leave the depthwise conv's and the
+    GEMMs' out: 32 clips whose attention took 32 × 3.160398 ms read 3.160398
+    ms a clip and 50% of the bound (1.580199 ms a clip, worked above)."""
+    per_clip_us = 2 * 1580.198944912068
+    rows = [(name, 16 * per_clip_us), (name, 16 * per_clip_us),
+            ("void (anonymous namespace)::dwconv3d_kernel<float, 3>", 5000.0),
+            ("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize256x64x8", 9000.0)]
+    ms = _metric("global_attn_ms_per_clip.uniformer")(_ctx(rows))
+    share = _metric("global_attn_roofline")(_ctx(rows))
+    assert abs(ms - per_clip_us / 1e3) < 1e-9 and abs(share - 50.0) < 1e-9
+
+
+def test_global_attention_readers_read_nothing_where_nothing_ran():
+    ms, share = _metric("global_attn_ms_per_clip.uniformer"), _metric("global_attn_roofline")
+    others = [("void (anonymous namespace)::dwconv3d_kernel<float, 5>", 5000.0)]
+    for ctx in (_ctx(others), _ctx([(OURS, 100.0)], traced=False)):
+        assert ms(ctx) is None and share(ctx) is None
+    # a card without a data-sheet peak, or no clips: no share
+    assert share(_ctx([(OURS, 100.0)], card="cpu")) is None
+    assert share(_ctx([(OURS, 100.0)], clips=0)) is None
+
+
 def _bad_launch(case):
     x = torch.randn(2, 4 * 5 * 6, 64)
     conv = _conv(64, 3, 0)
@@ -371,6 +479,31 @@ def test_dwconv3d_launcher_refuses_what_the_kernel_does_not_take(case):
     error = TypeError if case in ("float64", "weights_of_another_dtype") else ValueError
     with pytest.raises(error, match="dwconv3d"):
         kernels.launch_dwconv3d(x, (4, 5, 6), w, b, True)
+
+
+def _bad_attention(case):
+    qkv = torch.randn(2, 40, 3, 5, 64)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    wide = torch.randn(2, 5, 40, 128)
+    return {"float64": (q.double(), k.double(), v.double()),
+            "dtypes_differ": (q, k.bfloat16(), v),
+            "head_dim_32": tuple(t[..., :32] for t in (q, k, v)),
+            "shapes_differ": (q, k[:, :, :39], v[:, :, :39]),
+            "strides_differ": (q, k.contiguous(), v),
+            "last_stride_not_1": (wide[..., ::2],) * 3,
+            "rows_not_16_byte_aligned": tuple(t for t in torch.randn(3, 2, 5, 40, 65)[..., 1:]),
+            "on_the_cpu": (q, k, v)}[case]
+
+
+@pytest.mark.parametrize("case", ["float64", "dtypes_differ", "head_dim_32", "shapes_differ",
+                                  "strides_differ", "last_stride_not_1",
+                                  "rows_not_16_byte_aligned", "on_the_cpu"])
+def test_global_attn_launcher_refuses_what_the_kernel_does_not_take(case):
+    q, k, v = _bad_attention(case)
+    error = TypeError if case in ("float64", "dtypes_differ") else ValueError
+    with pytest.raises(error, match="global_attn"):
+        kernels.launch_global_attn(q, k, v)
+    assert kernels.launches["global_attn"] == 0
 
 
 # -- on the card ------------------------------------------------------------
@@ -444,13 +577,92 @@ def test_kernel_refuses_autograd_on_card(cuda):
         uniformer.dwconv3d(x.requires_grad_(True), thw, conv, True)
 
 
+# (clips, heads, N): UniFormer-B's stage 3 and stage 4 at B=16 and B=1, ragged
+# N (a query and a key tile cut short; 785 one key past 784), and the test
+# variant's stage 4 (16 tokens, one tile)
+ATTN_SHAPES = {"stage3_b16": (16, 5, 3136), "stage4_b16": (16, 8, 784),
+               "stage3_b1": (1, 5, 3136), "stage4_b1": (1, 8, 784),
+               "ragged_100": (2, 5, 100), "ragged_785": (2, 8, 785), "tiny_16": (2, 3, 16)}
+
+
+def _attn_inputs(shape, device, dtype=torch.float32):
+    """q, k and v (clips, heads, N, 64) read from one qkv tensor as the
+    model views it, N(0, 1)."""
+    b, heads, n = ATTN_SHAPES[shape]
+    gen = torch.Generator(device=device).manual_seed(n + heads)
+    qkv = torch.randn(b, n, 3, heads, 64, device=device, generator=gen).to(dtype)
+    return qkv.permute(2, 0, 3, 1, 4)
+
+
+def _attention64(q, k, v):
+    """The plain attention in float64, in the projection's layout."""
+    b, heads, n, hd = q.shape
+    out = uniformer.global_attention_plain(q.double(), k.double(), v.double())
+    return out.transpose(1, 2).reshape(b, n, heads * hd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(ATTN_SHAPES))
+def test_global_attention_kernel_on_card(cuda, shape, dtype):
+    """The kernel (one launch, the projection's layout) against the float64
+    plain attention of the same values, no worse than twice SDPA's
+    memory-efficient kernel (float32 through three TF32 products on the
+    tensor cores, as the kernel does; bfloat16 one product, p rounded to
+    bfloat16) on the same inputs: both sum in float32 in another order than
+    float64, and the tensor cores' float32 sums round toward zero."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v = _attn_inputs(shape, cuda, dtype)
+    kernels.reset_launches()
+    got = uniformer.global_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launches["global_attn"] == 1
+    want = _attention64(q, k, v)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        library = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(want.shape)
+    assert got.dtype == dtype and got.shape == want.shape and got.is_contiguous()
+    err = float((got.double() - want).abs().max())
+    library_err = float((library.double() - want).abs().max())
+    assert err <= 2 * library_err, (err, library_err)
+
+
+@pytest.mark.gpu
+def test_global_attention_kernel_in_a_graph_on_card(cuda):
+    """Captured into a CUDA graph (no host sync, the current stream) and
+    replayed twice: the eager output bit for bit, a launch a replay."""
+    q, k, v = _attn_inputs("stage4_b1", cuda)
+    kernels.reset_launches()
+    eager = uniformer.global_attention(q, k, v).clone()
+    graph = torch.cuda.CUDAGraph()
+    with kernels.capture_tally() as tally:
+        with torch.cuda.graph(graph):
+            out = uniformer.global_attention(q, k, v)
+    assert tally["global_attn"] == 1 and kernels.launches["global_attn"] == 1
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        kernels.add_launches(tally)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert kernels.launches["global_attn"] == 3
+
+
+@pytest.mark.gpu
+def test_global_attention_refuses_autograd_on_card(cuda):
+    q, k, v = _attn_inputs("ragged_100", cuda)
+    with pytest.raises(RuntimeError, match="forward only"):
+        uniformer.global_attention(q.requires_grad_(True), k, v)
+
+
 @pytest.mark.gpu
 def test_full_depth_forward_on_card(cuda, monkeypatch):
-    """53 kernel launches in one eager forward, each at its planned (k, C,
-    N), and no call of either plain path; its logits against the
-    reference's on the same weights (float32 rounding through 40 blocks,
-    TF32 off); then the graphed evaluation forward replays its eager step 0
-    bit for bit, 53 launches a replay."""
+    """53 conv kernel launches in one eager forward, each at its planned
+    (k, C, N), 27 attention launches (20 in stage 3, 7 in stage 4), and no
+    call of either plain path; its logits against the reference's on the
+    same weights (float32 rounding through 40 blocks, TF32 off); then the
+    graphed evaluation forward replays its eager step 0 bit for bit, 53 and
+    27 launches a replay."""
     from i2v_tpu_torch.parallel.replicas import replicas_for
 
     def plain_ran(*a):
@@ -476,7 +688,7 @@ def test_full_depth_forward_on_card(cuda, monkeypatch):
     with torch.inference_mode():
         eager = bundle.apply_norm(x).clone()
         want = ref(x)
-    assert kernels.launches["dwconv3d"] == 53
+    assert kernels.launches["dwconv3d"] == 53 and kernels.launches["global_attn"] == 27
     assert plans == bench_dwconv3d.launches(uniformer.UNIFORMER_B)
     gap = float((eager - want).abs().max() / want.std())
     assert gap <= 1e-4, gap
@@ -488,4 +700,4 @@ def test_full_depth_forward_on_card(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert torch.equal(step0, eager) and torch.equal(replayed, step0) and torch.equal(again, step0)
     # the eager forward, step 0 and two replays; the capture counts nothing
-    assert kernels.launches["dwconv3d"] == 4 * 53
+    assert kernels.launches["dwconv3d"] == 4 * 53 and kernels.launches["global_attn"] == 4 * 27
