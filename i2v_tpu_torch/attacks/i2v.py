@@ -153,12 +153,15 @@ class _FrameAttack(Attack):
                 frames = pixel.flatten_clip_to_frames(clean01)
                 key = tuple(frames.shape)
                 if key not in self._loops:
-                    with torch.no_grad():
-                        clean_taps = _collect_taps(self.models, frames)
-                    self._loops[key] = (AdamModifierLoop(
-                        self._make_loss(clean_taps), frames, steps=self.steps,
-                        step_size=self.step_size, epsilon=self.epsilon, graphs=self.graphs),
-                        clean_taps)
+                    with span("setup.warm", unit=next_number("setup.warm"), always=True):
+                        with torch.no_grad():
+                            clean_taps = _collect_taps(self.models, frames)
+                        self._loops[key] = (AdamModifierLoop(
+                            self._make_loss(clean_taps), frames, steps=self.steps,
+                            step_size=self.step_size, epsilon=self.epsilon,
+                            graphs=self.graphs), clean_taps)
+                        if frames.is_cuda:
+                            torch.cuda.synchronize(frames.device)
                 else:
                     loop, clean_taps = self._loops[key]
                     loop.frames.copy_(frames)

@@ -61,8 +61,7 @@ Compute ``dtype`` (:mod:`.common`): convs and linears compute in it; the
 LayerNorms give the promoted dtype of their input and float32 parameters
 (ViT's rule), so pooled q, k and v and everything the attention computes are
 float32, and the logits come back as float32. ``relu_grad_scale`` (SGM) has
-no ReLU to scale here. Forward passes carry ``record_function`` labels
-``mvit.stage{i}``."""
+no ReLU to scale here."""
 
 from __future__ import annotations
 
@@ -367,10 +366,9 @@ class MViT(nn.Module):
         x = torch.cat((self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1), x), dim=1)
         taps, start = {}, 0
         for s, end in enumerate(self.stage_ends):
-            with torch.profiler.record_function(f"mvit.stage{s + 1}"):
-                for block in self.blocks[start:end + 1]:
-                    x, thw = remat_call(self.remat, block, x, thw)
-                taps[f"stage{s + 1}"] = x[:, 1:].transpose(1, 2).unflatten(2, thw)
+            for block in self.blocks[start:end + 1]:
+                x, thw = remat_call(self.remat, block, x, thw)
+            taps[f"stage{s + 1}"] = x[:, 1:].transpose(1, 2).unflatten(2, thw)
             start = end + 1
         if self.headless:
             return None, taps

@@ -42,8 +42,7 @@ LayerNorms, as ViT's, give the promoted dtype of their input and float32
 parameters, so the residual stream stays float32; attention takes q, k, v in
 ``dtype`` and its products and softmax in float32 (ViT's rule) and returns
 ``dtype``; the logits come back as float32. ``relu_grad_scale`` (SGM) has no
-ReLU to scale here. Forward passes on the card carry ``record_function``
-labels ``swin3d.stage{i}``."""
+ReLU to scale here."""
 
 from __future__ import annotations
 
@@ -317,12 +316,11 @@ class SwinTransformer3D(nn.Module):
         x = self.patch_embed(to_compute(clip_bcthw, normalize, self.dtype))
         taps = {}
         for i, stage in enumerate(self.layers):
-            with torch.profiler.record_function(f"swin3d.stage{i + 1}"):
-                for block in stage.blocks:
-                    x = remat_call(self.remat, block, x)
-                taps[f"stage{i + 1}"] = x.permute(0, 4, 1, 2, 3)
-                if stage.downsample is not None:
-                    x = stage.downsample(x)
+            for block in stage.blocks:
+                x = remat_call(self.remat, block, x)
+            taps[f"stage{i + 1}"] = x.permute(0, 4, 1, 2, 3)
+            if stage.downsample is not None:
+                x = stage.downsample(x)
         if self.headless:
             return None, taps
         return self.fc(self.norm(x).mean(dim=(1, 2, 3))).float(), taps

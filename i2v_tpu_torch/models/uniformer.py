@@ -49,8 +49,7 @@ Compute ``dtype`` (:mod:`.common`): convs and linears compute in it; the
 LayerNorms give the promoted dtype of their input and float32 parameters
 (ViT's rule) and the folds are made in float32 and cast to the linear's
 dtype; the logits come back as float32. ``relu_grad_scale`` (SGM) has no
-ReLU to scale here. Forward passes carry ``record_function`` labels
-``uniformer.stage{i}``."""
+ReLU to scale here."""
 
 from __future__ import annotations
 
@@ -281,11 +280,10 @@ class UniFormer(nn.Module):
         x, thw = to_compute(clip_bcthw, normalize, self.dtype), None
         taps = {}
         for s in range(self.n_stages):
-            with torch.profiler.record_function(f"uniformer.stage{s + 1}"):
-                x, thw = getattr(self, f"patch_embed{s + 1}")(x, thw)
-                for block in getattr(self, f"blocks{s + 1}"):
-                    x = remat_call(self.remat, block, x, thw)
-                taps[f"stage{s + 1}"] = x.transpose(1, 2).unflatten(2, thw)
+            x, thw = getattr(self, f"patch_embed{s + 1}")(x, thw)
+            for block in getattr(self, f"blocks{s + 1}"):
+                x = remat_call(self.remat, block, x, thw)
+            taps[f"stage{s + 1}"] = x.transpose(1, 2).unflatten(2, thw)
         if self.headless:
             return None, taps
         # the BatchNorm commutes with the mean over the tokens

@@ -103,6 +103,7 @@ import threading
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import _build, pixel
 
 launches = {"rebuild_fwd": 0, "rebuild_bwd": 0, "sign_step": 0, "bias_act": 0,
@@ -193,10 +194,14 @@ def _load(name: str) -> _build.BuiltLibrary:
 @functools.lru_cache(maxsize=None)
 def build_all() -> dict[str, _build.BuiltLibrary]:
     """Build every kernel source at once, one ``nvcc`` each, in parallel,
-    and load them (once per process)."""
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
-        futures = {name: pool.submit(_load, name) for name in SOURCES}
-        return {name: f.result() for name, f in futures.items()}
+    and load them (once per process), in the one-off span ``setup.kernels``
+    whose unit is the number of libraries compiled this time."""
+    with span("setup.kernels", always=True) as rec:
+        with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+            futures = {name: pool.submit(_load, name) for name in SOURCES}
+            libs = {name: f.result() for name, f in futures.items()}
+        rec.unit = sum(lib.seconds > 0 for lib in libs.values())
+    return libs
 
 
 def library(name: str) -> _build.BuiltLibrary:

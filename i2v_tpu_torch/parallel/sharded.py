@@ -559,10 +559,13 @@ def _make_runner(split, chunk_of, devices: list, models: list, taps: list, *, st
         key = (tuple(tuple(f.shape) for f in frames), masks[0] is None)
         loop = loops.get(key)
         if loop is None:
-            loop = loops[key] = _Loop(
-                positions_of(frames, masks), home, steps=steps, step_size=step_size,
-                mu_dtype=mu_dtype, adaptive=adaptive, aens_momentum=aens_momentum,
-                n_taps=n_taps, grad_of=grad_of, graphs=graphs)
+            with span("setup.warm", unit=next_number("setup.warm"), always=True):
+                loop = loops[key] = _Loop(
+                    positions_of(frames, masks), home, steps=steps, step_size=step_size,
+                    mu_dtype=mu_dtype, adaptive=adaptive, aens_momentum=aens_momentum,
+                    n_taps=n_taps, grad_of=grad_of, graphs=graphs)
+                for dev in {p.device for p in loop.positions if p.device.type == "cuda"}:
+                    torch.cuda.synchronize(dev)
         else:
             for q, pos in enumerate(loop.positions):
                 fm = masks[q % cols]

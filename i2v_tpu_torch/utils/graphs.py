@@ -19,8 +19,10 @@ and replays.
 
   - on a CUDA device, the first call eagerly: that is step 0 of the real
     trajectory, and it makes cuDNN's algorithm choice, loads the kernel
-    libraries and runs autograd's first pass. The second call frees the
-    eager step's cached blocks, captures one step and replays it; every
+    libraries and runs autograd's first pass, in the one-off span
+    ``setup.warm`` (:mod:`.profiling`), which ends with the device
+    synchronized. The second call frees the eager step's cached blocks,
+    captures one step (the span ``setup.capture``) and replays it; every
     later call replays. A capture that fails raises: there is no eager
     fallback on the card;
   - on any other device (the CPU, the meta device), every call eagerly.
@@ -48,17 +50,19 @@ made them a step, and each step reads its row on the device.
 from __future__ import annotations
 
 import gc
-import time
 import weakref
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from .profiling import next_number, span
+
 _pools: dict = {}
 _live: dict = {}  # device → the StepGraphs holding a graph in its pool
 _streams: dict = {}
-# every capture of the process: how many, and their one-off host seconds
+# every capture of the process: how many, and the host seconds of their
+# ``setup.capture`` spans
 captures = {"graphs": 0, "seconds": 0.0}
 
 
@@ -82,8 +86,8 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
 class StepGraph:
     """A capture-ready ``step()``, run eagerly once and then replayed as one
     CUDA graph on ``device``; ``enabled=False`` (or a device that is not a
-    card) runs every call eagerly. Each capture adds its one-off host
-    seconds to ``captures``."""
+    card) runs every call eagerly. Each capture adds the host seconds of its
+    ``setup.capture`` span to ``captures``."""
 
     def __init__(self, step: Callable[[], None], device, *, enabled: bool = True):
         self.step = step
@@ -100,7 +104,9 @@ class StepGraph:
         if self.graph is None:
             if not self._warm:
                 self._warm = True
-                self.step()
+                with span("setup.warm", unit=next_number("setup.warm"), always=True):
+                    self.step()
+                    torch.cuda.synchronize(self.device)
                 return
             self._capture()
         from ..ops import kernels
@@ -113,34 +119,34 @@ class StepGraph:
         from ..ops import kernels
 
         kernels.build_all()  # no nvcc and no dlopen inside a capture
-        t0 = time.perf_counter()
-        # graphs no longer referenced are freed now: a collection that ran
-        # inside the capture would destroy them on the capturing thread,
-        # which the capture does not permit (it fails)
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.device(self.device):
-                # torch.cuda.graph synchronizes and empties the cache first:
-                # the eager step's cached blocks go back to the card before
-                # the pool takes one step's working set. The error mode is the
-                # capturing thread's: the artifact writer and the prefetch
-                # thread pin and copy meanwhile, and autograd's device thread
-                # records the backward onto the capture stream.
-                with kernels.capture_tally() as tally:
-                    with torch.cuda.graph(graph, pool=pool(self.device),
-                                          stream=_capture_stream(self.device),
-                                          capture_error_mode="thread_local"):
-                        self.step()
-        finally:
-            if collecting:
-                gc.enable()
-        self.graph, self.launches = graph, {k: n for k, n in tally.items() if n}
-        _live[self.device].add(self)
-        captures["graphs"] += 1
-        captures["seconds"] += time.perf_counter() - t0
+        with span("setup.capture", unit=next_number("setup.capture"), always=True) as rec:
+            # graphs no longer referenced are freed now: a collection that ran
+            # inside the capture would destroy them on the capturing thread,
+            # which the capture does not permit (it fails)
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.device(self.device):
+                    # torch.cuda.graph synchronizes and empties the cache first:
+                    # the eager step's cached blocks go back to the card before
+                    # the pool takes one step's working set. The error mode is
+                    # the capturing thread's: the artifact writer and the
+                    # prefetch thread pin and copy meanwhile, and autograd's
+                    # device thread records the backward onto the capture stream.
+                    with kernels.capture_tally() as tally:
+                        with torch.cuda.graph(graph, pool=pool(self.device),
+                                              stream=_capture_stream(self.device),
+                                              capture_error_mode="thread_local"):
+                            self.step()
+            finally:
+                if collecting:
+                    gc.enable()
+            self.graph, self.launches = graph, {k: n for k, n in tally.items() if n}
+            _live[self.device].add(self)
+            captures["graphs"] += 1
+        captures["seconds"] += rec.host_s
 
 
 class TableAdam:

@@ -5,7 +5,9 @@
                          spans of threads the profiler does not follow; a
                          no-op when no directory is given
   - :func:`span`       — a named interval of the program at a layer boundary,
-                         recorded only while a profiler is on
+                         recorded only while a profiler is on; with
+                         ``always=True`` a one-off span of set-up, recorded
+                         whether or not one is
   - :func:`spans`, :func:`span_totals`, :func:`reset_spans` — the finished
                          spans of the process
   - :func:`next_number` — a process-wide count (runner calls, evaluation
@@ -25,6 +27,14 @@ trace, and :func:`trace` writes them in from memory. Spans go around graph
 replays and host work, never inside a captured step, which would record
 them once, at capture.
 
+A one-off span (``always=True``) records whether or not a profiler runs, on
+the host clock alone (``time.time_ns()``, no CUDA events), and opens its
+``record_function`` only while one runs. Use it only for work done once per
+process, kernel library, shape or graph, never per step, batch or call: it
+is kept in memory for the life of the process. One opened inside another
+names the innermost open one-off span as its ``outer``, so that a sum over
+the spans whose ``outer`` is None counts each interval once.
+
 The program's spans (a benchmark reads some of them by name):
 
   - a generation call (the runner of ``parallel/sharded.py``, the Adam
@@ -37,7 +47,14 @@ The program's spans (a benchmark reads some of them by name):
     loop's wait for the prefetch thread), ``eval.forward`` and
     ``eval.fetch`` (the host waiting for the predictions), and on the
     prefetch thread ``ingest.read``, ``ingest.pin`` and ``ingest.upload``,
-    each batch's spans named ``(sweep, batch index)``.
+    each batch's spans named ``(sweep, batch index)``;
+  - set-up, one-off: ``setup.kernels`` (``ops/kernels.build_all``, once a
+    process; its unit the number of libraries nvcc compiled), ``setup.warm``
+    (the eager first run of a shape: a ``StepGraph``'s first call, a
+    runner's or the Adam engine's first clean-tap forward of a frame shape;
+    each ends with the device synchronized) and ``setup.capture`` (a
+    ``StepGraph``'s capture, whose seconds ``utils/graphs.captures`` adds
+    up), these two numbered by :func:`next_number`.
 """
 
 from __future__ import annotations
@@ -63,7 +80,8 @@ class Span:
     parent unless given); ``traced``: its thread was profiled, so the trace
     holds it as a ``record_function`` event; ``device_ms``: the time between
     two CUDA events recorded at its ends on the device's current stream
-    (None without a device)."""
+    (None without a device); ``once``: a one-off span; ``outer``: the name
+    of the innermost one-off span open on the same thread when it began."""
 
     name: str
     start_ns: int
@@ -75,6 +93,8 @@ class Span:
     traced: bool
     device_ms: Optional[float] = None
     events: Optional[tuple] = dataclasses.field(default=None, repr=False)
+    once: bool = False
+    outer: Optional[str] = None
 
     @property
     def host_s(self) -> float:
@@ -89,10 +109,10 @@ _OFF = contextlib.nullcontext()
 
 
 class _Open:
-    """An open span (profiler on): see :func:`span`."""
+    """An open span (profiler on, or a one-off span): see :func:`span`."""
 
-    def __init__(self, name: str, unit, device):
-        self.name, self.unit = name, unit
+    def __init__(self, name: str, unit, device, once: bool = False):
+        self.name, self.unit, self.once = name, unit, once
         self.device = None if device is None else torch.device(device)
         self.annotation = None
         self.record: Optional[Span] = None
@@ -113,8 +133,10 @@ class _Open:
             events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             events[0].record(torch.cuda.current_stream(self.device))
         thread = threading.current_thread()
+        outer = next((r.name for r in reversed(stack) if r.once), None)
         self.record = Span(self.name, start_ns, 0, None if parent is None else parent.name,
-                           unit, thread.name, threading.get_native_id(), traced, events=events)
+                           unit, thread.name, threading.get_native_id(), traced, events=events,
+                           once=self.once, outer=outer)
         stack.append(self.record)
         return self.record
 
@@ -131,13 +153,19 @@ class _Open:
         return False
 
 
-def span(name: str, *, unit=None, device=None):
+def span(name: str, *, unit=None, device=None, always: bool = False):
     """A context manager around one layer's work. With no profiler running
     (``torch.autograd.profiler._is_profiler_enabled``, set process-wide by
     any profiler) it does nothing. With one, it records a :class:`Span`;
     with ``device`` a CUDA device, also the device time between its ends on
     that device's current stream, read when :func:`spans` is called, after
-    the caller has synchronized: the span itself never waits on the device."""
+    the caller has synchronized: the span itself never waits on the device.
+    ``always``: a one-off span of set-up (see the module's docstring),
+    recorded with or without a profiler, on the host clock alone."""
+    if always:
+        if device is not None:
+            raise ValueError(f"{name}: a one-off span records host time only")
+        return _Open(name, unit, None, once=True)
     if not torch.autograd.profiler._is_profiler_enabled:
         return _OFF
     return _Open(name, unit, device)

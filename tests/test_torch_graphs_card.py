@@ -5,7 +5,9 @@ eager forms; here, on a CUDA card, each runs eagerly (``graphs=False``) and
 graphed: the graphs are captured (one a piece for DIFGSM; one a position and
 one a slice's Adam for the ensemble), the kernels launch as often as the
 eager twin's, the step-0 cost is the eager twin's bit for bit, and DIFGSM's
-draw table is the host draws of its call's generator. The file needs
+draw table is the host draws of its call's generator; a step graph's first
+call records one ``setup.warm`` span, its second one ``setup.capture``
+whose host seconds ``graphs.captures`` adds, its third neither. The file needs
 neither JAX nor the JAX package, so that it runs on a machine with a card
 (``python -m pytest --noconftest tests/test_torch_graphs_card.py -m gpu``);
 without a card every test skips.
@@ -23,7 +25,7 @@ from i2v_tpu_torch.models import ImageModel, build_image_model, get_video_model 
 from i2v_tpu_torch.models.registry import random_init_  # noqa: E402
 from i2v_tpu_torch.ops import diversity, kernels  # noqa: E402
 from i2v_tpu_torch.parallel import ensemble  # noqa: E402
-from i2v_tpu_torch.utils import graphs  # noqa: E402
+from i2v_tpu_torch.utils import graphs, profiling  # noqa: E402
 
 HW, T = 32, 8
 
@@ -77,3 +79,32 @@ def test_ensemble_captures_and_replays_on_the_card(cuda):
     assert kernels.launches["rebuild_bwd"] == 4 * 4
     assert float(graphed[0]) == float(eager[0])
     np.testing.assert_allclose(graphed.cpu().numpy(), eager.cpu().numpy(), rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_a_step_graphs_warm_step_and_capture_are_one_off_spans(cuda):
+    x = torch.ones(4096, device=cuda)
+
+    def step():
+        x.mul_(0.5).add_(1.0)
+
+    graph = graphs.StepGraph(step, cuda)
+    kernels.build_all()  # the capture builds them first in a process that has not
+    profiling.reset_spans()
+
+    def names():
+        return [r.name for r in profiling.spans()]
+
+    graph()
+    assert names() == ["setup.warm"]
+    before = graphs.captures["seconds"]
+    graph()
+    assert names() == ["setup.warm", "setup.capture"]
+    capture = profiling.spans()[-1]
+    assert capture.once and capture.outer is None and not capture.traced
+    assert graphs.captures["seconds"] == before + capture.host_s
+    graph()
+    assert names() == ["setup.warm", "setup.capture"]
+    torch.cuda.synchronize(cuda)
+    assert float(x[0]) == 1.875  # 1 → 1.5 → 1.75 → 1.875: warm, capture's replay, replay
+    profiling.reset_spans()

@@ -15,12 +15,23 @@ Held here:
   - ``profiling.trace()``'s ``trace.json`` holds the main thread's spans and
     the worker's, the worker's inside their ``eval.sweep``;
   - the runners' and the engine's outputs are the same, bit for bit, with
-    the profiler on and off.
+    the profiler on and off;
+  - a one-off span (``always=True``) records with no profiler running and
+    opens its ``record_function`` only under one, an ordinary span beside
+    it still records nothing, and one nested in another names it as
+    ``outer``, so that it counts once; ``kernels.build_all`` records one
+    ``setup.kernels`` a process, its unit the libraries compiled; a runner's
+    and the engine's first call of a frame shape record one ``setup.warm``;
+  - the benchmark's set-up readers (``kernel_load_s.setup``,
+    ``warm_s.setup``, ``setup_rest_s.setup``) read None with nothing
+    recorded, and their arithmetic on a hand-made table of spans, with
+    ``graph_capture_s.setup``, sums to ``setup_s``.
 """
 
 import json
 import re
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -35,9 +46,10 @@ from i2v_tpu_torch import attacks  # noqa: E402
 from i2v_tpu_torch.eval import transfer  # noqa: E402
 from i2v_tpu_torch.models import ImageModel, build_image_model, get_video_model  # noqa: E402
 from i2v_tpu_torch.models.registry import random_init_  # noqa: E402
-from i2v_tpu_torch.ops import pixel  # noqa: E402
+from i2v_tpu_torch.ops import kernels, pixel  # noqa: E402
 from i2v_tpu_torch.parallel import ensemble, sharded  # noqa: E402
-from i2v_tpu_torch.utils import artifacts, profiling  # noqa: E402
+from i2v_tpu_torch.utils import artifacts, graphs, profiling  # noqa: E402
+from port_bench.harness import Bench, Context  # noqa: E402
 
 HW, T, STEPS = 32, 4, 2
 CALL_SPANS = ("i2v.clean_taps", "i2v.steps", "i2v.handback")
@@ -124,6 +136,125 @@ def test_a_worker_threads_spans_are_kept_in_memory():
     assert (job.parent, step.parent, step.unit) == (None, "job", (3, 1))
     assert not job.traced and not step.traced and main.traced
     assert job.tid != main.tid
+
+
+# -- one-off spans ------------------------------------------------------------------------
+
+def test_a_one_off_span_records_with_no_profiler_and_an_ordinary_one_still_does_not(
+        monkeypatch):
+    def refuse(*_):
+        raise AssertionError("record_function opened with no profiler running")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert not torch.autograd.profiler._is_profiler_enabled
+    with profiling.span("setup.a", unit=4, always=True) as rec:
+        with profiling.span("ordinary", device="cpu") as off:
+            pass
+    assert off is None
+    (got,) = profiling.spans()
+    assert got is rec and (got.name, got.unit, got.once, got.outer) == ("setup.a", 4, True, None)
+    assert not got.traced and got.device_ms is None and got.end_ns >= got.start_ns
+    with pytest.raises(ValueError, match="host time only"):
+        profiling.span("setup.b", device="cpu", always=True)
+
+
+def test_a_one_off_span_opens_its_record_function_under_a_profiler(monkeypatch):
+    opened = []
+    real = torch.profiler.record_function
+
+    def spy(name, *args):
+        opened.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(torch.profiler, "record_function", spy)
+    with _profiled():
+        with profiling.span("setup.a", always=True):
+            pass
+    (got,) = profiling.spans()
+    assert opened == ["setup.a"] and got.traced and got.once
+
+
+def test_a_nested_one_off_span_counts_once_under_the_outer_one():
+    with _profiled():
+        with profiling.span("setup.warm", unit=0, always=True) as warm:
+            with profiling.span("i2v.clean_taps"):
+                with profiling.span("setup.kernels", always=True) as build:
+                    pass
+    taps = next(r for r in profiling.spans() if r.name == "i2v.clean_taps")
+    assert (build.parent, build.outer, build.unit) == ("i2v.clean_taps", "setup.warm", 0)
+    assert (taps.once, taps.outer, warm.outer) == (False, "setup.warm", None)
+    outermost = [r for r in profiling.spans() if r.once and r.outer is None]
+    assert outermost == [warm]
+    assert warm.start_ns <= build.start_ns <= build.end_ns <= warm.end_ns
+
+
+@pytest.fixture
+def fresh_build_all():
+    kernels.build_all.cache_clear()
+    yield
+    kernels.build_all.cache_clear()
+
+
+def test_build_all_records_one_kernels_span_with_the_compiled_count(monkeypatch,
+                                                                    fresh_build_all):
+    built = {"rebuild_adv", "bias_act", "dwconv3d"}  # the others' libraries were there
+    monkeypatch.setattr(kernels, "_load", lambda name: types.SimpleNamespace(
+        name=name, seconds=2.5 if name in built else 0.0))
+    libs = kernels.build_all()
+    assert set(libs) == set(kernels.SOURCES)
+    assert kernels.build_all() is libs
+    (rec,) = _by_name("setup.kernels")
+    assert rec.once and rec.outer is None and rec.unit == len(built)
+
+
+def test_a_runners_first_call_of_a_shape_records_one_warm_span(models):
+    for path in sorted(CALLS):
+        profiling.reset_spans()
+        CALLS[path](models)  # two calls of one frame shape, no profiler
+        (warm,) = _by_name("setup.warm")
+        assert warm.once and warm.outer is None and isinstance(warm.unit, int), path
+        assert [r.name for r in profiling.spans()] == ["setup.warm"], path
+
+
+SETUP_READERS = ("kernel_load_s.setup", "warm_s.setup", "setup_rest_s.setup")
+
+
+def _read_metric(name, setup_s=10.0):
+    ctx = Context({}, {}, setup_s, 1.0, {}, 0, "cpu", {})
+    return Bench({}).module("metrics", name).read(ctx)
+
+
+def _once(name, host_s, outer=None, once=True):
+    return profiling.Span(name, 0, int(host_s * 1e9), outer, None, "t", 1, False,
+                          once=once, outer=outer)
+
+
+SETUP_TABLE = [
+    _once("setup.kernels", 1.0, outer="setup.warm"),   # the first kernel launched in a warm step
+    _once("i2v.clean_taps", 0.2, outer="setup.warm", once=False),  # profiled: not subtracted
+    _once("setup.warm", 3.0), _once("setup.warm", 0.5),
+    _once("setup.capture", 0.25), _once("setup.capture", 0.25),
+]
+
+
+@pytest.mark.parametrize("name", SETUP_READERS)
+def test_the_setup_readers_read_none_with_nothing_recorded(monkeypatch, name):
+    monkeypatch.setattr(profiling, "spans", lambda: [])
+    assert _read_metric(name) is None
+
+
+@pytest.mark.parametrize("name, want", [
+    ("kernel_load_s.setup", 1.0),
+    ("warm_s.setup", 2.5),           # 3.0 + 0.5 less the build inside
+    ("setup_rest_s.setup", 6.0),     # 10 less the outermost 3.0 + 0.5 + 0.25 + 0.25
+    ("graph_capture_s.setup", 0.5),
+])
+def test_the_setup_readers_arithmetic_on_a_table(monkeypatch, name, want):
+    monkeypatch.setattr(profiling, "spans", lambda: list(SETUP_TABLE))
+    monkeypatch.setattr(graphs, "captures", {"graphs": 2, "seconds": 0.5})
+    assert _read_metric(name) == pytest.approx(want)
+    parts = sum(_read_metric(n) for n in SETUP_READERS + ("graph_capture_s.setup",))
+    assert parts == pytest.approx(10.0)
 
 
 # -- the spans of a generation call -----------------------------------------------------
